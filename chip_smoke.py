@@ -1,0 +1,409 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, one line each (any failure raises and exits non-zero):
+  1. environment: the card's name and power limit, torch / CUDA / nvcc;
+  2. build: the hand-written kernels under hunyuanvideo_efficiency_tpu_torch/
+     csrc/, one nvcc per source, all at once;
+  3. kernels: each kernel against its plain PyTorch version on the card at
+     main-path shapes, with its time, the plain version's time, one PyTorch
+     library call's time as a yardstick, and the card's lower bound;
+  4. main path: HunyuanVideoSampler.from_pretrained at the full width of
+     HYVideo-T/2 (bf16), Llama-3-8B + CLIP-L (fp16) and the 884-16c-hy VAE
+     (fp16), random weights from fixed seeds, then predict() with CFG at
+     256x448, 33 frames, 4 steps, tiled decode; the kernels' launch counts
+     are set to 0 just before this run and read just after it;
+  5. running-max path: the same predict() with the DiT swapped for a
+     full-width one without QK-norm (2 double + 2 single blocks) whose
+     scores exceed the static kernel's bound, so that flash_attention's
+     "auto" dispatch takes K2; counts reset and read around it as in 4;
+  6. reference: each of those two DiTs at full width, 2+2 blocks, flash
+     kernels vs the plain attention path, on the same inputs.
+Then one JSON line of per-kernel numbers (K1 and K3 launches from phase 4,
+K2's from phase 5), the nvidia-smi line, and the result line. Needs CUDA;
+there is no CPU fallback.
+"""
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+
+import torch
+
+from hunyuanvideo_efficiency_tpu_torch.config import InferenceArgs
+from hunyuanvideo_efficiency_tpu_torch.inference import HunyuanVideoSampler
+from hunyuanvideo_efficiency_tpu_torch.models import dit as dit_mod
+from hunyuanvideo_efficiency_tpu_torch.models.dit_config import DiTConfig
+from hunyuanvideo_efficiency_tpu_torch.ops import cuda_lib
+from hunyuanvideo_efficiency_tpu_torch.ops.conv3d import replicate_pad
+from hunyuanvideo_efficiency_tpu_torch.ops.conv3d_cuda import (
+    conv3d_stride1, conv3d_stride1_plain)
+from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
+    flash_attention_plain, flash_running, flash_static)
+from hunyuanvideo_efficiency_tpu_torch.ops.rope import get_nd_rotary_pos_embed
+
+PEAK_FLOPS = 989e12     # H100 SXM dense bf16/fp16 tensor-core rate
+PEAK_BYTES = 3.35e12    # H100 SXM HBM3 rate
+STEPS = 4
+K2_STEPS = 2
+HEIGHT, WIDTH, FRAMES = 256, 448, 33
+QK_GAIN = 4.0   # scales |q|*|k| by 16: the score bound passes 40
+KERNELS = (flash_static, flash_running, conv3d_stride1)
+
+
+def phase(tag, **fields):
+    print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
+          flush=True)
+
+
+def cuda_ms(fn, iters):
+    """Mean time of fn over `iters` launches, CUDA events, after warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def errors(out, ref):
+    diff = (out.float() - ref.float()).abs().max().item()
+    return diff, diff / max(ref.float().abs().max().item(), 1e-30)
+
+
+def check_flash(dev, smi):
+    """K1 and K2 at B=2, H=24, D=128, 4032 img + 256 txt tokens (the main
+    path's shape at 256x448x33), bf16, text-padding key bias, C from the
+    DiT's analytic bound with unit RMSNorm scales."""
+    g = torch.Generator(dev).manual_seed(0)
+    b, s, h, d, txt_valid = 2, 4032 + 256, 24, 128, 40
+    qk = []
+    for _ in range(2):
+        x = torch.randn(b, s, h, d, generator=g, device=dev)
+        qk.append((x * torch.rsqrt(x.square().mean(-1, keepdim=True)))
+                  .bfloat16())
+    q, k = qk
+    v = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
+    kb = torch.zeros(b, s, device=dev)
+    kb[:, 4032 + txt_valid:] = -1e30
+    norm = dit_mod.RMSNorm(d, device=dev, dtype=torch.bfloat16)
+    c_bound = dit_mod._analytic_score_bound(DiTConfig(), d, [(norm, norm)])
+    c = c_bound.expand(b, h).contiguous()
+    scale = d ** -0.5
+    # the least work: scores and P.V over the unmasked keys only
+    flops = 4 * b * h * s * (4032 + txt_valid) * d
+    io_bytes = 4 * q.numel() * 2 + kb.numel() * 4
+    mask = (kb == 0)[:, None, None, :]
+    qt, kt_, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt_, vt, attn_mask=mask), 10)
+    rows = []
+    for name, running, fn in (
+            ("flash_static", False,
+             lambda st: flash_static(q, k, v, kb, c, scale, st)),
+            ("flash_running", True,
+             lambda st: flash_running(q, k, v, kb, scale, st))):
+        worst = 0.0
+        for state in (False, True):
+            out = fn(state)
+            ref = flash_attention_plain(q, k, v, kb, c, scale, running, state)
+            torch.cuda.synchronize()
+            pairs = zip(out, ref) if state else [(out, ref)]
+            for o, r in pairs:
+                abs_err, rel_err = errors(o, r)
+                if rel_err > 2e-2:
+                    raise AssertionError(f"{name} state={state}: max rel "
+                                         f"error {rel_err} > 2e-2")
+                worst = max(worst, abs_err)
+            del out, ref
+        ms = cuda_ms(lambda: fn(False), 20)
+        plain_ms = cuda_ms(lambda: flash_attention_plain(
+            q, k, v, kb, c, scale, running), 3)
+        bound_ms, by = bound(flops, io_bytes)
+        phase("kernel", name=name, shape=f"[{b},{s},{h},{d}]bf16",
+              max_abs_err=worst, tol="rel 2e-2 (bf16)", kernel_ms=ms,
+              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+              tflops=flops / ms / 1e9, card=smi)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="hunyuanvideo_efficiency_tpu_torch/csrc/flash_attention.cu",
+            replaces=("hunyuanvideo_efficiency_tpu/ops/flash_attention.py:122"
+                      if not running else
+                      "hunyuanvideo_efficiency_tpu/ops/flash_attention.py:38"),
+            max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=by, library_ms=lib_ms))
+    return rows
+
+
+def check_conv(dev, smi):
+    """K3 (fp16) at the decoder's 128- and 512-channel stages, and at the
+    main path's largest stage (the last up block of a 256x256, 33-frame
+    decode tile); the last gives the timed entry."""
+    g = torch.Generator(dev).manual_seed(1)
+    worst = 0.0
+    row = None
+    for shape in ((1, 9, 64, 64, 128, 128), (1, 9, 32, 32, 512, 512),
+                  (1, 33, 256, 256, 128, 128)):
+        b, t, hh, ww, cin, cout = shape
+        x = torch.randn(b, t, hh, ww, cin, generator=g, device=dev).half()
+        xp = replicate_pad(x, (2, 0), (1, 1), (1, 1))
+        w = (torch.randn(3, 3, 3, cin, cout, generator=g, device=dev)
+             / math.sqrt(27 * cin)).half()
+        bias = torch.randn(cout, generator=g, device=dev).half()
+        out = conv3d_stride1(xp, w, bias)
+        ref = conv3d_stride1_plain(xp, w, bias)
+        torch.cuda.synchronize()
+        abs_err, rel_err = errors(out, ref)
+        if rel_err > 5e-3:
+            raise AssertionError(f"conv3d {shape}: max rel error {rel_err} "
+                                 f"> 5e-3")
+        worst = max(worst, abs_err)
+        del out, ref
+        flops = 2 * 27 * cin * cout * b * t * hh * ww
+        nbytes = (xp.numel() + w.numel() + b * t * hh * ww * cout) * 2 \
+            + cout * 2
+        ms = cuda_ms(lambda: conv3d_stride1(xp, w, bias), 10)
+        plain_ms = cuda_ms(lambda: conv3d_stride1_plain(xp, w, bias), 2)
+        x_ncdhw = xp.permute(0, 4, 1, 2, 3)
+        w_oi = w.permute(4, 3, 0, 1, 2).contiguous()
+        lib_ms = cuda_ms(lambda: torch.nn.functional.conv3d(x_ncdhw, w_oi,
+                                                            bias), 10)
+        bound_ms, by = bound(flops, nbytes)
+        phase("kernel", name="conv3d_stride1",
+              shape=f"[{b},{t},{hh},{ww},{cin}]->{cout}fp16",
+              max_abs_err=abs_err, tol="rel 5e-3 (fp16)", kernel_ms=ms,
+              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+              tflops=flops / ms / 1e9, card=smi)
+        row = dict(name="conv3d_stride1", route="cuda",
+                   source="hunyuanvideo_efficiency_tpu_torch/csrc/conv3d.cu",
+                   replaces="hunyuanvideo_efficiency_tpu/ops/"
+                            "conv3d_pallas.py:50",
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                   library_ms=lib_ms)
+        del xp, x, x_ncdhw
+    row["max_abs_err"] = worst
+    return [row]
+
+
+def randomize_modulation(model, seed):
+    """init_weights zero-inits the adaLN and final layers (every block is
+    then the identity): give them random values."""
+    g = torch.Generator(model.img_in.proj.weight.device).manual_seed(seed)
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if isinstance(mod, torch.nn.Linear) and (
+                    name.endswith("mod.linear")
+                    or name.endswith("modulation.linear")
+                    or "adaLN_modulation" in name
+                    or name.startswith("final_layer")):
+                mod.weight.normal_(0.0, 0.5 / math.sqrt(mod.in_features),
+                                   generator=g)
+
+
+def main_path(smi):
+    args = InferenceArgs(model="HYVideo-T/2", vae_tiling=True,
+                         model_base="ckpts-not-present")
+    t0 = time.time()
+    sampler = HunyuanVideoSampler.from_pretrained(args=args,
+                                                  allow_random_init=True)
+    randomize_modulation(sampler.transformer, 3)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    n_params = sum(p.numel() for p in sampler.transformer.parameters())
+    prompt = "A cat walks on the grass, realistic style."
+
+    t0 = time.time()
+    sampler.pipeline.encode_prompt(prompt, sampler.default_negative_prompt,
+                                   True)
+    torch.cuda.synchronize()
+    text_s = time.time() - t0
+
+    reset_counts()
+    marks = []
+
+    def on_step(i, latents):
+        torch.cuda.synchronize()
+        marks.append(time.time())
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = sampler.predict(prompt, height=HEIGHT, width=WIDTH,
+                          video_length=FRAMES, seed=42, infer_steps=STEPS,
+                          guidance_scale=6.0, flow_shift=7.0,
+                          output_dtype="uint8", progress_callback=on_step)
+    t_end = time.time()
+    launches = read_counts()
+    video = out["samples"]
+    steps_s = [b - a for a, b in zip([marks[0]] + marks[:-1], marks)][1:]
+    phase("main_path", dit_params=n_params, build_s=build_s,
+          text_encode_s=text_s,
+          s_per_step=sum(steps_s) / max(len(steps_s), 1),
+          first_step_s=marks[0] - t0, decode_s=t_end - marks[-1],
+          gen_s=out["gen_time"],
+          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30,
+          launches=json.dumps(launches), card=smi)
+    check_video(video)
+    if launches["flash_static"] != 60 * STEPS \
+            or launches["flash_running"] != 0:
+        raise AssertionError(f"attention launches {launches}, expected "
+                             f"{60 * STEPS} of K1 and none of K2")
+    if launches["conv3d_stride1"] == 0:
+        raise AssertionError("K3 was not launched during decode")
+    return sampler, launches
+
+
+def build_unnormed_dit(dev, seed):
+    """HYVideo-T/2 width without QK-norm, 2 double + 2 single blocks, the
+    q and k columns of the joint-attention qkv projections scaled by
+    QK_GAIN: the Cauchy-Schwarz bound of the scores then exceeds 40, and
+    flash_attention's "auto" dispatch takes the running-max kernel (K2),
+    as it does for any such model with large scores."""
+    cfg = dataclasses.replace(DiTConfig(), qk_norm=False,
+                              mm_double_blocks_depth=2,
+                              mm_single_blocks_depth=2)
+    model = dit_mod.build_dit(cfg, dev, torch.bfloat16,
+                              torch.Generator(dev).manual_seed(seed))
+    randomize_modulation(model, seed + 1)
+    h = cfg.hidden_size
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if name.endswith(("img_attn_qkv", "txt_attn_qkv", "linear1")):
+                mod.weight[:2 * h] *= QK_GAIN
+    return model
+
+
+def running_max_path(sampler, smi):
+    """predict() through a DiT whose attention takes K2 in every block."""
+    model = build_unnormed_dit(sampler.device, 8)
+    sampler.transformer = sampler.pipeline.transformer = model
+    torch.cuda.empty_cache()
+    prompt = "A dog runs along the beach at sunset."
+    reset_counts()
+    out = sampler.predict(prompt, height=HEIGHT, width=WIDTH,
+                          video_length=FRAMES, seed=43, infer_steps=K2_STEPS,
+                          guidance_scale=6.0, flow_shift=7.0,
+                          output_dtype="uint8")
+    launches = read_counts()
+    phase("running_max_path", blocks="2+2", qk_norm=False, steps=K2_STEPS,
+          gen_s=out["gen_time"], launches=json.dumps(launches), card=smi)
+    check_video(out["samples"])
+    if launches["flash_running"] != 4 * K2_STEPS \
+            or launches["flash_static"] != 0:
+        raise AssertionError(f"attention launches {launches}, expected "
+                             f"{4 * K2_STEPS} of K2 and none of K1")
+    return model, launches
+
+
+def reset_counts():
+    for fn in KERNELS:
+        fn.LAUNCHES = 0
+
+
+def read_counts():
+    return {fn.__name__: fn.LAUNCHES for fn in KERNELS}
+
+
+def check_video(video):
+    if tuple(video.shape) != (1, 3, FRAMES, HEIGHT, WIDTH) \
+            or video.dtype != torch.uint8:
+        raise AssertionError(f"video {tuple(video.shape)} {video.dtype}")
+    vf = video.float()
+    if not torch.isfinite(vf).all() or vf.std().item() == 0.0:
+        raise AssertionError("video is not finite or is constant")
+
+
+def reference_check(dev, models):
+    """Each full-width 2+2-block DiT: the forward with the flash kernels
+    against the same weights with plain attention, on one small input."""
+    g = torch.Generator(dev).manual_seed(7)
+    x = torch.randn(2, 16, 3, 16, 16, generator=g, device=dev)
+    t = torch.tensor([900.0, 900.0], device=dev)
+    txt = torch.randn(2, 64, 4096, generator=g, device=dev)
+    mask = torch.ones(2, 64, dtype=torch.long, device=dev)
+    mask[:, 20:] = 0
+    txt2 = torch.randn(2, 768, generator=g, device=dev)
+    for label, model in models.items():
+        cfg = model.cfg
+        cos, sin = get_nd_rotary_pos_embed(cfg.rope_dim_list, (3, 8, 8),
+                                           theta=cfg.rope_theta, device=dev)
+        outs = {}
+        for mode in ("flash", "sdpa"):
+            for m in model.modules():
+                if isinstance(getattr(m, "cfg", None), DiTConfig):
+                    m.cfg = dataclasses.replace(m.cfg, attn_mode=mode)
+            reset_counts()
+            with torch.no_grad():
+                outs[mode] = model(x, t, txt, mask, txt2, cos, sin).float()
+            if mode == "flash":
+                launches = read_counts()
+        diff = ((outs["flash"] - outs["sdpa"]).norm()
+                / outs["sdpa"].norm()).item()
+        finite = bool(torch.isfinite(outs["flash"]).all())
+        phase("reference", model=label, check="flash vs plain attention",
+              rel_l2=diff, tol=5e-2, finite=finite,
+              launches=json.dumps(launches))
+        if not finite or diff > 5e-2:
+            raise AssertionError(f"{label}: flash forward disagrees with "
+                                 f"plain attention: rel L2 {diff}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device")
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    nvcc = subprocess.run([cuda_lib.nvcc_path(), "--version"],
+                          capture_output=True, text=True, check=True
+                          ).stdout.strip().splitlines()[-1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase("env", card=smi, torch=torch.__version__, cuda=torch.version.cuda,
+          nvcc=json.dumps(nvcc), python=sys.version.split()[0])
+
+    t0 = time.time()
+    cuda_lib.build()
+    phase("build", seconds=time.time() - t0,
+          libraries=len(cuda_lib.SIGNATURES))
+
+    rows = check_flash(dev, smi) + check_conv(dev, smi)
+    torch.cuda.empty_cache()
+    sampler, launches = main_path(smi)
+    k2_model, k2_launches = running_max_path(sampler, smi)
+    del sampler
+    torch.cuda.empty_cache()
+    launches["flash_running"] = k2_launches["flash_running"]
+    k1_model = dit_mod.build_dit(
+        dataclasses.replace(DiTConfig(), mm_double_blocks_depth=2,
+                            mm_single_blocks_depth=2),
+        dev, torch.bfloat16, torch.Generator(dev).manual_seed(5))
+    randomize_modulation(k1_model, 6)
+    reference_check(dev, {"HYVideo-T/2 2+2 blocks": k1_model,
+                          "no QK-norm 2+2 blocks": k2_model})
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,216 @@
+"""HunyuanVideo text-to-video pipeline on one GPU (JAX counterpart:
+diffusion/pipeline.py; reference:
+hyvideo/diffusion/pipelines/pipeline_hunyuan_video.py:144-1100).
+
+A host loop over `denoise_step`: latents stay fp32 through the Euler step
+while the DiT computes in its own precision (bf16 on the card). Kept from
+the reference: CFG batch order [negative, positive] (:896-903), guidance
+embedding = embedded_cfg_scale * 1000 (:976-985), rescale_noise_cfg
+(arXiv 2305.08891 §3.4, :56-71), latents / scaling_factor (+ shift_factor)
+before decode (:1060-1069) and video = clamp(image / 2 + 0.5, 0, 1)
+(:1090).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple, Union
+
+import torch
+
+from ..models.dit import HYVideoDiT
+from ..models.vae import AutoencoderKLCausal3D
+from .scheduler import FlowMatchDiscreteScheduler, euler_step
+
+
+def rescale_noise_cfg(noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor,
+                      guidance_rescale: float) -> torch.Tensor:
+    """(reference: pipeline_hunyuan_video.py:56-71)."""
+    dims = tuple(range(1, noise_pred_text.ndim))
+    std_text = noise_pred_text.std(dim=dims, keepdim=True, correction=0)
+    std_cfg = noise_cfg.std(dim=dims, keepdim=True, correction=0)
+    rescaled = noise_cfg * (std_text / std_cfg)
+    return guidance_rescale * rescaled + (1 - guidance_rescale) * noise_cfg
+
+
+@torch.no_grad()
+def denoise_step(transformer: HYVideoDiT, latents: torch.Tensor,
+                 sigma: float, sigma_next: float, t: float,
+                 prompt_embeds, prompt_mask, prompt_embeds_2,
+                 freqs_cos, freqs_sin, do_cfg: bool, guidance_scale: float,
+                 embedded_guidance_scale: Optional[float],
+                 guidance_rescale: float) -> torch.Tensor:
+    """One flow-match Euler step with classifier-free guidance."""
+    latent_in = torch.cat([latents] * 2) if do_cfg else latents
+    n = latent_in.shape[0]
+    dev = latents.device
+    t_expand = torch.full((n,), t, dtype=torch.float32, device=dev)
+    guidance = None
+    if transformer.cfg.guidance_embed:
+        guidance = torch.full((n,), (embedded_guidance_scale or 0.0) * 1000.0,
+                              dtype=torch.float32, device=dev)
+    v = transformer(latent_in, t_expand, prompt_embeds, prompt_mask,
+                    prompt_embeds_2, freqs_cos, freqs_sin, guidance).float()
+    if do_cfg:
+        v_uncond, v_text = v.chunk(2)
+        v = v_uncond + guidance_scale * (v_text - v_uncond)
+        if guidance_rescale > 0.0:
+            v = rescale_noise_cfg(v, v_text, guidance_rescale)
+    return euler_step(latents, v, sigma, sigma_next)
+
+
+@dataclass
+class HunyuanVideoPipelineOutput:
+    videos: torch.Tensor  # [B, C, T, H, W], float32/float16 in [0, 1] or uint8
+
+
+class HunyuanVideoPipeline:
+    """Text encoding -> denoise loop -> VAE decode. The encoders may be None
+    when prompt embeddings are passed in."""
+
+    vae_scale_factor = 8
+
+    def __init__(self, vae: AutoencoderKLCausal3D, text_encoder,
+                 text_encoder_2, transformer: HYVideoDiT,
+                 scheduler: FlowMatchDiscreteScheduler):
+        self.vae = vae
+        self.text_encoder = text_encoder
+        self.text_encoder_2 = text_encoder_2
+        self.transformer = transformer
+        self.scheduler = scheduler
+
+    @staticmethod
+    def check_inputs(height: int, width: int, video_length: int,
+                     vae_ver: str = "884-16c-hy"):
+        """(reference: :482-555)."""
+        if height % 8 != 0 or width % 8 != 0:
+            raise ValueError(f"`height` and `width` have to be divisible by "
+                             f"8 but are {height} and {width}.")
+        step = 4 if "884" in vae_ver else 8 if "888" in vae_ver else None
+        if step and video_length != 1 and (video_length - 1) % step != 0:
+            raise ValueError(f"`video_length` has to be 1 or a multiple of "
+                             f"{step} plus 1 but is {video_length}.")
+
+    def encode_prompt(self, prompt, negative_prompt, do_cfg: bool,
+                      data_type: str = "video",
+                      num_videos_per_prompt: int = 1):
+        """Both encoders; [neg, pos] concatenated under CFG (reference:
+        encode_prompt :238-449, concat :896-903)."""
+        pe, mask = self.text_encoder.encode_prompt(
+            prompt, data_type=data_type, num_videos=num_videos_per_prompt)
+        pe2, _ = self.text_encoder_2.encode_prompt(
+            prompt, data_type=data_type, num_videos=num_videos_per_prompt)
+        if isinstance(prompt, (list, tuple)) and isinstance(negative_prompt,
+                                                            str):
+            negative_prompt = [negative_prompt] * len(prompt)
+        if do_cfg:
+            npe, nmask = self.text_encoder.encode_prompt(
+                negative_prompt, data_type=data_type,
+                num_videos=num_videos_per_prompt)
+            npe2, _ = self.text_encoder_2.encode_prompt(
+                negative_prompt, data_type=data_type,
+                num_videos=num_videos_per_prompt)
+            pe = torch.cat([npe, pe])
+            mask = torch.cat([nmask, mask])
+            pe2 = torch.cat([npe2, pe2])
+        return pe, mask, pe2
+
+    @torch.no_grad()
+    def __call__(
+        self,
+        prompt: Optional[Union[str, List[str]]] = None,
+        height: int = 720,
+        width: int = 1280,
+        video_length: int = 129,
+        *,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 1.0,
+        negative_prompt: Optional[str] = None,
+        num_videos_per_prompt: int = 1,
+        generator: Optional[Union[torch.Generator,
+                                  List[torch.Generator]]] = None,
+        latents: Optional[torch.Tensor] = None,
+        prompt_embeds: Optional[torch.Tensor] = None,
+        prompt_mask: Optional[torch.Tensor] = None,
+        prompt_embeds_2: Optional[torch.Tensor] = None,
+        guidance_rescale: float = 0.0,
+        embedded_guidance_scale: Optional[float] = None,
+        freqs_cis: Tuple[torch.Tensor, torch.Tensor] = None,
+        vae_ver: str = "884-16c-hy",
+        enable_tiling: bool = False,
+        data_type: str = "video",
+        n_tokens: Optional[int] = None,
+        progress_callback=None,
+        output_type: str = "video",
+        output_dtype: str = "float32",
+    ) -> HunyuanVideoPipelineOutput:
+        self.check_inputs(height, width, video_length, vae_ver)
+        if output_dtype not in ("float32", "float16", "uint8"):
+            raise ValueError(f"output_dtype must be float32|float16|uint8, "
+                             f"got {output_dtype!r}")
+        do_cfg = guidance_scale > 1.0
+        if prompt_embeds is None:
+            pe, mask, pe2 = self.encode_prompt(prompt, negative_prompt, do_cfg,
+                                               data_type,
+                                               num_videos_per_prompt)
+        else:
+            pe, mask, pe2 = prompt_embeds, prompt_mask, prompt_embeds_2
+        batch = pe.shape[0] // (2 if do_cfg else 1)
+
+        self.scheduler.set_timesteps(num_inference_steps, n_tokens=n_tokens)
+        sigmas = self.scheduler.sigmas
+        timesteps = self.scheduler.timesteps
+
+        if "884" in vae_ver:
+            latent_t = (video_length - 1) // 4 + 1
+        elif "888" in vae_ver:
+            latent_t = (video_length - 1) // 8 + 1
+        else:
+            latent_t = video_length
+        cfg = self.transformer.cfg
+        shape = (batch, cfg.in_channels, latent_t,
+                 height // self.vae_scale_factor,
+                 width // self.vae_scale_factor)
+        dev = pe.device
+        if latents is None:
+            if generator is None:
+                raise ValueError("need a torch.Generator when latents are "
+                                 "not given")
+            gens = (generator if isinstance(generator, (list, tuple))
+                    else [generator])
+            if len(gens) == 1:
+                latents = torch.randn(shape, generator=gens[0], device=dev)
+            else:
+                if len(gens) != batch:
+                    raise ValueError(f"{len(gens)} generators for batch "
+                                     f"{batch}")
+                # one generator per video: each sample reproducible alone
+                latents = torch.stack([torch.randn(shape[1:], generator=g,
+                                                   device=dev) for g in gens])
+        latents = latents.to(device=dev, dtype=torch.float32)
+
+        egs = (float(embedded_guidance_scale)
+               if embedded_guidance_scale is not None else None)
+        for i in range(len(timesteps)):
+            latents = denoise_step(
+                self.transformer, latents, float(sigmas[i]),
+                float(sigmas[i + 1]), float(timesteps[i]), pe, mask, pe2,
+                freqs_cis[0], freqs_cis[1], do_cfg, float(guidance_scale),
+                egs, float(guidance_rescale))
+            if progress_callback is not None:
+                progress_callback(i, latents)
+
+        if output_type == "latent":
+            return HunyuanVideoPipelineOutput(videos=latents)
+
+        vcfg = self.vae.cfg
+        z = latents / vcfg.scaling_factor
+        if vcfg.shift_factor:
+            z = z + vcfg.shift_factor
+        self.vae.enable_tiling(enable_tiling)
+        image = self.vae.decode(z)
+        image = (image.float() / 2 + 0.5).clamp(0.0, 1.0)
+        if output_dtype == "uint8":
+            image = torch.round(image * 255.0).to(torch.uint8)
+        elif output_dtype == "float16":
+            image = image.half()
+        return HunyuanVideoPipelineOutput(videos=image)

@@ -1,0 +1,245 @@
+"""Model loading and the HunyuanVideoSampler predict API on one GPU (JAX
+counterpart: inference.py; reference: hyvideo/inference.py:143-671).
+
+`Inference.from_pretrained` builds the DiT, the VAE and both text towers
+from an `InferenceArgs`: DiT and VAE from the reference `.pt` checkpoints
+when they exist (module names match their state-dict keys), else random
+weights with `allow_random_init=True`, else FileNotFoundError.
+`HunyuanVideoSampler.predict` keeps the reference semantics: seeds
+(int / list / None -> one torch.Generator per video, :534-566), H/W
+aligned to 16 (:584-585), a fresh scheduler with the runtime flow_shift
+(:609-614), the RoPE tables (:450-495) and the pipeline call (:645-664).
+"""
+from __future__ import annotations
+
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from .config import InferenceArgs, parse_vae_name
+from .constants import NEGATIVE_PROMPT, PRECISION_TO_TYPE
+from .diffusion.pipeline import HunyuanVideoPipeline
+from .diffusion.scheduler import FlowMatchDiscreteScheduler
+from .models.dit import build_dit
+from .models.dit_config import DiTConfig, load_dit_config
+from .models.text import build_text_encoders
+from .models.vae import build_vae
+from .models.vae_config import load_vae_config
+from .ops.rope import get_nd_rotary_pos_embed
+
+
+def align_to(value: int, alignment: int) -> int:
+    """Round `value` up to a multiple of `alignment`."""
+    return int(((value + alignment - 1) // alignment) * alignment)
+
+
+def get_rotary_pos_embed(cfg: DiTConfig, vae_name: str, video_length: int,
+                         height: int, width: int, device="cuda"):
+    """(cos, sin, patch-grid sizes) (reference: hyvideo/inference.py:450-495)."""
+    info = parse_vae_name(vae_name)
+    pt, ph, pw = cfg.patch_size
+    sizes = (info.latent_frames(video_length) // pt,
+             height // info.spatial_ratio // ph,
+             width // info.spatial_ratio // pw)
+    cos, sin = get_nd_rotary_pos_embed(cfg.rope_dim_list, sizes,
+                                       theta=cfg.rope_theta, device=device)
+    return cos, sin, sizes
+
+
+def load_torch_state_dict(path, load_key: str = "module",
+                          prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A reference checkpoint's state dict: bare, under `load_key` (the
+    deepspeed `module`/`ema` forms) or under `state_dict`, with an optional
+    key prefix stripped (reference: hyvideo/inference.py:279-354,
+    hyvideo/vae/__init__.py:94-102)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and load_key in sd:
+        sd = sd[load_key]
+    elif isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    if prefix and any(k.startswith(prefix) for k in sd):
+        sd = {k[len(prefix):]: v for k, v in sd.items()
+              if k.startswith(prefix)}
+    return sd
+
+
+class Inference:
+    def __init__(self, args: InferenceArgs, vae, text_encoder,
+                 text_encoder_2, transformer, logger=None):
+        self.args = args
+        self.vae = vae
+        self.text_encoder = text_encoder
+        self.text_encoder_2 = text_encoder_2
+        self.transformer = transformer
+        self.logger = logger
+
+    @property
+    def device(self) -> torch.device:
+        return self.transformer.img_in.proj.weight.device
+
+    @staticmethod
+    def resolve_dit_weight(args: InferenceArgs) -> Optional[Path]:
+        """(reference: inference.py:279-354)."""
+        if args.dit_weight:
+            return Path(args.dit_weight)
+        base = Path(args.model_base) / "hunyuan-video-t2v-720p/transformers"
+        for cand in (f"pytorch_model_{args.load_key}.pt",
+                     "mp_rank_00_model_states.pt"):
+            if (base / cand).exists():
+                return base / cand
+        return None
+
+    @classmethod
+    def from_pretrained(cls, pretrained_model_path: Optional[str] = None,
+                        args: Optional[InferenceArgs] = None,
+                        allow_random_init: bool = False, logger=None,
+                        **kwargs):
+        """kwargs: `llm_config` / `clip_config` for smaller towers."""
+        args = args or InferenceArgs()
+        if pretrained_model_path is not None:
+            args.model_base = str(pretrained_model_path)
+        device = torch.device(args.device)
+        base = Path(args.model_base)
+
+        cfg = load_dit_config(args.model, rope_theta=float(args.rope_theta),
+                              attn_mode=args.attn_mode)
+        dtype = PRECISION_TO_TYPE[args.precision]
+        dit_path = cls.resolve_dit_weight(args)
+        if dit_path is not None:
+            transformer = build_dit(cfg, device, dtype)
+            transformer.load_state_dict(
+                load_torch_state_dict(dit_path, args.load_key))
+        elif allow_random_init:
+            transformer = build_dit(
+                cfg, device, dtype,
+                torch.Generator(device=device).manual_seed(0))
+        else:
+            raise FileNotFoundError(
+                f"No DiT checkpoint under {args.model_base}; pass "
+                f"--dit-weight or allow_random_init=True")
+
+        vae_cfg = load_vae_config(args.vae)
+        vae_dtype = PRECISION_TO_TYPE[args.vae_precision]
+        vae_path = base / "hunyuan-video-t2v-720p/vae/pytorch_model.pt"
+        if vae_path.exists():
+            vae = build_vae(vae_cfg, device, vae_dtype)
+            vae.load_state_dict(load_torch_state_dict(vae_path, prefix="vae."))
+        elif allow_random_init:
+            vae = build_vae(vae_cfg, device, vae_dtype,
+                            torch.Generator(device=device).manual_seed(1))
+        else:
+            raise FileNotFoundError(f"No VAE checkpoint at {vae_path}")
+
+        if not allow_random_init:
+            raise FileNotFoundError(
+                "text encoder weights: only random towers "
+                "(allow_random_init=True) are supported so far")
+        llm_dir, clip_dir = base / "text_encoder", base / "text_encoder_2"
+        text_encoder, text_encoder_2 = build_text_encoders(
+            llm_config=kwargs.pop("llm_config", None),
+            clip_config=kwargs.pop("clip_config", None),
+            tokenizer_path=str(llm_dir) if llm_dir.exists() else None,
+            tokenizer_path_2=str(clip_dir) if clip_dir.exists() else None,
+            text_len=args.text_len, text_len_2=args.text_len_2,
+            prompt_template=args.prompt_template,
+            prompt_template_video=args.prompt_template_video,
+            hidden_state_skip_layer=args.hidden_state_skip_layer,
+            apply_final_norm=args.apply_final_norm, device=device,
+            dtype=PRECISION_TO_TYPE[args.text_encoder_precision],
+            generator=torch.Generator(device=device).manual_seed(2))
+        return cls(args, vae, text_encoder, text_encoder_2, transformer,
+                   logger=logger)
+
+
+class HunyuanVideoSampler(Inference):
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.pipeline = HunyuanVideoPipeline(
+            vae=self.vae, text_encoder=self.text_encoder,
+            text_encoder_2=self.text_encoder_2, transformer=self.transformer,
+            scheduler=self._scheduler(self.args.flow_shift))
+        self.default_negative_prompt = NEGATIVE_PROMPT
+
+    def _scheduler(self, shift: float) -> FlowMatchDiscreteScheduler:
+        a = self.args
+        return FlowMatchDiscreteScheduler(
+            shift=shift, reverse=a.flow_reverse, solver=a.flow_solver,
+            use_linear_quadratic_schedule=a.use_linear_quadratic_schedule,
+            linear_schedule_end=a.linear_schedule_end)
+
+    def predict(
+        self,
+        prompt: str,
+        height: int = 192,
+        width: int = 336,
+        video_length: int = 129,
+        seed: Union[int, List[int], None] = None,
+        negative_prompt: Optional[str] = None,
+        infer_steps: int = 50,
+        guidance_scale: float = 6.0,
+        flow_shift: float = 5.0,
+        embedded_guidance_scale: Optional[float] = None,
+        batch_size: int = 1,
+        num_videos_per_prompt: int = 1,
+        output_dtype: str = "float32",
+        progress_callback=None,
+    ) -> Dict[str, Any]:
+        """(reference: predict, inference.py:497-671). Returns a dict with
+        `samples` [B, 3, T, H, W] on the model's device, `seeds`, `size`,
+        `prompts` and `gen_time` (seconds, host clock, synchronized)."""
+        n_total = batch_size * num_videos_per_prompt
+        if isinstance(seed, (int, np.integer)):
+            seeds = [int(seed) + i for i in range(n_total)]
+        elif seed is None:
+            seeds = [int(s) for s in np.random.randint(0, 1_000_000, n_total)]
+        elif isinstance(seed, (list, tuple)):
+            seeds = [int(s) for s in seed][:n_total]
+            seeds += [seeds[-1] + i + 1 for i in range(n_total - len(seeds))]
+        else:
+            raise ValueError(f"Seed must be int, list or None, got {seed}")
+        dev = self.device
+        gens = [torch.Generator(device=dev).manual_seed(s) for s in seeds]
+
+        if video_length != 1 and (video_length - 1) % 4 != 0:
+            raise ValueError(f"`video_length` has to be 1 or a multiple of 4 "
+                             f"plus 1, got {video_length}")
+        target_h, target_w = align_to(height, 16), align_to(width, 16)
+        if not isinstance(prompt, str):
+            raise TypeError(f"`prompt` must be a string, got {type(prompt)}")
+        prompt = prompt.strip()
+        if negative_prompt is None or negative_prompt == "":
+            negative_prompt = self.default_negative_prompt
+        if not isinstance(negative_prompt, str):
+            raise TypeError(f"`negative_prompt` must be a string, got "
+                            f"{type(negative_prompt)}")
+        negative_prompt = negative_prompt.strip()
+
+        self.pipeline.scheduler = self._scheduler(flow_shift)
+        cos, sin, (tt, th, tw) = get_rotary_pos_embed(
+            self.transformer.cfg, self.args.vae, video_length, target_h,
+            target_w, device=dev)
+
+        start = time.time()
+        samples = self.pipeline(
+            prompt=prompt, height=target_h, width=target_w,
+            video_length=video_length, num_inference_steps=infer_steps,
+            guidance_scale=guidance_scale, negative_prompt=negative_prompt,
+            num_videos_per_prompt=num_videos_per_prompt,
+            generator=gens if len(gens) > 1 else gens[0],
+            embedded_guidance_scale=embedded_guidance_scale,
+            freqs_cis=(cos, sin), n_tokens=tt * th * tw,
+            vae_ver=self.args.vae, enable_tiling=self.args.vae_tiling,
+            data_type="video" if video_length > 1 else "image",
+            progress_callback=progress_callback,
+            output_dtype=output_dtype).videos
+        if samples.is_cuda:
+            torch.cuda.synchronize(samples.device)
+        gen_time = time.time() - start
+        if self.logger:
+            self.logger.info(f"Success, time: {gen_time}")
+        return {"samples": samples, "seeds": seeds,
+                "size": (target_h, target_w, video_length),
+                "prompts": [prompt], "gen_time": gen_time}

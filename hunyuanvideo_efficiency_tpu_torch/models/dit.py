@@ -1,0 +1,514 @@
+"""HunyuanVideo MM-DiT backbone (JAX counterpart: models/dit.py; reference:
+hyvideo/modules/models.py:396-760).
+
+Module names follow the reference checkpoint's state-dict keys (the ones
+the JAX package's utils/checkpoint.py:convert_dit_state_dict reads), so a
+reference `.pt` loads with `load_state_dict` unchanged. The patch embedding
+is a stride == kernel Conv3d (`img_in.proj`) applied as a reshape + matmul.
+
+Joint attention over [img | txt] with a key-padding bias replaces varlen
+packing; QK-RMSNorm + interleaved 3-axis RoPE; the single-stream block's
+fused linear1 is split into its qkv columns and MLP columns, and linear2
+into the attention rows (with the bias) and MLP rows, as in the JAX block.
+With QK-norm the scores are bounded by `_analytic_score_bound`, and
+attention runs the static-offset flash kernel (K1).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.attention import (attention, joint_attention, joint_key_bias,
+                             sdpa_attention, text_key_bias)
+from ..ops.norms import layer_norm, rms_norm
+from ..ops.rope import rotate_tokens
+from .dit_config import DiTConfig
+
+ACT = {
+    "gelu": F.gelu,
+    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "silu": F.silu,
+}
+
+
+def timestep_embedding(t: torch.Tensor, dim: int,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal embedding in [cos | sin] order, fp32
+    (reference: embed_layers.py:93-117)."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=t.device) / half)
+    args = t.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+def modulate(x, shift, scale):
+    return x * (1.0 + scale[:, None]) + shift[:, None]
+
+
+def apply_gate(x, gate):
+    return x * gate[:, None]
+
+
+class TimestepEmbedder(nn.Module):
+    def __init__(self, hidden: int, freq_size: int = 256, **fk):
+        super().__init__()
+        self.freq_size = freq_size
+        self.mlp = nn.Sequential(nn.Linear(freq_size, hidden, **fk), nn.SiLU(),
+                                 nn.Linear(hidden, hidden, **fk))
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        w = self.mlp[0].weight
+        return self.mlp(timestep_embedding(t, self.freq_size).to(w.dtype))
+
+
+class MLPEmbedder(nn.Module):
+    """in_layer -> silu -> out_layer (reference: mlp_layers.py:63-73)."""
+
+    def __init__(self, cin: int, hidden: int, **fk):
+        super().__init__()
+        self.in_layer = nn.Linear(cin, hidden, **fk)
+        self.out_layer = nn.Linear(hidden, hidden, **fk)
+
+    def forward(self, x):
+        return self.out_layer(F.silu(self.in_layer(x)))
+
+
+class MLP(nn.Module):
+    def __init__(self, cin: int, hidden: int, **fk):
+        super().__init__()
+        self.fc1 = nn.Linear(cin, hidden, **fk)
+        self.fc2 = nn.Linear(hidden, cin, **fk)
+
+    def forward(self, x, act: str):
+        return self.fc2(ACT[act](self.fc1(x)))
+
+
+class ModulateDiT(nn.Module):
+    """silu -> linear; key `<name>.linear`."""
+
+    def __init__(self, hidden: int, factor: int, **fk):
+        super().__init__()
+        self.linear = nn.Linear(hidden, factor * hidden, **fk)
+
+    def forward(self, vec):
+        return self.linear(F.silu(vec))
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6, **fk):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, **fk))
+
+    def forward(self, x):
+        return rms_norm(x, self.weight, self.eps)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6, **fk):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, **fk))
+        self.bias = nn.Parameter(torch.zeros(dim, **fk))
+
+    def forward(self, x):
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+def _qk_norm_layer(cfg: DiTConfig, d: int, **fk) -> nn.Module:
+    return RMSNorm(d, **fk) if cfg.qk_norm_type == "rms" else LayerNorm(d, **fk)
+
+
+# --------------------------------------------------------------------------
+# Token refiner (reference: hyvideo/modules/token_refiner.py)
+# --------------------------------------------------------------------------
+
+class RefinerBlock(nn.Module):
+    def __init__(self, h: int, heads: int, **fk):
+        super().__init__()
+        self.heads = heads
+        self.norm1 = LayerNorm(h, **fk)
+        self.self_attn_qkv = nn.Linear(h, 3 * h, **fk)
+        self.self_attn_proj = nn.Linear(h, h, **fk)
+        self.norm2 = LayerNorm(h, **fk)
+        self.mlp = MLP(h, 4 * h, **fk)
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(),
+                                              nn.Linear(h, 2 * h, **fk))
+
+    def forward(self, x, c, attn_bias):
+        gate_msa, gate_mlp = self.adaLN_modulation(c).chunk(2, dim=-1)
+        qkv = self.self_attn_qkv(self.norm1(x))
+        b, l, _ = qkv.shape
+        q, k, v = (u.reshape(b, l, self.heads, -1)
+                   for u in qkv.chunk(3, dim=-1))
+        attn = sdpa_attention(q, k, v, bias=attn_bias)
+        x = x + apply_gate(self.self_attn_proj(attn), gate_msa)
+        return x + apply_gate(self.mlp(self.norm2(x), "silu"), gate_mlp)
+
+
+class TextProjection(nn.Module):
+    def __init__(self, cin: int, h: int, **fk):
+        super().__init__()
+        self.linear_1 = nn.Linear(cin, h, **fk)
+        self.linear_2 = nn.Linear(h, h, **fk)
+
+    def forward(self, x):
+        return self.linear_2(F.silu(self.linear_1(x)))
+
+
+class RefinerBlocks(nn.Module):
+    def __init__(self, depth: int, h: int, heads: int, **fk):
+        super().__init__()
+        self.blocks = nn.ModuleList(RefinerBlock(h, heads, **fk)
+                                    for _ in range(depth))
+
+
+class SingleTokenRefiner(nn.Module):
+    """LLM hidden states [B, L, text_dim] -> refined [B, L, hidden]
+    (reference: token_refiner.py:164-236)."""
+
+    def __init__(self, cfg: DiTConfig, depth: int = 2, **fk):
+        super().__init__()
+        h, td = cfg.hidden_size, cfg.text_states_dim
+        self.input_embedder = nn.Linear(td, h, **fk)
+        self.t_embedder = TimestepEmbedder(h, **fk)
+        self.c_embedder = TextProjection(td, h, **fk)
+        self.individual_token_refiner = RefinerBlocks(depth, h, cfg.heads_num,
+                                                      **fk)
+
+    def forward(self, x, t, mask):
+        t_emb = self.t_embedder(t)
+        if mask is None:
+            ctx = x.mean(dim=1)
+        else:
+            mf = mask.to(x.dtype)[..., None]
+            ctx = (x * mf).sum(dim=1) / mf.sum(dim=1).clamp_min(1.0)
+        c = t_emb + self.c_embedder(ctx)
+        attn_bias = None
+        if mask is not None:
+            m = mask.bool()
+            pair = m[:, None, :] & m[:, :, None]
+            pair[:, :, 0] = True  # no all-masked rows (reference :157)
+            attn_bias = torch.where(pair, 0.0, -1e30).float()[:, None]
+        x = self.input_embedder(x)
+        for blk in self.individual_token_refiner.blocks:
+            x = blk(x, c, attn_bias)
+        return x
+
+
+# --------------------------------------------------------------------------
+# MM blocks
+# --------------------------------------------------------------------------
+
+def _analytic_score_bound(cfg: DiTConfig, d: int, norm_pairs):
+    """Weight-derived bound on |q.k|*scale after QK-norm + RoPE (JAX
+    models/dit.py:331-364): ||norm(x)*g|| <= sqrt(d)*max|g| (+ the bias
+    norm for LayerNorm), RoPE preserves row norms, so
+    C = max_q_bound * max_k_bound / sqrt(d), times 1.02 for bf16 rounding,
+    capped at 60. Returns a 0-d fp32 tensor, or None without QK-norm."""
+    if not cfg.qk_norm:
+        return None
+
+    def row_bound(norm):
+        bound = (d ** 0.5) * norm.weight.float().abs().max()
+        if cfg.qk_norm_type != "rms":
+            bound = bound + norm.bias.float().square().sum().sqrt()
+        return bound
+
+    qb = torch.stack([row_bound(nq) for nq, _ in norm_pairs]).max()
+    kb = torch.stack([row_bound(nk) for _, nk in norm_pairs]).max()
+    return torch.clamp(qb * kb * (d ** -0.5) * 1.02, max=60.0)
+
+
+def _bound_mode(cfg: DiTConfig) -> str:
+    """With QK-RMSNorm the analytic bound always holds: static kernel."""
+    return "static" if cfg.qk_norm else "auto"
+
+
+class DoubleBlock(nn.Module):
+    """(reference: models.py:132-252)."""
+
+    def __init__(self, cfg: DiTConfig, **fk):
+        super().__init__()
+        self.cfg = cfg
+        h, d, m = cfg.hidden_size, cfg.head_dim, cfg.mlp_hidden_dim
+        for s in ("img", "txt"):
+            setattr(self, f"{s}_mod", ModulateDiT(h, 6, **fk))
+            setattr(self, f"{s}_attn_qkv",
+                    nn.Linear(h, 3 * h, bias=cfg.qkv_bias, **fk))
+            setattr(self, f"{s}_attn_q_norm", _qk_norm_layer(cfg, d, **fk))
+            setattr(self, f"{s}_attn_k_norm", _qk_norm_layer(cfg, d, **fk))
+            setattr(self, f"{s}_attn_proj",
+                    nn.Linear(h, h, bias=cfg.qkv_bias, **fk))
+            setattr(self, f"{s}_mlp", MLP(h, m, **fk))
+
+    def _qkv(self, s: str, x):
+        cfg = self.cfg
+        b, l, _ = x.shape
+        q, k, v = (u.reshape(b, l, cfg.heads_num, cfg.head_dim)
+                   for u in getattr(self, f"{s}_attn_qkv")(x).chunk(3, -1))
+        return q, k, v
+
+    def forward(self, img, txt, vec, txt_bias, freqs_cis):
+        cfg = self.cfg
+        b, img_len, _ = img.shape
+        i_sh1, i_sc1, i_g1, i_sh2, i_sc2, i_g2 = self.img_mod(vec).chunk(6, -1)
+        t_sh1, t_sc1, t_g1, t_sh2, t_sc2, t_g2 = self.txt_mod(vec).chunk(6, -1)
+        img_m = modulate(layer_norm(img), i_sh1, i_sc1)
+        txt_m = modulate(layer_norm(txt), t_sh1, t_sc1)
+
+        img_q, img_k, img_v = self._qkv("img", img_m)
+        txt_q, txt_k, txt_v = self._qkv("txt", txt_m)
+        if cfg.qk_norm:
+            img_pre_q, img_pre_k = self.img_attn_q_norm, self.img_attn_k_norm
+            txt_q = self.txt_attn_q_norm(txt_q)
+            txt_k = self.txt_attn_k_norm(txt_k)
+        else:
+            img_pre_q = img_pre_k = None
+        if freqs_cis is not None:
+            # img rows of the joint table; its text rows are the identity
+            img_freqs = (freqs_cis[0][:img_len], freqs_cis[1][:img_len])
+            img_q = rotate_tokens(img_q, img_freqs, pre=img_pre_q)
+            img_k = rotate_tokens(img_k, img_freqs, pre=img_pre_k)
+        elif cfg.qk_norm:
+            img_q, img_k = img_pre_q(img_q), img_pre_k(img_k)
+
+        sbound = _analytic_score_bound(
+            cfg, cfg.head_dim,
+            [(self.img_attn_q_norm, self.img_attn_k_norm),
+             (self.txt_attn_q_norm, self.txt_attn_k_norm)])
+        img_attn, txt_attn = joint_attention(
+            img_q, img_k, img_v, txt_q, txt_k, txt_v, txt_bias,
+            mode=cfg.attn_mode, bound_mode=_bound_mode(cfg),
+            score_bound=sbound)
+
+        img = img + apply_gate(self.img_attn_proj(img_attn), i_g1)
+        img = img + apply_gate(
+            self.img_mlp(modulate(layer_norm(img), i_sh2, i_sc2),
+                         cfg.mlp_act_type), i_g2)
+        txt = txt + apply_gate(self.txt_attn_proj(txt_attn), t_g1)
+        txt = txt + apply_gate(
+            self.txt_mlp(modulate(layer_norm(txt), t_sh2, t_sc2),
+                         cfg.mlp_act_type), t_g2)
+        return img, txt
+
+
+class SingleBlock(nn.Module):
+    """Parallel attention + MLP block with fused linears (reference:
+    models.py:326-393): out = attn @ W2[:, :h]^T + b2
+    + act(x_mod @ W1[3h:]^T + b1[3h:]) @ W2[:, h:]^T, the column/row split
+    of the JAX block (no [L, 3h+m] or [L, h+m] concatenation)."""
+
+    def __init__(self, cfg: DiTConfig, **fk):
+        super().__init__()
+        self.cfg = cfg
+        h, d, m = cfg.hidden_size, cfg.head_dim, cfg.mlp_hidden_dim
+        self.linear1 = nn.Linear(h, 3 * h + m, **fk)
+        self.linear2 = nn.Linear(h + m, h, **fk)
+        self.q_norm = _qk_norm_layer(cfg, d, **fk)
+        self.k_norm = _qk_norm_layer(cfg, d, **fk)
+        self.modulation = ModulateDiT(h, 3, **fk)
+
+    def forward(self, x, vec, txt_len: int, txt_bias, freqs_cis):
+        cfg = self.cfg
+        b, l, h = x.shape
+        h3 = 3 * h
+        shift, scale, gate = self.modulation(vec).chunk(3, -1)
+        x_mod = modulate(layer_norm(x), shift, scale)
+        w1, b1 = self.linear1.weight, self.linear1.bias
+        w2 = self.linear2.weight
+        qkv = F.linear(x_mod, w1[:h3], b1[:h3])
+        q, k, v = (u.reshape(b, l, cfg.heads_num, cfg.head_dim)
+                   for u in qkv.chunk(3, -1))
+        pre_q = self.q_norm if cfg.qk_norm else None
+        pre_k = self.k_norm if cfg.qk_norm else None
+        if freqs_cis is not None:
+            q = rotate_tokens(q, freqs_cis, pre=pre_q)
+            k = rotate_tokens(k, freqs_cis, pre=pre_k)
+        elif cfg.qk_norm:
+            q, k = pre_q(q), pre_k(k)
+        sbound = _analytic_score_bound(cfg, cfg.head_dim,
+                                       [(self.q_norm, self.k_norm)])
+        attn = attention(q, k, v, mode=cfg.attn_mode,
+                         key_bias=joint_key_bias(txt_bias, l - txt_len),
+                         bound_mode=_bound_mode(cfg), score_bound=sbound)
+        out = F.linear(attn, w2[:, :h], self.linear2.bias)
+        hid = ACT[cfg.mlp_act_type](F.linear(x_mod, w1[h3:], b1[h3:]))
+        out = out + F.linear(hid, w2[:, h:])
+        return x + apply_gate(out, gate)
+
+
+class PatchEmbed(nn.Module):
+    """Conv3d with kernel == stride == patch, applied to raw patch tokens as
+    a matmul (reference: embed_layers.py:40-58)."""
+
+    def __init__(self, patch, cin: int, hidden: int, **fk):
+        super().__init__()
+        self.proj = nn.Conv3d(cin, hidden, kernel_size=patch, stride=patch,
+                              **fk)
+
+    def forward(self, tokens):
+        w = self.proj.weight
+        return F.linear(tokens.to(w.dtype), w.reshape(w.shape[0], -1),
+                        self.proj.bias)
+
+
+class FinalLayer(nn.Module):
+    """Norm-free adaLN + linear (reference: mlp_layers.py:114-118)."""
+
+    def __init__(self, h: int, out: int, **fk):
+        super().__init__()
+        self.linear = nn.Linear(h, out, **fk)
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(),
+                                              nn.Linear(h, 2 * h, **fk))
+
+    def forward(self, img, vec):
+        shift, scale = self.adaLN_modulation(vec).chunk(2, -1)
+        return self.linear(modulate(layer_norm(img), shift, scale))
+
+
+def patchify_raw(x: torch.Tensor, patch: Tuple[int, int, int]) -> torch.Tensor:
+    """[B, C, T, H, W] -> raw patch tokens [B, T'H'W', C*pt*ph*pw], tokens in
+    row-major (t, h, w) order, features in the conv kernel's (C, pt, ph, pw)
+    order."""
+    b, c, t, hh, ww = x.shape
+    pt, ph, pw = patch
+    x = x.reshape(b, c, t // pt, pt, hh // ph, ph, ww // pw, pw)
+    x = x.permute(0, 2, 4, 6, 1, 3, 5, 7)
+    return x.reshape(b, (t // pt) * (hh // ph) * (ww // pw), c * pt * ph * pw)
+
+
+def unpatchify(x: torch.Tensor, tt: int, th: int, tw: int, c: int,
+               patch: Tuple[int, int, int]) -> torch.Tensor:
+    """Tokens [B, L, pt*ph*pw*C] -> [B, C, T, H, W]
+    (reference: models.py:697-710, einsum 'nthwcopq->nctohpwq')."""
+    pt, ph, pw = patch
+    b = x.shape[0]
+    x = x.reshape(b, tt, th, tw, c, pt, ph, pw)
+    x = torch.einsum("nthwcopq->nctohpwq", x)
+    return x.reshape(b, c, tt * pt, th * ph, tw * pw)
+
+
+class HYVideoDiT(nn.Module):
+    """The full MM-DiT; `forward` is the JAX `dit_forward`."""
+
+    def __init__(self, cfg: DiTConfig, device=None, dtype=None):
+        super().__init__()
+        fk = {"device": device, "dtype": dtype}
+        self.cfg = cfg
+        h = cfg.hidden_size
+        pt, ph, pw = cfg.patch_size
+        self.img_in = PatchEmbed(cfg.patch_size, cfg.in_channels, h, **fk)
+        self.time_in = TimestepEmbedder(h, **fk)
+        self.vector_in = MLPEmbedder(cfg.text_states_dim_2, h, **fk)
+        if cfg.guidance_embed:
+            self.guidance_in = TimestepEmbedder(h, **fk)
+        if cfg.text_projection == "single_refiner":
+            self.txt_in = SingleTokenRefiner(cfg, **fk)
+        elif cfg.text_projection == "linear":
+            self.txt_in = TextProjection(cfg.text_states_dim, h, **fk)
+        else:
+            raise NotImplementedError(cfg.text_projection)
+        self.double_blocks = nn.ModuleList(
+            DoubleBlock(cfg, **fk) for _ in range(cfg.mm_double_blocks_depth))
+        self.single_blocks = nn.ModuleList(
+            SingleBlock(cfg, **fk) for _ in range(cfg.mm_single_blocks_depth))
+        self.final_layer = FinalLayer(h, pt * ph * pw * cfg.out_channels, **fk)
+
+    def forward(self, x, t, text_states, text_mask, text_states_2,
+                freqs_cos, freqs_sin, guidance=None):
+        """x [B, C, T', H', W'] latent, t [B] in [0, 1000), text_states
+        [B, L, text_dim], text_mask [B, L], text_states_2 [B, text_dim_2],
+        freqs [img_len, head_dim] -> [B, C, T', H', W']
+        (reference: models.py:595-695)."""
+        cfg = self.cfg
+        b, _, ot, oh, ow = x.shape
+        pt, ph, pw = cfg.patch_size
+        tt, th, tw = ot // pt, oh // ph, ow // pw
+        dtype = self.img_in.proj.weight.dtype
+
+        vec = self.time_in(t) + self.vector_in(text_states_2.to(dtype))
+        if cfg.guidance_embed:
+            if guidance is None:
+                raise ValueError("guidance required for guidance-distilled "
+                                 "model")
+            vec = vec + self.guidance_in(guidance)
+        img = self.img_in(patchify_raw(x, cfg.patch_size))
+        img_len = img.shape[1]
+        text_states = text_states.to(dtype)
+        if cfg.text_projection == "linear":
+            txt = self.txt_in(text_states)
+        else:
+            txt = self.txt_in(text_states, t,
+                              text_mask if cfg.use_attention_mask else None)
+        txt_len = txt.shape[1]
+        txt_bias = text_key_bias(text_mask) if text_mask is not None else None
+
+        freqs = None
+        if freqs_cos is not None:
+            # identity rows (cos 1, sin 0) over the text segment: the joint
+            # [img | txt] q/k rotate in place
+            fd = freqs_cos.shape[-1]
+            freqs = (torch.cat([freqs_cos, freqs_cos.new_ones(txt_len, fd)]),
+                     torch.cat([freqs_sin, freqs_sin.new_zeros(txt_len, fd)]))
+        for blk in self.double_blocks:
+            img, txt = blk(img, txt, vec, txt_bias, freqs)
+        xx = torch.cat([img, txt], dim=1)
+        for blk in self.single_blocks:
+            xx = blk(xx, vec, txt_len, txt_bias, freqs)
+        out = self.final_layer(xx[:, :img_len], vec)
+        return unpatchify(out, tt, th, tw, cfg.out_channels, cfg.patch_size)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "HYVideoDiT":
+        """Random weights as the JAX init_dit_params draws them: linears
+        uniform(+-1/sqrt(fan_in)), timestep-embedder linears N(0, 0.02),
+        zero biases, unit norm scales, and zero adaLN modulation and final
+        layers (so every block starts as the identity)."""
+        zero_prefix = ("final_layer.",)
+        for name, mod in self.named_modules():
+            if isinstance(mod, (nn.Linear, nn.Conv3d)):
+                w = mod.weight
+                fan_in = w[0].numel()
+                if (name.startswith(zero_prefix) or name.endswith("_mod.linear")
+                        or name.endswith("modulation.linear")
+                        or name.endswith("adaLN_modulation.1")):
+                    w.zero_()
+                elif ".mlp." in f".{name}" and ("t_embedder" in name
+                                                or name.startswith("time_in")
+                                                or name.startswith(
+                                                    "guidance_in")):
+                    w.normal_(0.0, 0.02, generator=generator)
+                else:
+                    bound = 1.0 / math.sqrt(fan_in)
+                    w.uniform_(-bound, bound, generator=generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, (RMSNorm, LayerNorm)):
+                mod.weight.fill_(1.0)
+                if isinstance(mod, LayerNorm):
+                    mod.bias.zero_()
+        return self
+
+
+def build_dit(cfg: DiTConfig, device="cuda", dtype=torch.bfloat16,
+              generator: Optional[torch.Generator] = None) -> HYVideoDiT:
+    """A DiT with storage allocated on `device` (no default init pass);
+    random weights from `generator` when given, else uninitialized (to be
+    filled by load_state_dict)."""
+    with torch.device("meta"):
+        model = HYVideoDiT(cfg, dtype=dtype)
+    model = model.to_empty(device=device).eval().requires_grad_(False)
+    if generator is not None:
+        model.init_weights(generator)
+    return model

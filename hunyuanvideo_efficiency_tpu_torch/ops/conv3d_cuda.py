@@ -1,0 +1,94 @@
+"""Implicit-GEMM stride-1 3x3x3 conv of a pre-padded NDHWC input (kernel K3).
+
+Counterpart of the JAX package's ops/conv3d_pallas.py. `conv3d_stride1`
+runs the CUDA kernel of `csrc/conv3d.cu` (which replaces the Pallas kernel
+`_conv_kernel`) on CUDA tensors and its plain PyTorch version
+`conv3d_stride1_plain` on CPU tensors; any other device raises.
+`conv3d_stride1.LAUNCHES` counts kernel launches.
+
+Bound on the H100: 2*27*Cin*Cout*B*T*H*W tensor-core operations (989
+TFLOP/s fp16) against one read of the input and one write of the output,
+so the kernel is bound by operations; see the .cu source note.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import cuda_lib
+
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
+
+
+def conv_applicable(kernel_shape, stride) -> bool:
+    """Shape gate routing `ops.conv3d.causal_conv3d` to K3: a stride-1
+    3x3x3 conv with Cin and Cout multiples of 128 (the TPU gate's channel
+    conditions; its H % 8 condition is dropped because the kernel masks
+    the H and W tile edges)."""
+    kt, kh, kw, cin, cout = kernel_shape
+    return (tuple(stride) == (1, 1, 1) and (kt, kh, kw) == (3, 3, 3)
+            and cin % 128 == 0 and cout % 128 == 0)
+
+
+def conv3d_stride1_plain(xp: torch.Tensor, kernel: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version: the 27 taps as fp32 matmuls over shifted views.
+    xp [B, T+2, H+2, W+2, Cin], kernel [3, 3, 3, Cin, Cout] ->
+    [B, T, H, W, Cout] in xp's dtype (bias added in fp32, one rounding)."""
+    b, tp, hp, wp, cin = xp.shape
+    kt, kh, kw, _, cout = kernel.shape
+    t, h, w = tp - kt + 1, hp - kh + 1, wp - kw + 1
+    xf = xp.float()
+    wf = kernel.float()
+    out = torch.zeros((b, t, h, w, cout), dtype=torch.float32,
+                      device=xp.device)
+    for dt in range(kt):
+        for dh in range(kh):
+            for dw in range(kw):
+                out += torch.matmul(xf[:, dt:dt + t, dh:dh + h, dw:dw + w],
+                                    wf[dt, dh, dw])
+    if bias is not None:
+        out += bias.float()
+    return out.to(xp.dtype)
+
+
+def _launch(xp, kernel, bias):
+    if not xp.is_cuda or not kernel.is_cuda:
+        raise ValueError(f"conv3d kernel: input on {xp.device}, weights on "
+                         f"{kernel.device}; both must be on a CUDA device")
+    if xp.dtype not in _DTYPE_CODE:
+        raise TypeError(f"conv3d kernel takes fp16 or bf16, got {xp.dtype}")
+    b, tp, hp, wp, cin = xp.shape
+    if tuple(kernel.shape[:4]) != (3, 3, 3, cin) or kernel.shape[4] % 128 \
+            or cin % 128:
+        raise ValueError(f"conv3d kernel: bad weight {tuple(kernel.shape)} "
+                         f"for input {tuple(xp.shape)}")
+    cout = kernel.shape[4]
+    t, h, w = tp - 2, hp - 2, wp - 2
+    xp = xp.contiguous()
+    # [3, 3, 3, Cout, Cin]: Cin contiguous, the layout of the mma B operand
+    wt = kernel.to(xp.dtype).permute(0, 1, 2, 4, 3).contiguous()
+    bf = bias.to(torch.float32).contiguous() if bias is not None else None
+    out = torch.empty((b, t, h, w, cout), dtype=xp.dtype, device=xp.device)
+    lib = cuda_lib.library("conv3d")
+    err = lib.hv_conv3d_stride1(
+        _DTYPE_CODE[xp.dtype], xp.data_ptr(), wt.data_ptr(),
+        bf.data_ptr() if bf is not None else None, out.data_ptr(),
+        b, t, h, w, cin, cout, cuda_lib.stream_ptr(xp.device))
+    cuda_lib.check(err, "conv3d")
+    return out
+
+
+def conv3d_stride1(xp: torch.Tensor, kernel: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3 wrapper. xp [B, T+2, H+2, W+2, Cin] (already causally padded),
+    kernel [3, 3, 3, Cin, Cout], bias [Cout] -> [B, T, H, W, Cout]."""
+    if xp.device.type == "cpu":
+        return conv3d_stride1_plain(xp, kernel, bias)
+    out = _launch(xp, kernel, bias)
+    conv3d_stride1.LAUNCHES += 1
+    return out
+
+
+conv3d_stride1.LAUNCHES = 0

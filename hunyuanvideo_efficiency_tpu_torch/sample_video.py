@@ -1,0 +1,51 @@
+"""Text-to-video sampling on one GPU (reference: sample_video.py:12-58).
+
+    python -m hunyuanvideo_efficiency_tpu_torch.sample_video --prompt "..." \
+        --video-size 720 1280 --video-length 129 --infer-steps 50
+
+Same flags as the reference script; writes one mp4 per video.
+"""
+import logging
+import os
+from datetime import datetime
+from pathlib import Path
+
+from .config import parse_args
+from .inference import HunyuanVideoSampler
+from .utils.file_utils import save_videos_grid
+
+logger = logging.getLogger("hyvideo")
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO)
+    args = parse_args(argv)
+    models_root = Path(args.model_base)
+    if not models_root.exists():
+        raise ValueError(f"`models_root` not exists: {models_root}")
+    save_path = (args.save_path if args.save_path_suffix == ""
+                 else f"{args.save_path}_{args.save_path_suffix}")
+    os.makedirs(save_path, exist_ok=True)
+
+    sampler = HunyuanVideoSampler.from_pretrained(
+        str(models_root), args=args, logger=logger)
+    outputs = sampler.predict(
+        prompt=args.prompt, height=args.video_size[0],
+        width=args.video_size[1], video_length=args.video_length,
+        seed=args.seed, negative_prompt=args.neg_prompt,
+        infer_steps=args.infer_steps, guidance_scale=args.cfg_scale,
+        num_videos_per_prompt=args.num_videos, flow_shift=args.flow_shift,
+        batch_size=args.batch_size,
+        embedded_guidance_scale=args.embedded_cfg_scale)
+    samples = outputs["samples"]
+    for i in range(samples.shape[0]):
+        stamp = datetime.now().strftime("%Y-%m-%d-%H:%M:%S")
+        prompt_tag = outputs["prompts"][0][:100].replace("/", "")
+        path = (f"{save_path}/{stamp}_seed{outputs['seeds'][i]}_{prompt_tag}"
+                f"{args.name_suffix}.mp4")
+        save_videos_grid(samples[i:i + 1], path, fps=24)
+        logger.info(f"Sample save to: {path}")
+
+
+if __name__ == "__main__":
+    main()

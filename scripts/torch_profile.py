@@ -1,0 +1,138 @@
+"""Where the time goes on the PyTorch port's main path, on one NVIDIA GPU.
+
+    python3 scripts/torch_profile.py [--steps 2]
+
+Builds the sampler as chip_smoke.py's main path does (HYVideo-T/2 at full
+width, Llama-3-8B + CLIP-L, the 884-16c-hy VAE, random weights; 256x448,
+33 frames, CFG 6.0) and splits predict() into its three stages: text
+encoding, the denoise loop, the tiled VAE decode. Each stage runs once to
+warm up, once on the host clock (synchronized) and once under
+torch.profiler. Per stage it prints one line: wall seconds, the device's
+kernel seconds and busy share (kernel time over wall time; one stream, so
+kernels do not overlap), and kernel time by category; then the stage's
+top kernels by device time; the full tables go to --out (build/profile/).
+Needs CUDA.
+"""
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from chip_smoke import (FRAMES, HEIGHT, WIDTH,  # noqa: E402
+                        randomize_modulation)
+from hunyuanvideo_efficiency_tpu_torch.config import InferenceArgs  # noqa: E402
+from hunyuanvideo_efficiency_tpu_torch.inference import (  # noqa: E402
+    HunyuanVideoSampler, get_rotary_pos_embed)
+
+
+def category(name: str) -> str:
+    low = name.lower()
+    if "flash_fwd_kernel" in low:
+        return "flash attention (K1/K2)"
+    if "conv3d_s1_kernel" in low:
+        return "conv3d (K3)"
+    if "cudnn" in low or "fprop" in low:
+        return "other conv (cuDNN)"
+    if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
+        return "GEMM (cuBLAS)"
+    return "other (elementwise, norms, copies, reductions)"
+
+
+def stage(label, fn, out_dir, top=12):
+    fn()                                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sorted(((e.key, e.self_device_time_total / 1e6, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0),
+                     key=lambda r: -r[1])
+    if not kernels:
+        raise RuntimeError(f"{label}: the profiler recorded no device time")
+    device = sum(s for _, s, _ in kernels)
+    by_cat = {}
+    for name, s, _ in kernels:
+        by_cat[category(name)] = by_cat.get(category(name), 0.0) + s
+    by_cat = dict(sorted(by_cat.items(), key=lambda kv: -kv[1]))
+    print(f"[stage] {label} wall_s={wall} device_s={device} "
+          f"busy_share={device / wall} by_category_s={json.dumps(by_cat)}",
+          flush=True)
+    lines = [f"{s:12.6f} s {n:7d}x  {name[:150]}" for name, s, n in kernels]
+    for line in lines[:top]:
+        print("   ", line)
+    (out_dir / f"{label}.txt").write_text("\n".join(lines) + "\n")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_profile.py needs a CUDA device")
+    out_dir = Path(a.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    args = InferenceArgs(model="HYVideo-T/2", vae_tiling=True,
+                         model_base="ckpts-not-present")
+    sampler = HunyuanVideoSampler.from_pretrained(args=args,
+                                                  allow_random_init=True)
+    randomize_modulation(sampler.transformer, 3)
+    pipe, dev = sampler.pipeline, sampler.device
+    prompt = "A cat walks on the grass, realistic style."
+    cos, sin, (tt, th, tw) = get_rotary_pos_embed(
+        sampler.transformer.cfg, args.vae, FRAMES, HEIGHT, WIDTH, device=dev)
+    emb = {}
+
+    def text():
+        emb["pe"], emb["mask"], emb["pe2"] = pipe.encode_prompt(
+            prompt, sampler.default_negative_prompt, True)
+
+    def denoise():
+        emb["latents"] = pipe(
+            height=HEIGHT, width=WIDTH, video_length=FRAMES,
+            num_inference_steps=a.steps, guidance_scale=6.0,
+            generator=torch.Generator(dev).manual_seed(42),
+            prompt_embeds=emb["pe"], prompt_mask=emb["mask"],
+            prompt_embeds_2=emb["pe2"], freqs_cis=(cos, sin),
+            n_tokens=tt * th * tw, output_type="latent").videos
+
+    def decode():
+        vcfg = sampler.vae.cfg
+        z = emb["latents"] / vcfg.scaling_factor
+        if vcfg.shift_factor:
+            z = z + vcfg.shift_factor
+        sampler.vae.enable_tiling(args.vae_tiling)
+        sampler.vae.decode(z)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[env] card={smi} torch={torch.__version__} steps={a.steps} "
+          f"size={HEIGHT}x{WIDTH}x{FRAMES}", flush=True)
+    stage("text_encode", text, out_dir)
+    stage(f"denoise_{a.steps}_steps", denoise, out_dir)
+    stage("vae_decode", decode, out_dir)
+
+
+if __name__ == "__main__":
+    main()

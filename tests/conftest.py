@@ -41,3 +41,10 @@ def _bound_compiler_state(request):
                                    "test_vae"):
         jax.clear_caches()
     yield
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the PyTorch port's hand-written "
+        "kernels); skips elsewhere")

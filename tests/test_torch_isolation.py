@@ -1,0 +1,101 @@
+"""The PyTorch port stands alone: it never imports JAX or the JAX package,
+and a tensor off the CPU reaching a kernel wrapper launches the kernel or
+raises; it never falls back to the plain version."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from hunyuanvideo_efficiency_tpu_torch.ops import cuda_lib
+from hunyuanvideo_efficiency_tpu_torch.ops.conv3d_cuda import conv3d_stride1
+from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
+    flash_running, flash_static)
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "hunyuanvideo_efficiency_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "hunyuanvideo_efficiency_tpu")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def _sources():
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "scripts").glob("torch_*.py")))
+    assert len(files) > 20
+    return files
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_no_jax_imports(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import hunyuanvideo_efficiency_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_off_cpu_tensors_never_fall_back():
+    """Meta tensors are neither CPU nor CUDA: every wrapper raises and
+    counts no launch."""
+    q = torch.empty((1, 64, 2, 64), dtype=torch.bfloat16, device="meta")
+    c = torch.empty((1, 2), device="meta")
+    xp = torch.empty((1, 3, 6, 6, 128), dtype=torch.float16, device="meta")
+    w = torch.empty((3, 3, 3, 128, 128), dtype=torch.float16, device="meta")
+    counts = (flash_static.LAUNCHES, flash_running.LAUNCHES,
+              conv3d_stride1.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_static(q, q, q, None, c, 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_running(q, q, q, None, 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        conv3d_stride1(xp, w)
+    assert counts == (flash_static.LAUNCHES, flash_running.LAUNCHES,
+                      conv3d_stride1.LAUNCHES)
+
+
+def test_missing_library_without_nvcc_raises(monkeypatch, tmp_path):
+    """No built library and no CUDA toolkit: loading a kernel raises."""
+    from torch.utils import cpp_extension
+
+    monkeypatch.setenv("HVTORCH_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
+    monkeypatch.setattr(cuda_lib, "_loaded", {})
+    for name in cuda_lib.SIGNATURES:
+        assert not cuda_lib.library_path(name).exists()
+        with pytest.raises(RuntimeError, match="nvcc"):
+            cuda_lib.library(name)
+
+
+def test_library_path_tracks_sources(monkeypatch, tmp_path):
+    """The build is keyed on the sources: one name per kernel source, in
+    the build directory, stable across calls."""
+    monkeypatch.setenv("HVTORCH_BUILD_DIR", str(tmp_path))
+    paths = {n: cuda_lib.library_path(n) for n in cuda_lib.SIGNATURES}
+    assert len(set(paths.values())) == len(paths)
+    for n, p in paths.items():
+        assert p.parent == tmp_path and p.name.startswith(f"lib{n}-")
+        assert cuda_lib.library_path(n) == p
+        assert (cuda_lib.CSRC / f"{n}.cu").exists()
