@@ -8,7 +8,9 @@ Phases, one line each (any failure raises and exits non-zero):
      csrc/, one nvcc per source, all at once;
   3. kernels: each kernel against its plain PyTorch version on the card at
      main-path shapes, with its time, the plain version's time, one PyTorch
-     library call's time as a yardstick, and the card's lower bound;
+     library call's time as a yardstick, and the card's lower bound; the
+     three STA kernels at 540p (B=2, 24 heads x 128, a 17x34x60 patch grid,
+     256 text keys of which 40 are valid, bf16);
   4. main path: HunyuanVideoSampler.from_pretrained at the full width of
      HYVideo-T/2 (bf16), Llama-3-8B + CLIP-L (fp16) and the 884-16c-hy VAE
      (fp16), random weights from fixed seeds, then predict() with CFG at
@@ -18,11 +20,22 @@ Phases, one line each (any failure raises and exits non-zero):
      full-width one without QK-norm (2 double + 2 single blocks) whose
      scores exceed the static kernel's bound, so that flash_attention's
      "auto" dispatch takes K2; counts reset and read around it as in 4;
-  6. reference: each of those two DiTs at full width, 2+2 blocks, flash
-     kernels vs the plain attention path, on the same inputs.
-Then one JSON line of per-kernel numbers (K1 and K3 launches from phase 4,
-K2's from phase 5), the nvidia-smi line, and the result line. Needs CUDA;
-there is no CPU fallback.
+  6. STA main path: from_pretrained with --attn-mode sta and one dense
+     anchor block per stack, predict() with CFG at 544x960, 65 frames (the
+     CLI's 540p), 2 steps: sta_direct in the 58 STA blocks, K1 in the
+     anchors and in the text half of every STA block;
+  7. STA running-max path: the no-QK-norm 2+2-block DiT of 5 under
+     attn_mode="sta" in the same predict() for 1 step: sta_permuted_running
+     for the image queries, K2 for the text queries;
+  8. STA permuted path: sta_joint_attention(direct=False) and (fused=False)
+     at the shapes of 3, each against the direct arm (B4 vs B6);
+  9. reference: the two 2+2-block DiTs, flash kernels vs plain attention,
+     then under attn_mode="sta" on a 13x26x28 patch grid (4x4x4 ragged
+     tiles) the STA kernels vs the same forward with sta_plain=True.
+Then one JSON line of per-kernel numbers (launches of each kernel from the
+path that runs it: K1 and K3 from 4, K2 from 5, sta_direct from 6,
+sta_permuted_running from 7, sta_permuted_static from 8), the nvidia-smi
+line, and the result line. Needs CUDA; there is no CPU fallback.
 """
 import dataclasses
 import json
@@ -32,6 +45,7 @@ import sys
 import time
 
 import torch
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from hunyuanvideo_efficiency_tpu_torch.config import InferenceArgs
 from hunyuanvideo_efficiency_tpu_torch.inference import HunyuanVideoSampler
@@ -44,6 +58,10 @@ from hunyuanvideo_efficiency_tpu_torch.ops.conv3d_cuda import (
 from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
     flash_attention_plain, flash_running, flash_static)
 from hunyuanvideo_efficiency_tpu_torch.ops.rope import get_nd_rotary_pos_embed
+from hunyuanvideo_efficiency_tpu_torch.ops.sta import (
+    _unpermute_tokens, permuted_operands, sta_attention_plain, sta_direct,
+    sta_joint_attention, sta_pair_count, sta_permuted_plain,
+    sta_permuted_running, sta_permuted_static, sta_reference_mask)
 
 PEAK_FLOPS = 989e12     # H100 SXM dense bf16/fp16 tensor-core rate
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 rate
@@ -51,7 +69,14 @@ STEPS = 4
 K2_STEPS = 2
 HEIGHT, WIDTH, FRAMES = 256, 448, 33
 QK_GAIN = 4.0   # scales |q|*|k| by 16: the score bound passes 40
-KERNELS = (flash_static, flash_running, conv3d_stride1)
+STA_STEPS = 2
+STA_RUNNING_STEPS = 1
+STA_HEIGHT, STA_WIDTH, STA_FRAMES = 544, 960, 65   # the CLI's 540p
+STA_GRID = (17, 34, 60)                            # its patch grid
+STA_TILE, STA_WINDOW = (4, 8, 8), (3, 3, 3)
+KERNELS = (flash_static, flash_running, conv3d_stride1, sta_direct,
+           sta_permuted_static, sta_permuted_running)
+SRC = "hunyuanvideo_efficiency_tpu_torch/csrc/"
 
 
 def phase(tag, **fields):
@@ -197,6 +222,113 @@ def check_conv(dev, smi):
     return [row]
 
 
+def sta_inputs(dev, seed):
+    """The STA phases' inputs at 540p: RMS-normalized q/k (as after the
+    DiT's QK-norm with unit scales), random v, 256 text keys of which the
+    first 40 are valid, and C from the DiT's analytic bound."""
+    g = torch.Generator(dev).manual_seed(seed)
+    b, h, d, lt = 2, 24, 128, 256
+    s = STA_GRID[0] * STA_GRID[1] * STA_GRID[2]
+
+    def normed(n):
+        x = torch.randn(b, n, h, d, generator=g, device=dev)
+        return (x * torch.rsqrt(x.square().mean(-1, keepdim=True))).bfloat16()
+
+    img = (normed(s), normed(s),
+           torch.randn(b, s, h, d, generator=g, device=dev).bfloat16())
+    txt = (normed(lt), normed(lt),
+           torch.randn(b, lt, h, d, generator=g, device=dev).bfloat16())
+    tb = torch.zeros(b, 1, 1, lt, device=dev)
+    tb[..., 40:] = -1e30
+    norm = dit_mod.RMSNorm(d, device=dev, dtype=torch.bfloat16)
+    c = dit_mod._analytic_score_bound(DiTConfig(), d, [(norm, norm)])
+    return img, txt, tb, c.expand(b, h).contiguous()
+
+
+def check_sta(dev, smi):
+    """The three STA kernels at 540p against sta_attention_plain (the
+    permuted ones through permuted_operands and back), max relative error
+    2e-2; bound from the exact count of valid query-key pairs; yardstick:
+    SDPA (memory-efficient backend) with the dense STA + text mask."""
+    (iq, ik, iv), (_, tk, tv), tb, c = sta_inputs(dev, 11)
+    b, s, h, d = iq.shape
+    lt, txt_valid = tk.shape[1], 40
+    grid, tile, window, scale = STA_GRID, STA_TILE, STA_WINDOW, d ** -0.5
+    plan, qp, kcat, vcat, kb = permuted_operands(iq, ik, iv, tk, tv, tb,
+                                                 grid, tile, window)
+    pairs = sta_pair_count(grid, tile, window, txt_valid)
+    flops = 4 * d * h * b * pairs
+    io_bytes = 4 * iq.numel() * 2 + 2 * tk.numel() * 2
+    bound_ms, by = bound(flops, io_bytes)
+
+    mask = torch.from_numpy(sta_reference_mask(grid, tile, window, s)).to(dev)
+    txt_ok = (torch.arange(lt, device=dev) < txt_valid).expand(s, lt)
+    mask = torch.cat([mask, txt_ok], dim=1)[None, None]
+    qt, kt_, vt = (x.transpose(1, 2) for x in (
+        iq, torch.cat([ik, tk], 1), torch.cat([iv, tv], 1)))
+
+    def library():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt_, vt, attn_mask=mask)
+
+    ref = {True: sta_attention_plain(iq, ik, iv, tk, tv, tb, grid, tile,
+                                     window, scale, c),
+           False: sta_attention_plain(iq, ik, iv, tk, tv, tb, grid, tile,
+                                      window, scale)}
+    lib_out = library().transpose(1, 2).reshape(b, s, h * d)
+    lib_err = errors(lib_out, ref[False])[1]
+    if lib_err > 2e-2:
+        raise AssertionError(f"SDPA yardstick disagrees with the STA plain "
+                             f"version: max rel error {lib_err}")
+    del lib_out
+    lib_ms = cuda_ms(library, 3)
+    del mask, qt, kt_, vt
+    torch.cuda.empty_cache()
+
+    kernels = (
+        ("sta_direct", True, 602,
+         lambda: sta_direct(iq, ik, iv, tk, tv, tb, c, grid, tile, window,
+                            scale),
+         lambda: sta_attention_plain(iq, ik, iv, tk, tv, tb, grid, tile,
+                                     window, scale, c)),
+        ("sta_permuted_static", True, 400,
+         lambda: sta_permuted_static(qp, kcat, vcat, kb, c, grid, tile,
+                                     window, scale),
+         lambda: sta_permuted_plain(qp, kcat, vcat, kb, grid, tile, window,
+                                    scale, c)),
+        ("sta_permuted_running", False, 267,
+         lambda: sta_permuted_running(qp, kcat, vcat, kb, grid, tile, window,
+                                      scale),
+         lambda: sta_permuted_plain(qp, kcat, vcat, kb, grid, tile, window,
+                                    scale)))
+    rows = []
+    for name, static, line, fn, plain in kernels:
+        out = fn()
+        if out.shape[1] != s:
+            out = _unpermute_tokens(out, grid, plan)
+        torch.cuda.synchronize()
+        abs_err, rel_err = errors(out, ref[static])
+        del out
+        if rel_err > 2e-2:
+            raise AssertionError(f"{name}: max rel error {rel_err} > 2e-2")
+        ms = cuda_ms(fn, 5)
+        plain_ms = cuda_ms(plain, 2)
+        phase("kernel", name=name, shape=f"[{b},{s},{h},{d}]bf16",
+              grid=json.dumps(grid), tile=json.dumps(tile),
+              window=json.dumps(window), text_keys=f"{lt}({txt_valid} valid)",
+              pairs_per_head=pairs, max_abs_err=abs_err,
+              tol="rel 2e-2 (bf16)", kernel_ms=ms, plain_ms=plain_ms,
+              library_ms=lib_ms, library_rel_err=lib_err, bound_ms=bound_ms,
+              tflops=flops / ms / 1e9, card=smi)
+        rows.append(dict(
+            name=name, route="cuda", source=SRC + "sta_attention.cu",
+            replaces=f"hunyuanvideo_efficiency_tpu/ops/sta.py:{line}",
+            max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=by, library_ms=lib_ms))
+    return rows
+
+
 def randomize_modulation(model, seed):
     """init_weights zero-inits the adaLN and final layers (every block is
     then the identity): give them random values."""
@@ -306,6 +438,116 @@ def running_max_path(sampler, smi):
     return model, launches
 
 
+def sta_main_path(smi):
+    """predict() under --attn-mode sta at 540p through the CLI's own
+    arguments: one dense anchor block per stack, the rest sta_direct."""
+    args = InferenceArgs(model="HYVideo-T/2", attn_mode="sta",
+                         sta_dense_blocks=1, vae_tiling=True,
+                         model_base="ckpts-not-present")
+    t0 = time.time()
+    sampler = HunyuanVideoSampler.from_pretrained(args=args,
+                                                  allow_random_init=True)
+    randomize_modulation(sampler.transformer, 3)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    prompt = "A cat walks on the grass, realistic style."
+    reset_counts()
+    marks = []
+
+    def on_step(i, latents):
+        torch.cuda.synchronize()
+        marks.append(time.time())
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = sampler.predict(prompt, height=STA_HEIGHT, width=STA_WIDTH,
+                          video_length=STA_FRAMES, seed=42,
+                          infer_steps=STA_STEPS, guidance_scale=6.0,
+                          flow_shift=7.0, output_dtype="uint8",
+                          progress_callback=on_step)
+    t_end = time.time()
+    launches = read_counts()
+    steps_s = [b - a for a, b in zip([marks[0]] + marks[:-1], marks)][1:]
+    phase("sta_main_path", size=f"{STA_HEIGHT}x{STA_WIDTH}x{STA_FRAMES}",
+          tokens=STA_GRID[0] * STA_GRID[1] * STA_GRID[2], steps=STA_STEPS,
+          dense_blocks="1+1", build_s=build_s,
+          s_per_step=sum(steps_s) / max(len(steps_s), 1),
+          first_step_s=marks[0] - t0, decode_s=t_end - marks[-1],
+          gen_s=out["gen_time"],
+          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30,
+          launches=json.dumps(launches), card=smi)
+    check_video(out["samples"], (STA_FRAMES, STA_HEIGHT, STA_WIDTH))
+    want = dict(sta_direct=58 * STA_STEPS,
+                flash_static=(2 + 2 * 58) * STA_STEPS, flash_running=0,
+                sta_permuted_static=0, sta_permuted_running=0)
+    if any(launches[k] != n for k, n in want.items()) \
+            or launches["conv3d_stride1"] == 0:
+        raise AssertionError(f"STA main path launches {launches}, expected "
+                             f"{want} and K3 in the decode")
+    return sampler, launches
+
+
+def sta_running_path(sampler, model, smi):
+    """predict() at 540p through the no-QK-norm 2+2-block DiT under
+    attn_mode="sta": its image queries take sta_permuted_running, its text
+    queries (score bound above 40) K2."""
+    set_attn_mode(model, "sta")
+    sampler.transformer = sampler.pipeline.transformer = model
+    torch.cuda.empty_cache()
+    reset_counts()
+    out = sampler.predict("A dog runs along the beach at sunset.",
+                          height=STA_HEIGHT, width=STA_WIDTH,
+                          video_length=STA_FRAMES, seed=43,
+                          infer_steps=STA_RUNNING_STEPS, guidance_scale=6.0,
+                          flow_shift=7.0, output_dtype="uint8")
+    launches = read_counts()
+    phase("sta_running_path", blocks="2+2", qk_norm=False,
+          steps=STA_RUNNING_STEPS, gen_s=out["gen_time"],
+          launches=json.dumps(launches), card=smi)
+    check_video(out["samples"], (STA_FRAMES, STA_HEIGHT, STA_WIDTH))
+    n = 4 * STA_RUNNING_STEPS
+    if launches["sta_permuted_running"] != n \
+            or launches["flash_running"] != n or launches["sta_direct"] != 0:
+        raise AssertionError(f"STA running path launches {launches}, "
+                             f"expected {n} of sta_permuted_running and of "
+                             f"K2, none of sta_direct")
+    return launches
+
+
+def sta_permuted_path(dev, smi):
+    """sta_joint_attention's permuted static arm (direct=False, and
+    fused=False), the entry point of B6, each against the direct arm on
+    the same 540p inputs (image and text outputs)."""
+    img, txt, tb, c = sta_inputs(dev, 12)
+    kw = dict(grid=STA_GRID, tile=STA_TILE, window=STA_WINDOW,
+              bound_mode="static", score_bound=c)
+    direct = sta_joint_attention(*img, *txt, tb, **kw)
+    reset_counts()
+    worst = 0.0
+    for arm in (dict(direct=False), dict(fused=False)):
+        outs = sta_joint_attention(*img, *txt, tb, **kw, **arm)
+        torch.cuda.synchronize()
+        for o, r in zip(outs, direct):
+            rel_err = errors(o, r)[1]
+            if rel_err > 2e-2:
+                raise AssertionError(f"sta_joint_attention({arm}) vs "
+                                     f"direct: max rel error {rel_err}")
+            worst = max(worst, rel_err)
+    launches = read_counts()
+    phase("sta_permuted_path", check="direct=False and fused=False vs "
+          "direct", max_rel_err=worst, tol=2e-2,
+          launches=json.dumps(launches), card=smi)
+    if launches["sta_permuted_static"] != 2:
+        raise AssertionError(f"permuted path launches {launches}")
+    return launches
+
+
+def set_attn_mode(model, mode):
+    for m in model.modules():
+        if isinstance(getattr(m, "cfg", None), DiTConfig):
+            m.cfg = dataclasses.replace(m.cfg, attn_mode=mode)
+
+
 def reset_counts():
     for fn in KERNELS:
         fn.LAUNCHES = 0
@@ -315,9 +557,8 @@ def read_counts():
     return {fn.__name__: fn.LAUNCHES for fn in KERNELS}
 
 
-def check_video(video):
-    if tuple(video.shape) != (1, 3, FRAMES, HEIGHT, WIDTH) \
-            or video.dtype != torch.uint8:
+def check_video(video, size=(FRAMES, HEIGHT, WIDTH)):
+    if tuple(video.shape) != (1, 3, *size) or video.dtype != torch.uint8:
         raise AssertionError(f"video {tuple(video.shape)} {video.dtype}")
     vf = video.float()
     if not torch.isfinite(vf).all() or vf.std().item() == 0.0:
@@ -340,9 +581,7 @@ def reference_check(dev, models):
                                            theta=cfg.rope_theta, device=dev)
         outs = {}
         for mode in ("flash", "sdpa"):
-            for m in model.modules():
-                if isinstance(getattr(m, "cfg", None), DiTConfig):
-                    m.cfg = dataclasses.replace(m.cfg, attn_mode=mode)
+            set_attn_mode(model, mode)
             reset_counts()
             with torch.no_grad():
                 outs[mode] = model(x, t, txt, mask, txt2, cos, sin).float()
@@ -359,6 +598,45 @@ def reference_check(dev, models):
                                  f"plain attention: rel L2 {diff}")
 
 
+def sta_reference_check(dev, models):
+    """Each full-width 2+2-block DiT under attn_mode="sta" on a 13x26x28
+    patch grid (4x4x4 tiles of 4x8x8, ragged on every axis, so the 3x3x3
+    window leaves tiles out): the STA kernels against the same forward with
+    the STA image queries on sta_attention_plain (sta_plain=True)."""
+    g = torch.Generator(dev).manual_seed(9)
+    grid = (13, 26, 28)
+    x = torch.randn(2, 16, grid[0], 2 * grid[1], 2 * grid[2], generator=g,
+                    device=dev)
+    t = torch.tensor([900.0, 900.0], device=dev)
+    txt = torch.randn(2, 64, 4096, generator=g, device=dev)
+    mask = torch.ones(2, 64, dtype=torch.long, device=dev)
+    mask[:, 20:] = 0
+    txt2 = torch.randn(2, 768, generator=g, device=dev)
+    for label, model in models.items():
+        set_attn_mode(model, "sta")
+        cfg = model.cfg
+        cos, sin = get_nd_rotary_pos_embed(cfg.rope_dim_list, grid,
+                                           theta=cfg.rope_theta, device=dev)
+        reset_counts()
+        with torch.no_grad():
+            out = model(x, t, txt, mask, txt2, cos, sin).float()
+            launches = read_counts()
+            ref = model(x, t, txt, mask, txt2, cos, sin,
+                        sta_plain=True).float()
+        diff = ((out - ref).norm() / ref.norm()).item()
+        finite = bool(torch.isfinite(out).all())
+        phase("sta_reference", model=label, grid=json.dumps(grid),
+              check="STA kernels vs sta_attention_plain", rel_l2=diff,
+              tol=5e-2, finite=finite, launches=json.dumps(launches))
+        sta_launches = (launches["sta_direct"]
+                        + launches["sta_permuted_running"])
+        if not finite or diff > 5e-2 or sta_launches != 4:
+            raise AssertionError(f"{label}: STA forward disagrees with the "
+                                 f"plain version: rel L2 {diff}, launches "
+                                 f"{launches}")
+
+
+@torch.no_grad()
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device")
@@ -380,20 +658,31 @@ def main():
     phase("build", seconds=time.time() - t0,
           libraries=len(cuda_lib.SIGNATURES))
 
-    rows = check_flash(dev, smi) + check_conv(dev, smi)
+    rows = check_flash(dev, smi) + check_conv(dev, smi) + check_sta(dev, smi)
     torch.cuda.empty_cache()
     sampler, launches = main_path(smi)
     k2_model, k2_launches = running_max_path(sampler, smi)
     del sampler
     torch.cuda.empty_cache()
     launches["flash_running"] = k2_launches["flash_running"]
+    sampler, sta_launches = sta_main_path(smi)
+    launches["sta_direct"] = sta_launches["sta_direct"]
+    launches["sta_permuted_running"] = sta_running_path(
+        sampler, k2_model, smi)["sta_permuted_running"]
+    del sampler
+    torch.cuda.empty_cache()
+    launches["sta_permuted_static"] = sta_permuted_path(
+        dev, smi)["sta_permuted_static"]
+    torch.cuda.empty_cache()
     k1_model = dit_mod.build_dit(
         dataclasses.replace(DiTConfig(), mm_double_blocks_depth=2,
                             mm_single_blocks_depth=2),
         dev, torch.bfloat16, torch.Generator(dev).manual_seed(5))
     randomize_modulation(k1_model, 6)
-    reference_check(dev, {"HYVideo-T/2 2+2 blocks": k1_model,
-                          "no QK-norm 2+2 blocks": k2_model})
+    models = {"HYVideo-T/2 2+2 blocks": k1_model,
+              "no QK-norm 2+2 blocks": k2_model}
+    reference_check(dev, models)
+    sta_reference_check(dev, models)
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

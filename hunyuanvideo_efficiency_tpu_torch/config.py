@@ -2,10 +2,10 @@
 reference: hyvideo/config.py:7-398).
 
 The flags of the reference `sample_video.py` that the single-GPU path reads
-are kept unchanged. Flags of features not ported yet (sequence
-parallelism, the fp8/int8/int4 weight tiers, sliding-tile and int8
-attention) are still parsed, and rejected with a clear error instead of
-being ignored.
+are kept unchanged, with the JAX package's `--attn-mode sta`,
+`--sta-window` and `--sta-dense-blocks`. Flags of features not ported yet
+(sequence parallelism, the fp8/int8/int4 weight tiers, int8 attention) are
+still parsed, and rejected with a clear error instead of being ignored.
 """
 from __future__ import annotations
 
@@ -49,8 +49,8 @@ def parse_vae_name(name: str) -> VaeNameInfo:
                        latent_channels=int(c), tag=tag, name=name)
 
 
-ATTN_MODES = ("auto", "flash", "sdpa", "chunked")
-UNPORTED_ATTN_MODES = ("flash_int8", "sta", "sta_int8")
+ATTN_MODES = ("auto", "flash", "sdpa", "chunked", "sta")
+UNPORTED_ATTN_MODES = ("flash_int8", "sta_int8")
 
 
 @dataclass
@@ -107,6 +107,8 @@ class InferenceArgs:
     cfg_scale: float = 1.0
     embedded_cfg_scale: float = 6.0
     attn_mode: str = "auto"
+    sta_window: Tuple[int, int, int] = (3, 3, 3)
+    sta_dense_blocks: int = 0  # dense-attention prefix depth under sta
     device: str = "cuda"
     # not ported yet: parsed so that they fail loudly
     use_fp8: bool = False
@@ -222,6 +224,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default=d.embedded_cfg_scale)
     g.add_argument("--attn-mode", type=str, default=d.attn_mode,
                    choices=list(ATTN_MODES + UNPORTED_ATTN_MODES))
+    g.add_argument("--sta-window", type=int, nargs=3,
+                   default=list(d.sta_window))
+    g.add_argument("--sta-dense-blocks", type=int, default=d.sta_dense_blocks)
     g.add_argument("--device", type=str, default=d.device)
     _add_bool_flag(p, "use-fp8", d.use_fp8)
     _add_bool_flag(p, "use-int8", d.use_int8)
@@ -240,4 +245,5 @@ def parse_args(argv: Optional[List[str]] = None) -> InferenceArgs:
     kwargs = {k: v for k, v in vars(ns).items() if k in valid}
     vs = kwargs["video_size"]
     kwargs["video_size"] = tuple(vs * 2 if len(vs) == 1 else vs)
+    kwargs["sta_window"] = tuple(kwargs["sta_window"])
     return InferenceArgs(**kwargs)

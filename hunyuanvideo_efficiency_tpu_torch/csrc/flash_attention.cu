@@ -28,14 +28,14 @@
 // S and P never leave registers (the m16n8k16 accumulator layout is the A
 // layout of the P.V product). Not yet done: wgmma, TMA, a cp.async ring
 // overlapping the next tile's load with this tile's math.
-#include "mma.cuh"
+#include "flash_tile.cuh"
 
 namespace {
 
-constexpr int BQ = 64;      // query rows per block: 4 warps x 16 rows
-constexpr int BK = 64;      // keys per tile
-constexpr int THREADS = 128;
-constexpr float NEG_INF = -1e30f;
+using hv::BK;
+using hv::BQ;
+using hv::NEG_INF;
+using hv::THREADS;
 
 template <typename T, int D, bool RUNNING>
 __global__ void __launch_bounds__(THREADS)
@@ -47,12 +47,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  long long k_bs, long long k_rs, long long v_bs,
                  long long v_rs, float scale) {
   constexpr int DP = D + 8;   // padded rows: conflict-free fragment loads
-  constexpr int KP = BK + 8;
   constexpr int CH = D / 8;   // 16-byte chunks per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][DP]
   T* Ks = Qs + BQ * DP;                     // [BK][DP]
-  T* Vt = Ks + BK * DP;                     // [D][KP], V transposed
+  T* Vt = Ks + BK * DP;                     // [D][BK + 8], V transposed
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -74,13 +73,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
   uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    qa[kk][0] = hv::ld32(Qs + r0 * DP + kk * 16 + 2 * t);
-    qa[kk][1] = hv::ld32(Qs + (r0 + 8) * DP + kk * 16 + 2 * t);
-    qa[kk][2] = hv::ld32(Qs + r0 * DP + kk * 16 + 8 + 2 * t);
-    qa[kk][3] = hv::ld32(Qs + (r0 + 8) * DP + kk * 16 + 8 + 2 * t);
-  }
+  hv::load_q<T, D>(Qs, r0, t, qa);
 
   const float c_off = RUNNING ? 0.f : cb[b * H + h];
   float acc[D / 8][4];
@@ -99,27 +92,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         kv = *reinterpret_cast<const uint4*>(kh + (k0 + r) * k_rs + c);
         vv = *reinterpret_cast<const uint4*>(vh + (k0 + r) * v_rs + c);
       }
-      *reinterpret_cast<uint4*>(Ks + r * DP + c) = kv;
-      const T* ve = reinterpret_cast<const T*>(&vv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Vt[(c + j) * KP + r] = ve[j];
+      hv::stage_kv<T, D>(Ks, Vt, r, c, kv, vv);
     }
     __syncthreads();
 
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const T* krow = Ks + (nt * 8 + g) * DP;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t bf[2] = {hv::ld32(krow + kk * 16 + 2 * t),
-                          hv::ld32(krow + kk * 16 + 8 + 2 * t)};
-        hv::mma16816(s[nt], qa[kk], bf, T());
-      }
-    }
-
-    // scores -> probabilities, in place
     float bias[BK / 8][2];
 #pragma unroll
     for (int nt = 0; nt < BK / 8; ++nt)
@@ -128,91 +104,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int key = k0 + nt * 8 + 2 * t + j;
         bias[nt][j] = key < Sk ? (kbb ? kbb[key] : 0.f) : NEG_INF;
       }
-    if (RUNNING) {
-      float mx[2] = {m_r[0], m_r[1]};
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          s[nt][j] = s[nt][j] * scale + bias[nt][j];
-          s[nt][2 + j] = s[nt][2 + j] * scale + bias[nt][j];
-          mx[0] = fmaxf(mx[0], s[nt][j]);
-          mx[1] = fmaxf(mx[1], s[nt][2 + j]);
-        }
-      float corr[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        corr[i] = expf(m_r[i] - mx[i]);
-        m_r[i] = mx[i];
-        l_r[i] *= corr[i];
-      }
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        acc[dn][0] *= corr[0];
-        acc[dn][1] *= corr[0];
-        acc[dn][2] *= corr[1];
-        acc[dn][3] *= corr[1];
-      }
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          s[nt][j] = expf(s[nt][j] - m_r[0]);
-          s[nt][2 + j] = expf(s[nt][2 + j] - m_r[1]);
-        }
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float off = bias[nt][j] - c_off;
-          s[nt][j] = expf(s[nt][j] * scale + off);
-          s[nt][2 + j] = expf(s[nt][2 + j] * scale + off);
-        }
-    }
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      l_r[0] += s[nt][0] + s[nt][1];
-      l_r[1] += s[nt][2] + s[nt][3];
-    }
-
-    // acc += P.V with P rounded to V's type
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4] = {hv::pack2(s[2 * kk][0], s[2 * kk][1], T()),
-                        hv::pack2(s[2 * kk][2], s[2 * kk][3], T()),
-                        hv::pack2(s[2 * kk + 1][0], s[2 * kk + 1][1], T()),
-                        hv::pack2(s[2 * kk + 1][2], s[2 * kk + 1][3], T())};
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const T* vrow = Vt + (dn * 8 + g) * KP + kk * 16;
-        uint32_t bf[2] = {hv::ld32(vrow + 2 * t), hv::ld32(vrow + 8 + 2 * t)};
-        hv::mma16816(acc[dn], pa, bf, T());
-      }
-    }
+    hv::fold_chunk<T, D, RUNNING>(qa, Ks, Vt, bias, scale, c_off, acc, m_r,
+                                  l_r, g, t);
   }
 
-  float denom[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = l_r[i];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    l_r[i] = l;
-    denom[i] = fmaxf(l, 1e-37f);
-  }
   const long long o_rs = (long long)H * D;
   T* oh = o + (long long)b * Sq * o_rs + (long long)h * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
+    l_r[i] = hv::quad_sum(l_r[i]);
+    const float denom = fmaxf(l_r[i], 1e-37f);
     const int r = q0 + r0 + 8 * i;
     if (r >= Sq) continue;
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn)
       *reinterpret_cast<uint32_t*>(oh + r * o_rs + dn * 8 + 2 * t) =
-          hv::pack2(acc[dn][2 * i] / denom[i], acc[dn][2 * i + 1] / denom[i],
+          hv::pack2(acc[dn][2 * i] / denom, acc[dn][2 * i + 1] / denom,
                     T());
     if (m_out != nullptr && t == 0) {
       const long long idx = ((long long)b * Sq + r) * H + h;
@@ -230,7 +137,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    long long k_rs, long long v_bs, long long v_rs,
                    float scale, cudaStream_t stream) {
   auto kern = flash_fwd_kernel<T, D, RUNNING>;
-  const int smem = (BQ * (D + 8) + BK * (D + 8) + D * (BK + 8)) * sizeof(T);
+  const int smem = hv::tile_smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

@@ -1,0 +1,286 @@
+// Sliding-tile attention (STA) forward for the image queries of the MM-DiT
+// joint [img | txt] sequence.
+//
+// Replaces three Pallas TPU kernels of the JAX package's ops/sta.py, as one
+// source with two template flags:
+//   DIRECT = true,  RUNNING = false: _sta_nomax_direct_kernel. q/k/v are
+//     the row-major [B, S_img, H*D] token grid of a (T, Hg, Wg) patch grid;
+//     a tile's tokens are addressed through their (t, h, w) coordinates.
+//     The text keys [B, Lt, H*D] (bias tb [B, Lt]) are folded after the
+//     image slots. The optional image key bias kb is row-major [B, S_img].
+//   DIRECT = false, RUNNING = false: _sta_nomax_fused_kernel and
+//     _sta_nomax_kernel (the same function; the TPU masked or skipped the
+//     border slots, this kernel skips them). q is tile-major [B, S_pad,
+//     H*D]; the keys are kcat = [image tiles | text padded to whole tiles],
+//     the text blocks being extra slots n_tiles + j of the neighbour table;
+//     kb [B, S_pad + txt_pad] carries the padding mask and the text bias.
+//   DIRECT = false, RUNNING = true: _sta_kernel, the same with a running
+//     row max instead of the static offset C.
+// The softmax is the flash kernels': static p = exp(s*scale + (kb - C)) or
+// running online softmax, then out = acc / max(l, 1e-37). Rows of padding
+// tokens are not stored (DIRECT) or stored as zeros (permuted layout).
+//
+// Neighbour table nbr [n_tiles, n_slots] int32: key tile (or text block)
+// of each slot, -1 = none. Every slot is tested; the TPU's forward-filled
+// DMA index table is not used (it would fold a tile twice).
+//
+// Numerics kept from the TPU kernels: Q.K^T in the input type with fp32
+// accumulation; p rounded to V's type before P.V; fp32 l and acc.
+//
+// Bound on the H100: 4*D operations per valid query-key pair on the tensor
+// cores; a query sees up to 27 tiles of 256 keys, far above the bytes of
+// q/k/v/out, so the kernel is bound by operations (989 TFLOP/s bf16 dense).
+// This first design is the flash kernel's (flash_tile.cuh): one block of 4
+// warps owns 64 query rows of one (b, h, query tile) and walks the tile's
+// valid slots in 64-key chunks; Q stays in registers as mma.sync A
+// fragments; K and V^T go through padded shared memory; S and P never leave
+// registers. Positions beyond the grid are masked here (no zero-padded copy
+// of K/V), and a chunk with no valid key, or a 64-query block with no valid
+// query, is skipped whole. Not yet done: wgmma, TMA, a cp.async ring, K/V
+// reuse across the neighbouring query tiles that share them.
+#include "flash_tile.cuh"
+
+namespace {
+
+using hv::BK;
+using hv::BQ;
+using hv::NEG_INF;
+using hv::THREADS;
+
+struct Geometry {
+  int T, Hg, Wg;   // token grid
+  int tt, th, tw;  // tile
+  int nh, nw;      // tiles along h and w
+};
+
+// Row-major token index of flat position f of tile `tile`, or -1 when the
+// position lies beyond the grid (ragged edge tiles).
+__device__ __forceinline__ int token_of(const Geometry& g, int tile, int f) {
+  const int a = tile / (g.nh * g.nw);
+  const int bb = (tile / g.nw) % g.nh;
+  const int cc = tile % g.nw;
+  const int t = a * g.tt + f / (g.th * g.tw);
+  const int h = bb * g.th + (f / g.tw) % g.th;
+  const int w = cc * g.tw + f % g.tw;
+  if (t >= g.T || h >= g.Hg || w >= g.Wg) return -1;
+  return (t * g.Hg + h) * g.Wg + w;
+}
+
+template <typename T, int D, bool DIRECT, bool RUNNING>
+__global__ void __launch_bounds__(THREADS)
+sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, T* __restrict__ o,
+               const T* __restrict__ tk, const T* __restrict__ tv,
+               const float* __restrict__ kb, const float* __restrict__ tb,
+               const float* __restrict__ cb, const int* __restrict__ nbr,
+               Geometry geo, int H, int n_slots, int Lt, long long q_bs,
+               long long q_rs, long long k_bs, long long k_rs,
+               long long v_bs, long long v_rs, long long tk_bs,
+               long long tk_rs, long long tv_bs, long long tv_rs,
+               long long o_bs, long long o_rs, long long kb_bs,
+               float scale) {
+  constexpr int DP = D + 8;   // padded rows: conflict-free fragment loads
+  constexpr int CH = D / 8;   // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][DP]
+  T* Ks = Qs + BQ * DP;                     // [BK][DP]
+  T* Vt = Ks + BK * DP;                     // [D][BK + 8], V transposed
+  __shared__ int q_row[BQ];     // memory row of each query (-1: none)
+  __shared__ int q_ok[BQ];      // the query token exists
+  __shared__ int k_row[BK];     // memory row of each key of the chunk
+  __shared__ float k_bias[BK];  // its additive bias (NEG_INF: masked)
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int block = geo.tt * geo.th * geo.tw;
+  const int q_subs = block / BQ, k_subs = block / BK;
+  const int qi = blockIdx.x / q_subs, f0 = (blockIdx.x % q_subs) * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const uint4 zero4 = make_uint4(0, 0, 0, 0);
+  T* oh = o + b * o_bs + (long long)h * D;
+
+  int valid = 0;
+  if (tid < BQ) {
+    const int tok = token_of(geo, qi, f0 + tid);
+    valid = tok >= 0;
+    q_ok[tid] = valid;
+    q_row[tid] = DIRECT ? tok : qi * block + f0 + tid;
+  }
+  if (!__syncthreads_or(valid)) {  // no query of these 64 rows exists
+    if (!DIRECT)
+      for (int i = tid; i < BQ * CH; i += THREADS)
+        *reinterpret_cast<uint4*>(oh + q_row[i / CH] * o_rs +
+                                  (i % CH) * 8) = zero4;
+    return;
+  }
+
+  const T* qh = q + b * q_bs + (long long)h * D;
+  for (int i = tid; i < BQ * CH; i += THREADS) {
+    const int r = i / CH, c = (i % CH) * 8;
+    uint4 val = zero4;
+    if (q_ok[r])
+      val = *reinterpret_cast<const uint4*>(qh + q_row[r] * q_rs + c);
+    *reinterpret_cast<uint4*>(Qs + r * DP + c) = val;
+  }
+  __syncthreads();
+  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  uint32_t qa[D / 16][4];
+  hv::load_q<T, D>(Qs, r0, t, qa);
+
+  const float c_off = RUNNING ? 0.f : cb[b * H + h];
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn)
+    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF};  // running max, rows r0 and r0 + 8
+  float l_r[2] = {0.f, 0.f};          // this thread's part of the row sums
+
+  // Chunks: k_subs per image slot, then (DIRECT) the text keys.
+  const int n_img = n_slots * k_subs;
+  const int n_chunks = n_img + (DIRECT ? (Lt + BK - 1) / BK : 0);
+  const int* nbr_q = nbr + (long long)qi * n_slots;
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    const bool img = ci < n_img;
+    const int nb = img ? nbr_q[ci / k_subs] : 0;
+    if (nb < 0) continue;  // uniform across the block
+    __syncthreads();       // every warp is done with the previous chunk
+    int any = 0;
+    if (tid < BK) {
+      int row;
+      float bias;
+      if (!img) {
+        const int j = (ci - n_img) * BK + tid;
+        row = j < Lt ? j : -1;
+        bias = row < 0 ? NEG_INF : (tb ? tb[(long long)b * Lt + j] : 0.f);
+      } else if (DIRECT) {
+        row = token_of(geo, nb, (ci % k_subs) * BK + tid);
+        bias = row < 0 ? NEG_INF : (kb ? kb[b * kb_bs + row] : 0.f);
+      } else {
+        row = nb * block + (ci % k_subs) * BK + tid;
+        bias = kb[b * kb_bs + row];
+      }
+      any = bias > 0.5f * NEG_INF;
+      k_row[tid] = any ? row : -1;  // masked keys read as zero K/V
+      k_bias[tid] = any ? bias : NEG_INF;
+    }
+    if (!__syncthreads_or(any)) continue;  // no valid key in this chunk
+
+    const T* kh = (img ? k + b * k_bs : tk + b * tk_bs) + (long long)h * D;
+    const T* vh = (img ? v + b * v_bs : tv + b * tv_bs) + (long long)h * D;
+    const long long krs = img ? k_rs : tk_rs, vrs = img ? v_rs : tv_rs;
+    for (int i = tid; i < BK * CH; i += THREADS) {
+      const int r = i / CH, c = (i % CH) * 8;
+      uint4 kv = zero4, vv = zero4;
+      const int row = k_row[r];
+      if (row >= 0) {
+        kv = *reinterpret_cast<const uint4*>(kh + row * krs + c);
+        vv = *reinterpret_cast<const uint4*>(vh + row * vrs + c);
+      }
+      hv::stage_kv<T, D>(Ks, Vt, r, c, kv, vv);
+    }
+    __syncthreads();
+
+    float bias[BK / 8][2];
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) bias[nt][j] = k_bias[nt * 8 + 2 * t + j];
+    hv::fold_chunk<T, D, RUNNING>(qa, Ks, Vt, bias, scale, c_off, acc, m_r,
+                                  l_r, g, t);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float l = hv::quad_sum(l_r[i]);
+    const int r = r0 + 8 * i;
+    const int row = q_row[r];
+    if (row < 0) continue;
+    // a missing query row (permuted layout) is stored as zeros
+    const float inv = q_ok[r] ? 1.f / fmaxf(l, 1e-37f) : 0.f;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      *reinterpret_cast<uint32_t*>(oh + row * o_rs + dn * 8 + 2 * t) =
+          hv::pack2(acc[dn][2 * i] * inv, acc[dn][2 * i + 1] * inv, T());
+  }
+}
+
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  const void *tk, *tv;
+  const float *kb, *tb, *c;
+  const int* nbr;
+  int B, H, n_slots, Lt, n_tiles;
+  Geometry geo;
+  long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, tk_bs, tk_rs, tv_bs, tv_rs,
+      o_bs, o_rs, kb_bs;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, bool DIRECT, bool RUNNING>
+cudaError_t launch(const Args& a) {
+  auto kern = sta_fwd_kernel<T, D, DIRECT, RUNNING>;
+  const int smem = hv::tile_smem_bytes<T, D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int block = a.geo.tt * a.geo.th * a.geo.tw;
+  dim3 grid(a.n_tiles * (block / BQ), a.H, a.B);
+  kern<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o),
+      static_cast<const T*>(a.tk), static_cast<const T*>(a.tv), a.kb, a.tb,
+      a.c, a.nbr, a.geo, a.H, a.n_slots, a.Lt, a.q_bs, a.q_rs, a.k_bs,
+      a.k_rs, a.v_bs, a.v_rs, a.tk_bs, a.tk_rs, a.tv_bs, a.tv_rs, a.o_bs,
+      a.o_rs, a.kb_bs, a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T, bool DIRECT, bool RUNNING>
+cudaError_t dispatch_d(int head_dim, const Args& a) {
+  if (head_dim == 128) return launch<T, 128, DIRECT, RUNNING>(a);
+  if (head_dim == 64) return launch<T, 64, DIRECT, RUNNING>(a);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dispatch_mode(int direct, int running, int head_dim,
+                          const Args& a) {
+  if (direct && !running) return dispatch_d<T, true, false>(head_dim, a);
+  if (!direct && !running) return dispatch_d<T, false, false>(head_dim, a);
+  if (!direct && running) return dispatch_d<T, false, true>(head_dim, a);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype: 0 = bf16, 1 = fp16. direct: 1 = row-major token grid with text
+// keys tk/tv folded last, 0 = tile-major q with kcat keys. running: 1 =
+// running max (permuted layout only), 0 = static offset c [B, H]. kb (DIRECT:
+// may be null), tb (may be null), tk/tv (DIRECT only). Tile token count a
+// multiple of 64. Returns the cudaError_t of the launch.
+extern "C" int hv_sta_attention_fwd(
+    int dtype, int direct, int running, int head_dim, const void* q,
+    const void* k, const void* v, void* o, const void* tk, const void* tv,
+    const float* kb, const float* tb, const float* c, const int* nbr, int B,
+    int H, int n_slots, int Lt, int T, int Hg, int Wg, int tt, int th,
+    int tw, long long q_bs, long long q_rs, long long k_bs, long long k_rs,
+    long long v_bs, long long v_rs, long long tk_bs, long long tk_rs,
+    long long tv_bs, long long tv_rs, long long o_bs, long long o_rs,
+    long long kb_bs, float scale, void* stream) {
+  const int nt = (T + tt - 1) / tt, nh = (Hg + th - 1) / th,
+            nw = (Wg + tw - 1) / tw;
+  if ((tt * th * tw) % BQ != 0) return cudaErrorInvalidValue;
+  if (!direct && kb == nullptr) return cudaErrorInvalidValue;
+  if (!running && c == nullptr) return cudaErrorInvalidValue;
+  const Args a{q, k, v, o, tk, tv, kb, tb, c, nbr, B, H, n_slots, Lt,
+               nt * nh * nw, Geometry{T, Hg, Wg, tt, th, tw, nh, nw},
+               q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, tk_bs, tk_rs, tv_bs,
+               tv_rs, o_bs, o_rs, kb_bs, scale,
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == 0)
+    return dispatch_mode<__nv_bfloat16>(direct, running, head_dim, a);
+  if (dtype == 1) return dispatch_mode<__half>(direct, running, head_dim, a);
+  return cudaErrorInvalidValue;
+}

@@ -105,7 +105,10 @@ class Inference:
         base = Path(args.model_base)
 
         cfg = load_dit_config(args.model, rope_theta=float(args.rope_theta),
-                              attn_mode=args.attn_mode)
+                              attn_mode=args.attn_mode,
+                              sta_window=tuple(args.sta_window),
+                              sta_dense_double_blocks=args.sta_dense_blocks,
+                              sta_dense_single_blocks=args.sta_dense_blocks)
         dtype = PRECISION_TO_TYPE[args.precision]
         dit_path = cls.resolve_dit_weight(args)
         if dit_path is not None:

@@ -12,6 +12,13 @@ fused linear1 is split into its qkv columns and MLP columns, and linear2
 into the attention rows (with the bias) and MLP rows, as in the JAX block.
 With QK-norm the scores are bounded by `_analytic_score_bound`, and
 attention runs the static-offset flash kernel (K1).
+
+Under attn_mode="sta" the image queries run sliding-tile attention over the
+(T', H', W') patch grid (ops/sta.py): the RoPE table stays image-only, both
+block types split q/k/v into image and text parts (norm + RoPE on the
+image part, norm only on the text part), and the first
+`sta_dense_{double,single}_blocks` of each stack keep dense attention
+(JAX models/dit.py:1003-1024).
 """
 from __future__ import annotations
 
@@ -259,7 +266,10 @@ class DoubleBlock(nn.Module):
                    for u in getattr(self, f"{s}_attn_qkv")(x).chunk(3, -1))
         return q, k, v
 
-    def forward(self, img, txt, vec, txt_bias, freqs_cis):
+    def forward(self, img, txt, vec, txt_bias, freqs_cis, token_grid=None,
+                attn_mode: Optional[str] = None, sta_plain: bool = False):
+        """attn_mode overrides cfg.attn_mode (the dense anchors under STA);
+        token_grid and sta_plain reach joint_attention."""
         cfg = self.cfg
         b, img_len, _ = img.shape
         i_sh1, i_sc1, i_g1, i_sh2, i_sc2, i_g2 = self.img_mod(vec).chunk(6, -1)
@@ -289,8 +299,10 @@ class DoubleBlock(nn.Module):
              (self.txt_attn_q_norm, self.txt_attn_k_norm)])
         img_attn, txt_attn = joint_attention(
             img_q, img_k, img_v, txt_q, txt_k, txt_v, txt_bias,
-            mode=cfg.attn_mode, bound_mode=_bound_mode(cfg),
-            score_bound=sbound)
+            mode=attn_mode or cfg.attn_mode, bound_mode=_bound_mode(cfg),
+            score_bound=sbound, token_grid=token_grid,
+            sta_tile=cfg.sta_tile, sta_window=cfg.sta_window,
+            sta_plain=sta_plain)
 
         img = img + apply_gate(self.img_attn_proj(img_attn), i_g1)
         img = img + apply_gate(
@@ -319,8 +331,14 @@ class SingleBlock(nn.Module):
         self.k_norm = _qk_norm_layer(cfg, d, **fk)
         self.modulation = ModulateDiT(h, 3, **fk)
 
-    def forward(self, x, vec, txt_len: int, txt_bias, freqs_cis):
+    def forward(self, x, vec, txt_len: int, txt_bias, freqs_cis,
+                token_grid=None, attn_mode: Optional[str] = None,
+                sta_plain: bool = False):
+        """As DoubleBlock.forward for attn_mode, token_grid and sta_plain.
+        A joint [img | txt] RoPE table rotates q/k in place; an image-only
+        table (STA) takes the split path of JAX models/dit.py:758-778."""
         cfg = self.cfg
+        mode = attn_mode or cfg.attn_mode
         b, l, h = x.shape
         h3 = 3 * h
         shift, scale, gate = self.modulation(vec).chunk(3, -1)
@@ -332,16 +350,35 @@ class SingleBlock(nn.Module):
                    for u in qkv.chunk(3, -1))
         pre_q = self.q_norm if cfg.qk_norm else None
         pre_k = self.k_norm if cfg.qk_norm else None
-        if freqs_cis is not None:
-            q = rotate_tokens(q, freqs_cis, pre=pre_q)
-            k = rotate_tokens(k, freqs_cis, pre=pre_k)
-        elif cfg.qk_norm:
-            q, k = pre_q(q), pre_k(k)
         sbound = _analytic_score_bound(cfg, cfg.head_dim,
                                        [(self.q_norm, self.k_norm)])
-        attn = attention(q, k, v, mode=cfg.attn_mode,
-                         key_bias=joint_key_bias(txt_bias, l - txt_len),
-                         bound_mode=_bound_mode(cfg), score_bound=sbound)
+        img_len = l - txt_len
+        if mode.startswith("sta") or (freqs_cis is not None
+                                      and freqs_cis[0].shape[0] != l):
+            iq, ik, iv = (u[:, :img_len] for u in (q, k, v))
+            tq, tk, tv = (u[:, img_len:] for u in (q, k, v))
+            if freqs_cis is not None:
+                iq = rotate_tokens(iq, freqs_cis, pre=pre_q)
+                ik = rotate_tokens(ik, freqs_cis, pre=pre_k)
+            elif cfg.qk_norm:
+                iq, ik = pre_q(iq), pre_k(ik)
+            if cfg.qk_norm:
+                tq, tk = pre_q(tq), pre_k(tk)
+            img_attn, txt_attn = joint_attention(
+                iq, ik, iv, tq, tk, tv, txt_bias, mode=mode,
+                bound_mode=_bound_mode(cfg), score_bound=sbound,
+                token_grid=token_grid, sta_tile=cfg.sta_tile,
+                sta_window=cfg.sta_window, sta_plain=sta_plain)
+            attn = torch.cat([img_attn, txt_attn], dim=1)
+        else:
+            if freqs_cis is not None:
+                q = rotate_tokens(q, freqs_cis, pre=pre_q)
+                k = rotate_tokens(k, freqs_cis, pre=pre_k)
+            elif cfg.qk_norm:
+                q, k = pre_q(q), pre_k(k)
+            attn = attention(q, k, v, mode=mode,
+                             key_bias=joint_key_bias(txt_bias, img_len),
+                             bound_mode=_bound_mode(cfg), score_bound=sbound)
         out = F.linear(attn, w2[:, :h], self.linear2.bias)
         hid = ACT[cfg.mlp_act_type](F.linear(x_mod, w1[h3:], b1[h3:]))
         out = out + F.linear(hid, w2[:, h:])
@@ -426,11 +463,13 @@ class HYVideoDiT(nn.Module):
         self.final_layer = FinalLayer(h, pt * ph * pw * cfg.out_channels, **fk)
 
     def forward(self, x, t, text_states, text_mask, text_states_2,
-                freqs_cos, freqs_sin, guidance=None):
+                freqs_cos, freqs_sin, guidance=None, sta_plain: bool = False):
         """x [B, C, T', H', W'] latent, t [B] in [0, 1000), text_states
         [B, L, text_dim], text_mask [B, L], text_states_2 [B, text_dim_2],
         freqs [img_len, head_dim] -> [B, C, T', H', W']
-        (reference: models.py:595-695)."""
+        (reference: models.py:595-695). sta_plain=True runs the STA image
+        queries through the plain version instead of the kernels (a
+        reference for checks on the card; no inference path sets it)."""
         cfg = self.cfg
         b, _, ot, oh, ow = x.shape
         pt, ph, pw = cfg.patch_size
@@ -454,18 +493,28 @@ class HYVideoDiT(nn.Module):
         txt_len = txt.shape[1]
         txt_bias = text_key_bias(text_mask) if text_mask is not None else None
 
+        sta = cfg.attn_mode.startswith("sta")
         freqs = None
-        if freqs_cos is not None:
+        if freqs_cos is not None and sta:
+            freqs = (freqs_cos, freqs_sin)  # image-only: blocks split
+        elif freqs_cos is not None:
             # identity rows (cos 1, sin 0) over the text segment: the joint
             # [img | txt] q/k rotate in place
             fd = freqs_cos.shape[-1]
             freqs = (torch.cat([freqs_cos, freqs_cos.new_ones(txt_len, fd)]),
                      torch.cat([freqs_sin, freqs_sin.new_zeros(txt_len, fd)]))
-        for blk in self.double_blocks:
-            img, txt = blk(img, txt, vec, txt_bias, freqs)
+        grid = (tt, th, tw)
+
+        def mode(i, n_dense):
+            return "auto" if sta and i < n_dense else None
+
+        for i, blk in enumerate(self.double_blocks):
+            img, txt = blk(img, txt, vec, txt_bias, freqs, grid,
+                           mode(i, cfg.sta_dense_double_blocks), sta_plain)
         xx = torch.cat([img, txt], dim=1)
-        for blk in self.single_blocks:
-            xx = blk(xx, vec, txt_len, txt_bias, freqs)
+        for i, blk in enumerate(self.single_blocks):
+            xx = blk(xx, vec, txt_len, txt_bias, freqs, grid,
+                     mode(i, cfg.sta_dense_single_blocks), sta_plain)
         out = self.final_layer(xx[:, :img_len], vec)
         return unpatchify(out, tt, th, tw, cfg.out_channels, cfg.patch_size)
 

@@ -1,5 +1,6 @@
 """DiT configuration (reference: hyvideo/modules/models.py:448-760); a copy
-of the JAX package's models/dit_config.py without its TPU dispatch fields."""
+of the JAX package's models/dit_config.py without its TPU dispatch and
+sequence-parallel fields."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
@@ -27,7 +28,15 @@ class DiTConfig:
     text_projection: str = "single_refiner"
     use_attention_mask: bool = True
     rope_theta: float = 256.0
-    attn_mode: str = "auto"  # auto | flash | sdpa | chunked
+    attn_mode: str = "auto"  # auto | flash | sdpa | chunked | sta
+    # Sliding Tile Attention (attn_mode="sta"; ops/sta.py): tile shape in
+    # (t, h, w) patch-grid units and the sliding window in tiles.
+    sta_tile: Tuple[int, int, int] = (4, 8, 8)
+    sta_window: Tuple[int, int, int] = (3, 3, 3)
+    # First N double/single blocks keep dense attention under "sta" (the
+    # paper keeps a few full-attention layers for quality).
+    sta_dense_double_blocks: int = 0
+    sta_dense_single_blocks: int = 0
 
     @property
     def head_dim(self) -> int:

@@ -10,6 +10,8 @@ reach the final layer, so valid positions match exactly.
 * `chunked_attention`: online softmax over query and key chunks, with an
   optional block bias (the VAE mid-block's frame-causal mask at large L).
 * `flash`: the hand-written kernels of ops/flash_attention.py.
+* `sta` (joint_attention only): sliding-tile attention for the image
+  queries, ops/sta.py; it needs the (T, H, W) patch grid.
 
 Layout: q/k/v [B, S, H, D]; outputs [B, S, H*D].
 """
@@ -133,6 +135,9 @@ def attention(q, k, v, mode: str = "auto", bias=None, key_bias=None,
         return flash_attention(q, k, v, key_bias, scale,
                                bound_mode=bound_mode,
                                score_bound=score_bound)
+    if mode in ("sta", "sta_int8"):
+        raise ValueError(f"mode={mode!r} needs the image/text split and the "
+                         f"token grid: call joint_attention")
     raise NotImplementedError(
         f"attention mode {mode!r} is not ported to the PyTorch package")
 
@@ -140,9 +145,28 @@ def attention(q, k, v, mode: str = "auto", bias=None, key_bias=None,
 def joint_attention(img_q, img_k, img_v, txt_q, txt_k, txt_v,
                     txt_bias: Optional[torch.Tensor], mode: str = "auto",
                     scale: Optional[float] = None, bound_mode: str = "auto",
-                    score_bound=None):
+                    score_bound=None, token_grid=None, sta_tile=(4, 8, 8),
+                    sta_window=(3, 3, 3), sta_plain: bool = False):
     """Joint attention over [img | txt] tokens on one device; returns
-    (img_out, txt_out), each [B, S, H*D]."""
+    (img_out, txt_out), each [B, S, H*D].
+
+    mode="sta" runs Sliding Tile Attention (ops/sta.py) for the image
+    queries over the `token_grid` = (T, H, W) patch grid; sta_plain routes
+    its image queries to the plain version (a reference for checks)."""
+    if mode == "sta_int8":
+        raise NotImplementedError("attn_mode 'sta_int8' (STA with int8 "
+                                  "QK^T) is not ported to the PyTorch "
+                                  "package yet")
+    if mode == "sta":
+        if token_grid is None:
+            raise ValueError("attn_mode='sta' requires token_grid")
+        from .sta import sta_joint_attention
+
+        return sta_joint_attention(
+            img_q, img_k, img_v, txt_q, txt_k, txt_v, txt_bias,
+            grid=tuple(token_grid), tile=tuple(sta_tile),
+            window=tuple(sta_window), scale=scale, bound_mode=bound_mode,
+            score_bound=score_bound, plain=sta_plain)
     img_len = img_q.shape[1]
     q = torch.cat([img_q, txt_q], dim=1)
     k = torch.cat([img_k, txt_k], dim=1)

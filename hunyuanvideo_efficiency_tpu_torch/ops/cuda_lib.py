@@ -36,6 +36,10 @@ SIGNATURES = {
         "hv_conv3d_stride1": (
             _I, [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     },
+    "sta_attention": {
+        "hv_sta_attention_fwd": (
+            _I, [_I] * 4 + [_P] * 10 + [_I] * 10 + [_LL] * 13 + [_F, _P]),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

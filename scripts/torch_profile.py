@@ -1,10 +1,13 @@
 """Where the time goes on the PyTorch port's main path, on one NVIDIA GPU.
 
     python3 scripts/torch_profile.py [--steps 2]
+    python3 scripts/torch_profile.py --attn-mode sta --sta-dense-blocks 1 \
+        --height 544 --width 960 --frames 65
 
-Builds the sampler as chip_smoke.py's main path does (HYVideo-T/2 at full
-width, Llama-3-8B + CLIP-L, the 884-16c-hy VAE, random weights; 256x448,
-33 frames, CFG 6.0) and splits predict() into its three stages: text
+Builds the sampler as chip_smoke.py's main paths do (HYVideo-T/2 at full
+width, Llama-3-8B + CLIP-L, the 884-16c-hy VAE, random weights; by default
+dense attention at 256x448, 33 frames; CFG 6.0) and splits predict() into
+its three stages: text
 encoding, the denoise loop, the tiled VAE decode. Each stage runs once to
 warm up, once on the host clock (synchronized) and once under
 torch.profiler. Per stage it prints one line: wall seconds, the device's
@@ -38,6 +41,8 @@ def category(name: str) -> str:
     low = name.lower()
     if "flash_fwd_kernel" in low:
         return "flash attention (K1/K2)"
+    if "sta_fwd_kernel" in low:
+        return "sliding-tile attention (STA)"
     if "conv3d_s1_kernel" in low:
         return "conv3d (K3)"
     if "cudnn" in low or "fprop" in low:
@@ -82,6 +87,11 @@ def stage(label, fn, out_dir, top=12):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--attn-mode", default="auto", choices=["auto", "sta"])
+    ap.add_argument("--sta-dense-blocks", type=int, default=0)
+    ap.add_argument("--height", type=int, default=HEIGHT)
+    ap.add_argument("--width", type=int, default=WIDTH)
+    ap.add_argument("--frames", type=int, default=FRAMES)
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -92,14 +102,17 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     args = InferenceArgs(model="HYVideo-T/2", vae_tiling=True,
-                         model_base="ckpts-not-present")
+                         model_base="ckpts-not-present",
+                         attn_mode=a.attn_mode,
+                         sta_dense_blocks=a.sta_dense_blocks)
     sampler = HunyuanVideoSampler.from_pretrained(args=args,
                                                   allow_random_init=True)
     randomize_modulation(sampler.transformer, 3)
     pipe, dev = sampler.pipeline, sampler.device
     prompt = "A cat walks on the grass, realistic style."
     cos, sin, (tt, th, tw) = get_rotary_pos_embed(
-        sampler.transformer.cfg, args.vae, FRAMES, HEIGHT, WIDTH, device=dev)
+        sampler.transformer.cfg, args.vae, a.frames, a.height, a.width,
+        device=dev)
     emb = {}
 
     def text():
@@ -108,7 +121,7 @@ def main():
 
     def denoise():
         emb["latents"] = pipe(
-            height=HEIGHT, width=WIDTH, video_length=FRAMES,
+            height=a.height, width=a.width, video_length=a.frames,
             num_inference_steps=a.steps, guidance_scale=6.0,
             generator=torch.Generator(dev).manual_seed(42),
             prompt_embeds=emb["pe"], prompt_mask=emb["mask"],
@@ -128,7 +141,8 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"[env] card={smi} torch={torch.__version__} steps={a.steps} "
-          f"size={HEIGHT}x{WIDTH}x{FRAMES}", flush=True)
+          f"size={a.height}x{a.width}x{a.frames} attn_mode={a.attn_mode} "
+          f"sta_dense_blocks={a.sta_dense_blocks}", flush=True)
     stage("text_encode", text, out_dir)
     stage(f"denoise_{a.steps}_steps", denoise, out_dir)
     stage("vae_decode", decode, out_dir)

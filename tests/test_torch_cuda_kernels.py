@@ -98,3 +98,103 @@ def test_conv3d_kernel_matches_plain(dev, dtype, shape):
     assert conv3d_stride1.LAUNCHES == n0 + 1
     torch.testing.assert_close(out.float(), ref.float(), atol=2 * TOL,
                                rtol=TOL)
+
+
+def _sta_inputs(dev, dtype, grid, d, lt, txt_valid, seed=3):
+    """Row-major STA inputs: unit-norm q/k times 4 (|s| <= 16/sqrt(d)), the
+    static offset that bounds them, text keys of which `txt_valid` are
+    unmasked in batch 1 (all in batch 0)."""
+    g = torch.Generator(dev).manual_seed(seed)
+    b, h, s = 2, 3, grid[0] * grid[1] * grid[2]
+
+    def qk(n):
+        x = torch.randn(b, n, h, d, generator=g, device=dev)
+        return (torch.nn.functional.normalize(x, dim=-1) * 4).to(dtype)
+
+    img = [qk(s), qk(s), torch.randn(b, s, h, d, generator=g,
+                                     device=dev).to(dtype)]
+    txt = [qk(lt), qk(lt), torch.randn(b, lt, h, d, generator=g,
+                                       device=dev).to(dtype)]
+    tb = torch.zeros(b, 1, 1, lt, device=dev)
+    tb[1, ..., txt_valid:] = -1e30
+    c = torch.full((b, h), 16.0 * d ** -0.5 * 1.02, device=dev)
+    return img, txt, tb, c
+
+
+STA_CASES = [
+    # grid, tile, window, text keys, valid text keys of batch 1
+    ((5, 9, 13), (2, 4, 8), (3, 3, 3), 37, 20),     # ragged on every axis
+    ((4, 8, 16), (2, 4, 8), (1, 3, 3), 160, 5),     # fully masked text chunks
+    ((5, 17, 30), (4, 8, 8), (3, 3, 3), 256, 40),   # main-path tile, ragged
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", STA_CASES)
+def test_sta_kernels_match_plain(dev, dtype, d, case):
+    from hunyuanvideo_efficiency_tpu_torch.ops import sta
+
+    grid, tile, window, lt, txt_valid = case
+    (iq, ik, iv), (_, tk, tv), tb, c = _sta_inputs(dev, dtype, grid, d, lt,
+                                                   txt_valid)
+    scale = d ** -0.5
+    ikb = torch.zeros(iq.shape[:2], device=dev)
+    ikb[0, ::7] = -1e30                                # caller key mask
+    plan, qp, kcat, vcat, kb = sta.permuted_operands(
+        iq, ik, iv, tk, tv, tb, grid, tile, window)
+    n0 = (sta.sta_direct.LAUNCHES, sta.sta_permuted_static.LAUNCHES,
+          sta.sta_permuted_running.LAUNCHES)
+    got = {
+        "direct": sta.sta_direct(iq, ik, iv, tk, tv, tb, c, grid, tile,
+                                 window, scale),
+        "direct_kb": sta.sta_direct(iq, ik, iv, tk, tv, tb, c, grid, tile,
+                                    window, scale, img_key_bias=ikb),
+        "static": sta._unpermute_tokens(sta.sta_permuted_static(
+            qp, kcat, vcat, kb, c, grid, tile, window, scale), grid, plan),
+        "running": sta._unpermute_tokens(sta.sta_permuted_running(
+            qp, kcat, vcat, kb, grid, tile, window, scale), grid, plan),
+    }
+    ref = {
+        "direct": sta.sta_attention_plain(iq, ik, iv, tk, tv, tb, grid, tile,
+                                          window, scale, c),
+        "direct_kb": sta.sta_attention_plain(iq, ik, iv, tk, tv, tb, grid,
+                                             tile, window, scale, c, ikb),
+        "static": sta.sta_attention_plain(iq, ik, iv, tk, tv, tb, grid, tile,
+                                          window, scale, c),
+        "running": sta.sta_attention_plain(iq, ik, iv, tk, tv, tb, grid,
+                                           tile, window, scale),
+    }
+    torch.cuda.synchronize()
+    assert (sta.sta_direct.LAUNCHES, sta.sta_permuted_static.LAUNCHES,
+            sta.sta_permuted_running.LAUNCHES) == (n0[0] + 2, n0[1] + 1,
+                                                   n0[2] + 1)
+    for name, out in got.items():
+        assert out.dtype == dtype and out.shape == ref[name].shape, name
+        torch.testing.assert_close(out.float(), ref[name].float(), atol=TOL,
+                                   rtol=TOL, msg=name)
+    # the permuted kernels store padding rows as zeros, as the plain does
+    padded = sta.sta_permuted_static(qp, kcat, vcat, kb, c, grid, tile,
+                                     window, scale)
+    plain = sta.sta_permuted_plain(qp, kcat, vcat, kb, grid, tile, window,
+                                   scale, c)
+    torch.testing.assert_close(padded.float(), plain.float(), atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("kw", [dict(direct=False), dict(fused=False)])
+def test_sta_direct_matches_permuted(dev, kw):
+    """sta_joint_attention's direct arm (B4 + text merge through K1) against
+    its permuted static arm (B6 + one K1 over kcat) on the same inputs."""
+    from hunyuanvideo_efficiency_tpu_torch.ops.sta import sta_joint_attention
+
+    grid, tile, window, lt, txt_valid = STA_CASES[2]
+    img, txt, tb, c = _sta_inputs(dev, torch.bfloat16, grid, 128, lt,
+                                  txt_valid, seed=4)
+    common = dict(grid=grid, tile=tile, window=window, bound_mode="static",
+                  score_bound=c)
+    a = sta_joint_attention(*img, *txt, tb, **common)
+    bb = sta_joint_attention(*img, *txt, tb, **common, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(a, bb):
+        torch.testing.assert_close(x.float(), y.float(), atol=TOL, rtol=TOL)

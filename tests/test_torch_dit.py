@@ -49,7 +49,7 @@ def randomize(tree, rng, keys=("img_mod", "txt_mod", "modulation",
 
 def make_pair(seed=0, **overrides):
     """(JAX params, JAX cfg, port model) with identical weights."""
-    jcfg = JCfg(attn_mode="flash", **TINY, **overrides)
+    jcfg = JCfg(**{"attn_mode": "flash", **TINY, **overrides})
     params = randomize(init_dit_params(jax.random.PRNGKey(seed), jcfg),
                        np.random.default_rng(seed))
     cfg = DiTConfig(**TINY, **overrides)

@@ -13,6 +13,9 @@ from hunyuanvideo_efficiency_tpu_torch.ops import cuda_lib
 from hunyuanvideo_efficiency_tpu_torch.ops.conv3d_cuda import conv3d_stride1
 from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
     flash_running, flash_static)
+from hunyuanvideo_efficiency_tpu_torch.ops.sta import (sta_direct,
+                                                       sta_permuted_running,
+                                                       sta_permuted_static)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "hunyuanvideo_efficiency_tpu_torch"
@@ -64,16 +67,24 @@ def test_off_cpu_tensors_never_fall_back():
     c = torch.empty((1, 2), device="meta")
     xp = torch.empty((1, 3, 6, 6, 128), dtype=torch.float16, device="meta")
     w = torch.empty((3, 3, 3, 128, 128), dtype=torch.float16, device="meta")
-    counts = (flash_static.LAUNCHES, flash_running.LAUNCHES,
-              conv3d_stride1.LAUNCHES)
+    kernels = (flash_static, flash_running, conv3d_stride1, sta_direct,
+               sta_permuted_static, sta_permuted_running)
+    counts = [fn.LAUNCHES for fn in kernels]
     with pytest.raises(ValueError, match="CUDA"):
         flash_static(q, q, q, None, c, 0.125)
     with pytest.raises(ValueError, match="CUDA"):
         flash_running(q, q, q, None, 0.125)
     with pytest.raises(ValueError, match="CUDA"):
         conv3d_stride1(xp, w)
-    assert counts == (flash_static.LAUNCHES, flash_running.LAUNCHES,
-                      conv3d_stride1.LAUNCHES)
+    geom = ((1, 8, 8), (1, 8, 8), (3, 3, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        sta_direct(q, q, q, q, q, None, c, *geom, 0.125)
+    kb = torch.empty((1, 64), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        sta_permuted_static(q, q, q, kb, c, *geom, 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        sta_permuted_running(q, q, q, kb, *geom, 0.125)
+    assert counts == [fn.LAUNCHES for fn in kernels]
 
 
 def test_missing_library_without_nvcc_raises(monkeypatch, tmp_path):

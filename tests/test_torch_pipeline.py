@@ -77,9 +77,10 @@ def _randomize_modulation(tree, rng):
     return walk(tree, False)
 
 
-@pytest.fixture(scope="module")
-def pipelines():
-    jdit_cfg = JDiTCfg(attn_mode="flash", **DIT)
+def build_pipelines(**dit_overrides):
+    """(JAX pipeline, port pipeline) of the tiny towers, DiT and VAE, with
+    identical random weights; `dit_overrides` go to both DiT configs."""
+    jdit_cfg = JDiTCfg(**{"attn_mode": "flash", **DIT, **dit_overrides})
     dit_p = _randomize_modulation(
         _np_tree(jax.jit(init_dit_params, static_argnums=(1, 2))(
             jax.random.PRNGKey(0), jdit_cfg, jnp.float32)),
@@ -104,7 +105,7 @@ def pipelines():
         transformer_params=jax.tree.map(jnp.asarray, dit_p),
         transformer_cfg=jdit_cfg, scheduler=JScheduler(shift=7.0))
 
-    dit = HYVideoDiT(DiTConfig(**DIT)).eval()
+    dit = HYVideoDiT(DiTConfig(**DIT, **dit_overrides)).eval()
     dit.load_state_dict(dit_state_dict_from_jax(dit_p, dit.cfg))
     llama = LlamaModel(LlamaConfig(**LLAMA)).eval()
     llama.load_state_dict(llama_state_dict_from_jax(llama_p))
@@ -120,6 +121,11 @@ def pipelines():
         text_encoder_2=TextEncoder("clipL", 20, clip),
         transformer=dit, scheduler=FlowMatchDiscreteScheduler(shift=7.0))
     return jpipe, tpipe
+
+
+@pytest.fixture(scope="module")
+def pipelines():
+    return build_pipelines()
 
 
 def test_two_step_cfg_pipeline_matches_jax(pipelines):
@@ -184,7 +190,7 @@ def test_predict_rejects_bad_inputs(sampler):
 @pytest.mark.parametrize("flags,match", [
     (dict(use_fp8=True), "weight tiers"),
     (dict(ulysses_degree=2), "sequence parallelism"),
-    (dict(attn_mode="sta"), "attn-mode sta"),
+    (dict(attn_mode="sta_int8"), "attn-mode sta"),
 ])
 def test_unported_flags_rejected(flags, match):
     with pytest.raises(ValueError, match=match):

@@ -1,0 +1,211 @@
+"""The port's sliding-tile attention (ops/sta.py) against the JAX package's
+on the CPU.
+
+The JAX side runs `sta_joint_attention` as tests/test_sta.py does: its
+Pallas kernels in interpret mode, the text queries through its chunked
+attention. The port runs the kernel wrappers' plain versions. Inputs are
+numpy draws from a seed, fp32; tolerance atol 2e-5 times the output scale,
+rtol 1e-5 (fp32 sums in other orders).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hunyuanvideo_efficiency_tpu.ops import sta as jsta
+from hunyuanvideo_efficiency_tpu_torch.ops import sta
+from hunyuanvideo_efficiency_tpu_torch.ops.attention import (attention,
+                                                             joint_attention)
+
+NEG_INF = -1e30
+GEOMETRIES = [
+    # grid, tile, window
+    ((3, 9, 10), (2, 4, 4), (3, 3, 3)),   # ragged grid
+    ((4, 8, 8), (2, 4, 4), (3, 3, 3)),
+    ((4, 8, 8), (2, 4, 4), (1, 3, 3)),    # anisotropic window
+]
+ARMS = {
+    "static_direct": dict(bound_mode="static"),
+    "static_permuted_fused": dict(bound_mode="static", direct=False),
+    "static_permuted_unfused": dict(bound_mode="static", fused=False),
+    "running": dict(bound_mode="auto"),
+}
+
+
+def _inputs(grid, seed=0, b=2, h=2, d=32, lt=24, key_bias=False):
+    """img q/k/v, txt q/k/v (numpy, 0.5 * N(0, 1)), a text padding bias
+    [B, 1, 1, Lt] and optionally an image key bias [B, S_img]."""
+    rng = np.random.default_rng(seed)
+    s = grid[0] * grid[1] * grid[2]
+    img = [rng.standard_normal((b, s, h, d)).astype(np.float32) * 0.5
+           for _ in range(3)]
+    txt = [rng.standard_normal((b, lt, h, d)).astype(np.float32) * 0.5
+           for _ in range(3)]
+    mask = rng.random((b, lt)) > 0.3
+    mask[:, 0] = True
+    tb = np.where(mask, 0.0, NEG_INF).astype(np.float32)[:, None, None, :]
+    ikb = None
+    if key_bias:
+        ikb = np.where(rng.random((b, s)) > 0.2, 0.0, NEG_INF)
+        ikb = (ikb + rng.standard_normal((b, s)) * 0.3).astype(np.float32)
+    return img, txt, tb, ikb
+
+
+def _torch(*xs):
+    return [None if x is None else torch.from_numpy(x) for x in xs]
+
+
+def _jax(*xs):
+    return [None if x is None else jnp.asarray(x) for x in xs]
+
+
+def _close(out, ref):
+    ref = np.asarray(ref)
+    scale = np.abs(ref).max()
+    assert out.shape == ref.shape and scale > 1e-2
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5 * scale,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("txt_pad", [0, 32, 40])
+@pytest.mark.parametrize("geom", GEOMETRIES + [((17, 34, 60), (4, 8, 8),
+                                                (3, 3, 3))])
+def test_tile_plan_matches_jax(geom, txt_pad):
+    got = sta.tile_plan(*geom, txt_pad)
+    want = jsta.tile_plan(*geom, txt_pad)
+    assert got.keys() == want.keys()
+    for key in want:
+        np.testing.assert_array_equal(np.asarray(got[key]),
+                                      np.asarray(want[key]), err_msg=key)
+
+
+@pytest.mark.parametrize("geom", GEOMETRIES[:2])
+def test_token_layouts_match_jax(geom):
+    grid, tile, window = geom
+    (q, _, _), _, _, _ = _inputs(grid, seed=1)
+    plan = sta.tile_plan(grid, tile, window, 0)
+    got = sta._permute_tokens(torch.from_numpy(q), grid, tile, plan)
+    want = np.asarray(jsta._permute_tokens(jnp.asarray(q), grid, tile,
+                                           jsta.tile_plan(grid, tile,
+                                                          window, 0)))
+    b, s_pad, h, d = got.shape
+    np.testing.assert_array_equal(got.reshape(b, s_pad, h * d).numpy(),
+                                  want)
+    pad5 = sta._pad_tokens_5d(torch.from_numpy(q), grid, plan["padded_grid"])
+    np.testing.assert_array_equal(pad5.numpy(), np.asarray(
+        jsta._pad_tokens_5d(jnp.asarray(q), grid, plan["padded_grid"])))
+    back = sta._unpermute_tokens(got.reshape(b, s_pad, h * d), grid, plan)
+    np.testing.assert_array_equal(back.numpy(), q.reshape(b, -1, h * d))
+    np.testing.assert_array_equal(
+        sta.sta_reference_mask(grid, tile, window, q.shape[1]),
+        jsta.sta_reference_mask(grid, tile, window, q.shape[1]))
+
+
+@pytest.mark.parametrize("key_bias", [False, True],
+                         ids=["no_key_bias", "key_bias"])
+@pytest.mark.parametrize("geom", GEOMETRIES,
+                         ids=["ragged", "even", "window133"])
+@pytest.mark.parametrize("arm", list(ARMS))
+def test_sta_joint_attention_matches_jax(arm, geom, key_bias):
+    grid, tile, window = geom
+    img, txt, tb, ikb = _inputs(grid, seed=2, key_bias=key_bias)
+    kw = dict(grid=grid, tile=tile, window=window, **ARMS[arm])
+    want = jsta.sta_joint_attention(*_jax(*img, *txt, tb), **kw,
+                                    img_key_bias=_jax(ikb)[0])
+    got = sta.sta_joint_attention(*_torch(*img, *txt, tb), **kw,
+                                  img_key_bias=_torch(ikb)[0])
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+def test_wrappers_on_cpu_are_the_plain_version():
+    """On CPU tensors every wrapper returns its plain version's result and
+    counts no launch; the permuted layout leaves padding rows zero."""
+    grid, tile, window = GEOMETRIES[0]
+    img, txt, tb, _ = _inputs(grid, seed=3)
+    iq, ik, iv, _, tk, tv, tbt = _torch(*img, *txt, tb)
+    c = torch.full((2, 2), 3.0)
+    scale = 32 ** -0.5
+    counts = (sta.sta_direct.LAUNCHES, sta.sta_permuted_static.LAUNCHES,
+              sta.sta_permuted_running.LAUNCHES)
+    ref = sta.sta_attention_plain(iq, ik, iv, tk, tv, tbt, grid, tile,
+                                  window, scale, c)
+    torch.testing.assert_close(
+        sta.sta_direct(iq, ik, iv, tk, tv, tbt, c, grid, tile, window,
+                       scale), ref, rtol=0, atol=0)
+    plan, qp, kcat, vcat, kb = sta.permuted_operands(
+        iq, ik, iv, tk, tv, tbt, grid, tile, window)
+    out_p = sta.sta_permuted_static(qp, kcat, vcat, kb, c, grid, tile,
+                                    window, scale)
+    torch.testing.assert_close(sta._unpermute_tokens(out_p, grid, plan),
+                               ref, rtol=0, atol=0)
+    valid = sta._valid_tokens(grid, plan["padded_grid"]).reshape(-1)
+    assert not out_p[:, ~torch.from_numpy(valid[plan["perm"]])].any()
+    running = sta._unpermute_tokens(sta.sta_permuted_running(
+        qp, kcat, vcat, kb, grid, tile, window, scale), grid, plan)
+    torch.testing.assert_close(
+        running, sta.sta_attention_plain(iq, ik, iv, tk, tv, tbt, grid,
+                                         tile, window, scale),
+        rtol=0, atol=0)
+    assert counts == (sta.sta_direct.LAUNCHES,
+                      sta.sta_permuted_static.LAUNCHES,
+                      sta.sta_permuted_running.LAUNCHES)
+
+
+def test_txt_merge_attention_matches_jax():
+    """Text queries over padded image keys (any token order, padding
+    masked by img_bias) merged with the text keys, as the JAX function."""
+    rng = np.random.default_rng(4)
+    b, s_pad, lt, h, d = 2, 96, 24, 2, 32
+    kp, vp = (rng.standard_normal((b, s_pad, h * d)).astype(np.float32) * 0.5
+              for _ in range(2))
+    tq, tk, tv = (rng.standard_normal((b, lt, h, d)).astype(np.float32) * 0.5
+                  for _ in range(3))
+    img_bias = np.where(rng.random((b, s_pad)) > 0.25, 0.0,
+                        NEG_INF).astype(np.float32)
+    tb = np.where(rng.random((b, lt)) > 0.3, 0.0, NEG_INF).astype(
+        np.float32)[:, None, None, :]
+    c = np.full((b, h), 4.0, np.float32)
+    want = jsta.txt_merge_attention(*_jax(tq, kp, vp, img_bias, tk, tv, tb,
+                                          c), d ** -0.5)
+    got = sta.txt_merge_attention(*_torch(tq, kp, vp, img_bias, tk, tv, tb,
+                                          c), d ** -0.5)
+    _close(got, want)
+
+
+def test_sta_pair_count_matches_dense_mask():
+    grid, tile, window = GEOMETRIES[0]
+    s = grid[0] * grid[1] * grid[2]
+    mask = sta.sta_reference_mask(grid, tile, window, s)
+    assert sta.sta_pair_count(grid, tile, window, 7) == mask.sum() + 7 * s
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(qk_int8=True, bound_mode="static"), "int8"),
+    (dict(ring=True, bound_mode="static"), "ring"),
+    (dict(lane_rotate="grouped", bound_mode="static"), "lane rotation"),
+])
+def test_unported_options_raise(kw, match):
+    grid, tile, window = GEOMETRIES[0]
+    img, txt, tb, _ = _inputs(grid, seed=5)
+    with pytest.raises(NotImplementedError, match=match):
+        sta.sta_joint_attention(*_torch(*img, *txt, tb), grid=grid,
+                                tile=tile, window=window, **kw)
+
+
+def test_sta_modes_dispatch_and_reject():
+    grid, tile, window = GEOMETRIES[0]
+    img, txt, tb, _ = _inputs(grid, seed=6)
+    args = _torch(*img, *txt, tb)
+    with pytest.raises(NotImplementedError, match="sta_int8"):
+        joint_attention(*args, mode="sta_int8", token_grid=grid)
+    with pytest.raises(ValueError, match="token_grid"):
+        joint_attention(*args, mode="sta")
+    with pytest.raises(ValueError, match="joint_attention"):
+        attention(args[0], args[1], args[2], mode="sta")
+    got = joint_attention(*args, mode="sta", token_grid=grid, sta_tile=tile,
+                          sta_window=window, bound_mode="static")
+    want = sta.sta_joint_attention(*args, grid=grid, tile=tile,
+                                   window=window, bound_mode="static")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
