@@ -2,10 +2,12 @@
 reference: hyvideo/config.py:7-398).
 
 The flags of the reference `sample_video.py` that the single-GPU path reads
-are kept unchanged, with the JAX package's `--attn-mode sta`,
-`--sta-window` and `--sta-dense-blocks`. Flags of features not ported yet
-(sequence parallelism, the fp8/int8/int4 weight tiers, int8 attention) are
-still parsed, and rejected with a clear error instead of being ignored.
+are kept unchanged, with the JAX package's `--attn-mode sta|flash_int8|
+sta_int8`, `--sta-window`, `--sta-dense-blocks` and the weight tiers
+`--use-fp8`, `--use-int8`, `--use-int4-modulation` and
+`--text-encoder-quant int8`. Flags of sequence parallelism, not ported
+yet, are still parsed, and rejected with a clear error instead of being
+ignored.
 """
 from __future__ import annotations
 
@@ -49,8 +51,9 @@ def parse_vae_name(name: str) -> VaeNameInfo:
                        latent_channels=int(c), tag=tag, name=name)
 
 
-ATTN_MODES = ("auto", "flash", "sdpa", "chunked", "sta")
-UNPORTED_ATTN_MODES = ("flash_int8", "sta_int8")
+ATTN_MODES = ("auto", "flash", "flash_int8", "sdpa", "chunked", "sta",
+              "sta_int8")
+TEXT_ENCODER_QUANTS = (None, "int8")
 
 
 @dataclass
@@ -110,11 +113,12 @@ class InferenceArgs:
     sta_window: Tuple[int, int, int] = (3, 3, 3)
     sta_dense_blocks: int = 0  # dense-attention prefix depth under sta
     device: str = "cuda"
-    # not ported yet: parsed so that they fail loudly
+    # weight tiers (ops/quantization.py), applied in this order
     use_fp8: bool = False
     use_int8: bool = False
     use_int4_modulation: bool = False
-    text_encoder_quant: Optional[str] = None
+    text_encoder_quant: Optional[str] = None   # None | "int8" (the LLM)
+    # not ported yet: parsed so that they fail loudly
     ulysses_degree: int = 1
     ring_degree: int = 1
     mesh_shape: Optional[str] = None
@@ -126,21 +130,16 @@ class InferenceArgs:
         if self.vae_info.latent_channels != self.latent_channels:
             raise ValueError(f"Latent channels {self.latent_channels} != VAE "
                              f"channels {self.vae_info.latent_channels}")
-        unported = []
-        if self.use_fp8 or self.use_int8 or self.use_int4_modulation \
-                or self.text_encoder_quant:
-            unported.append("the fp8/int8/int4 weight tiers")
-        if self.ulysses_degree > 1 or self.ring_degree > 1 or self.mesh_shape:
-            unported.append("sequence parallelism (--ulysses-degree, "
-                            "--ring-degree, --mesh-shape)")
-        if self.attn_mode in UNPORTED_ATTN_MODES:
-            unported.append(f"--attn-mode {self.attn_mode}")
-        elif self.attn_mode not in ATTN_MODES:
+        if self.attn_mode not in ATTN_MODES:
             raise ValueError(f"attn_mode must be one of {ATTN_MODES}, got "
                              f"{self.attn_mode!r}")
-        if unported:
+        if self.text_encoder_quant not in TEXT_ENCODER_QUANTS:
+            raise ValueError(f"text encoder quant must be int8|None: "
+                             f"{self.text_encoder_quant}")
+        if self.ulysses_degree > 1 or self.ring_degree > 1 or self.mesh_shape:
             raise ValueError("not ported to the PyTorch package yet: "
-                             + "; ".join(unported))
+                             "sequence parallelism (--ulysses-degree, "
+                             "--ring-degree, --mesh-shape)")
 
 
 def _add_bool_flag(parser, name, default, help_=""):
@@ -182,7 +181,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--text-encoder-precision-2", type=str,
                    default=d.text_encoder_precision_2)
     g.add_argument("--text-encoder-quant", type=str,
-                   default=d.text_encoder_quant)
+                   default=d.text_encoder_quant, choices=["int8"])
     g.add_argument("--text-states-dim-2", type=int,
                    default=d.text_states_dim_2)
     g.add_argument("--tokenizer-2", type=str, default=d.tokenizer_2)
@@ -223,7 +222,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--embedded-cfg-scale", type=float,
                    default=d.embedded_cfg_scale)
     g.add_argument("--attn-mode", type=str, default=d.attn_mode,
-                   choices=list(ATTN_MODES + UNPORTED_ATTN_MODES))
+                   choices=list(ATTN_MODES))
     g.add_argument("--sta-window", type=int, nargs=3,
                    default=list(d.sta_window))
     g.add_argument("--sta-dense-blocks", type=int, default=d.sta_dense_blocks)

@@ -2,7 +2,7 @@
 // joint [img | txt] sequence.
 //
 // Replaces three Pallas TPU kernels of the JAX package's ops/sta.py, as one
-// source with two template flags:
+// source with three template flags:
 //   DIRECT = true,  RUNNING = false: _sta_nomax_direct_kernel. q/k/v are
 //     the row-major [B, S_img, H*D] token grid of a (T, Hg, Wg) patch grid;
 //     a tile's tokens are addressed through their (t, h, w) coordinates.
@@ -16,6 +16,16 @@
 //     kb [B, S_pad + txt_pad] carries the padding mask and the text bias.
 //   DIRECT = false, RUNNING = true: _sta_kernel, the same with a running
 //     row max instead of the static offset C.
+//   QUANT = true (with RUNNING = false): the `quant=True` arm of the first
+//     two, int8 Q.K^T on mma.sync m16n8k32. One symmetric scale per
+//     (b, head, query tile) and per (b, head, key tile), scale =
+//     max(max|x|, 1e-6) / 127, codes round(x * (1/scale)) with ties to even;
+//     rows beyond the grid count as zero (the TPU's row_valid zeroing). A key
+//     tile's scale does not depend on the query tile, so tile_scales_kernel
+//     computes every scale once per launch and the attention kernel reads
+//     them. s = s32 * (sq * sk * scale). The direct kernel's text keys stay
+//     bf16/fp16 (the TPU's resident text fold); in the permuted layout the
+//     text blocks are key tiles like any other and are quantized.
 // The softmax is the flash kernels': static p = exp(s*scale + (kb - C)) or
 // running online softmax, then out = acc / max(l, 1e-37). Rows of padding
 // tokens are not stored (DIRECT) or stored as zeros (permuted layout).
@@ -25,11 +35,13 @@
 // DMA index table is not used (it would fold a tile twice).
 //
 // Numerics kept from the TPU kernels: Q.K^T in the input type with fp32
-// accumulation; p rounded to V's type before P.V; fp32 l and acc.
+// accumulation (or exact s32 under QUANT); p rounded to V's type before
+// P.V; fp32 l and acc.
 //
 // Bound on the H100: 4*D operations per valid query-key pair on the tensor
-// cores; a query sees up to 27 tiles of 256 keys, far above the bytes of
-// q/k/v/out, so the kernel is bound by operations (989 TFLOP/s bf16 dense).
+// cores (under QUANT half of them int8, at 1,979 TOP/s); a query sees up to
+// 27 tiles of 256 keys, far above the bytes of q/k/v/out, so the kernel is
+// bound by operations (989 TFLOP/s bf16 dense).
 // This first design is the flash kernel's (flash_tile.cuh): one block of 4
 // warps owns 64 query rows of one (b, h, query tile) and walks the tile's
 // valid slots in 64-key chunks; Q stays in registers as mma.sync A
@@ -66,14 +78,40 @@ __device__ __forceinline__ int token_of(const Geometry& g, int tile, int f) {
   return (t * g.Hg + h) * g.Wg + w;
 }
 
-template <typename T, int D, bool DIRECT, bool RUNNING>
+// One int8 scale per (b, h, tile) of x: max(max|x|, 1e-6) / 127 over the
+// tile's tokens (DIRECT: row-major grid tokens, missing ones skipped;
+// otherwise tile-major rows tile*block + f).
+template <typename T, int D, bool DIRECT>
+__global__ void __launch_bounds__(THREADS)
+tile_scales_kernel(const T* __restrict__ x, long long bs, long long rs,
+                   Geometry geo, int H, float* __restrict__ out) {
+  constexpr int CH = D / 8;
+  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int block = geo.tt * geo.th * geo.tw;
+  const T* xh = x + b * bs + (long long)h * D;
+  float m = 0.f;
+  for (int i = threadIdx.x; i < block * CH; i += THREADS) {
+    const int f = i / CH, c = (i % CH) * 8;
+    const int row = DIRECT ? token_of(geo, tile, f) : tile * block + f;
+    if (row >= 0)
+      m = hv::absmax8<T>(*reinterpret_cast<const uint4*>(xh + row * rs + c),
+                         m);
+  }
+  m = hv::block_max(m);
+  if (threadIdx.x == 0)
+    out[((long long)b * H + h) * gridDim.x + tile] = fmaxf(m, 1e-6f) / 127.f;
+}
+
+template <typename T, int D, bool DIRECT, bool RUNNING, bool QUANT>
 __global__ void __launch_bounds__(THREADS)
 sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, T* __restrict__ o,
                const T* __restrict__ tk, const T* __restrict__ tv,
                const float* __restrict__ kb, const float* __restrict__ tb,
                const float* __restrict__ cb, const int* __restrict__ nbr,
-               Geometry geo, int H, int n_slots, int Lt, long long q_bs,
+               const float* __restrict__ sq_t, const float* __restrict__ sk_t,
+               Geometry geo, int H, int n_slots, int Lt, int n_ktiles,
+               long long q_bs,
                long long q_rs, long long k_bs, long long k_rs,
                long long v_bs, long long v_rs, long long tk_bs,
                long long tk_rs, long long tv_bs, long long tv_rs,
@@ -85,6 +123,10 @@ sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][DP]
   T* Ks = Qs + BQ * DP;                     // [BK][DP]
   T* Vt = Ks + BK * DP;                     // [D][BK + 8], V transposed
+  // QUANT: int8 Q [BQ][RP] after V^T; int8 K [BK][RP] in the K region
+  constexpr int RP = hv::s8_row<D>();
+  int8_t* Q8 = reinterpret_cast<int8_t*>(Vt + D * (BK + 8));
+  int8_t* K8 = reinterpret_cast<int8_t*>(Ks);
   __shared__ int q_row[BQ];     // memory row of each query (-1: none)
   __shared__ int q_ok[BQ];      // the query token exists
   __shared__ int k_row[BK];     // memory row of each key of the chunk
@@ -124,8 +166,23 @@ sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
   const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  uint32_t qa[D / 16][4];
-  hv::load_q<T, D>(Qs, r0, t, qa);
+  const long long bh = (long long)b * H + h;
+  uint32_t qa[D / 16][4];   // Q fragments (bf16/fp16 chunks)
+  uint32_t qa8[D / 32][4];  // int8 Q fragments (QUANT)
+  float sq = 0.f;
+  if constexpr (QUANT) {
+    sq = sq_t[bh * (gridDim.x / q_subs) + qi];  // one scale per tile
+    const float inv_q = 1.f / sq;
+    for (int i = tid; i < BQ * CH; i += THREADS) {
+      const int r = i / CH, c = (i % CH) * 8;
+      *reinterpret_cast<uint2*>(Q8 + r * RP + c) = hv::quant8_s8<T>(
+          *reinterpret_cast<const uint4*>(Qs + r * DP + c), inv_q);
+    }
+    __syncthreads();
+    hv::load_q8<D>(Q8, r0, t, qa8);
+  } else {
+    hv::load_q<T, D>(Qs, r0, t, qa);
+  }
 
   const float c_off = RUNNING ? 0.f : cb[b * H + h];
   float acc[D / 8][4];
@@ -168,6 +225,10 @@ sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* kh = (img ? k + b * k_bs : tk + b * tk_bs) + (long long)h * D;
     const T* vh = (img ? v + b * v_bs : tv + b * tv_bs) + (long long)h * D;
     const long long krs = img ? k_rs : tk_rs, vrs = img ? v_rs : tv_rs;
+    // int8 chunk: an image key tile (DIRECT) or any key tile (permuted)
+    const bool q8 = QUANT && img;
+    const float sk = q8 ? sk_t[bh * n_ktiles + nb] : 0.f;
+    const float inv_k = q8 ? 1.f / sk : 0.f;
     for (int i = tid; i < BK * CH; i += THREADS) {
       const int r = i / CH, c = (i % CH) * 8;
       uint4 kv = zero4, vv = zero4;
@@ -176,7 +237,13 @@ sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         kv = *reinterpret_cast<const uint4*>(kh + row * krs + c);
         vv = *reinterpret_cast<const uint4*>(vh + row * vrs + c);
       }
-      hv::stage_kv<T, D>(Ks, Vt, r, c, kv, vv);
+      if (q8) {
+        *reinterpret_cast<uint2*>(K8 + r * RP + c) =
+            hv::quant8_s8<T>(kv, inv_k);
+        hv::stage_v(Vt, r, c, vv);
+      } else {
+        hv::stage_kv<T, D>(Ks, Vt, r, c, kv, vv);
+      }
     }
     __syncthreads();
 
@@ -185,8 +252,21 @@ sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int nt = 0; nt < BK / 8; ++nt)
 #pragma unroll
       for (int j = 0; j < 2; ++j) bias[nt][j] = k_bias[nt * 8 + 2 * t + j];
-    hv::fold_chunk<T, D, RUNNING>(qa, Ks, Vt, bias, scale, c_off, acc, m_r,
-                                  l_r, g, t);
+    if constexpr (QUANT) {
+      float s[BK / 8][4];
+      if (q8) {
+        hv::qk_chunk_s8<D>(qa8, K8, s, g, t);
+        hv::fold_scores<T, D, RUNNING>(s, Vt, bias, sq * sk * scale, c_off,
+                                       acc, m_r, l_r, g, t);
+      } else {  // the direct kernel's text keys
+        hv::load_q<T, D>(Qs, r0, t, qa);
+        hv::fold_chunk<T, D, RUNNING>(qa, Ks, Vt, bias, scale, c_off, acc,
+                                      m_r, l_r, g, t);
+      }
+    } else {
+      hv::fold_chunk<T, D, RUNNING>(qa, Ks, Vt, bias, scale, c_off, acc, m_r,
+                                    l_r, g, t);
+    }
   }
 
 #pragma unroll
@@ -210,7 +290,8 @@ struct Args {
   const void *tk, *tv;
   const float *kb, *tb, *c;
   const int* nbr;
-  int B, H, n_slots, Lt, n_tiles;
+  float *sq, *sk;
+  int B, H, n_slots, Lt, n_tiles, n_ktiles;
   Geometry geo;
   long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, tk_bs, tk_rs, tv_bs, tv_rs,
       o_bs, o_rs, kb_bs;
@@ -218,10 +299,21 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D, bool DIRECT, bool RUNNING>
+template <typename T, int D, bool DIRECT, bool RUNNING, bool QUANT>
 cudaError_t launch(const Args& a) {
-  auto kern = sta_fwd_kernel<T, D, DIRECT, RUNNING>;
-  const int smem = hv::tile_smem_bytes<T, D>();
+  if (QUANT) {
+    tile_scales_kernel<T, D, DIRECT>
+        <<<dim3(a.n_tiles, a.H, a.B), THREADS, 0, a.stream>>>(
+            static_cast<const T*>(a.q), a.q_bs, a.q_rs, a.geo, a.H, a.sq);
+    tile_scales_kernel<T, D, DIRECT>
+        <<<dim3(a.n_ktiles, a.H, a.B), THREADS, 0, a.stream>>>(
+            static_cast<const T*>(a.k), a.k_bs, a.k_rs, a.geo, a.H, a.sk);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  auto kern = sta_fwd_kernel<T, D, DIRECT, RUNNING, QUANT>;
+  const int smem = hv::tile_smem_bytes<T, D>()
+                   + (QUANT ? BQ * hv::s8_row<D>() : 0);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -231,25 +323,32 @@ cudaError_t launch(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o),
       static_cast<const T*>(a.tk), static_cast<const T*>(a.tv), a.kb, a.tb,
-      a.c, a.nbr, a.geo, a.H, a.n_slots, a.Lt, a.q_bs, a.q_rs, a.k_bs,
-      a.k_rs, a.v_bs, a.v_rs, a.tk_bs, a.tk_rs, a.tv_bs, a.tv_rs, a.o_bs,
-      a.o_rs, a.kb_bs, a.scale);
+      a.c, a.nbr, a.sq, a.sk, a.geo, a.H, a.n_slots, a.Lt, a.n_ktiles,
+      a.q_bs, a.q_rs, a.k_bs, a.k_rs, a.v_bs, a.v_rs, a.tk_bs, a.tk_rs,
+      a.tv_bs, a.tv_rs, a.o_bs, a.o_rs, a.kb_bs, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, bool DIRECT, bool RUNNING>
+template <typename T, bool DIRECT, bool RUNNING, bool QUANT>
 cudaError_t dispatch_d(int head_dim, const Args& a) {
-  if (head_dim == 128) return launch<T, 128, DIRECT, RUNNING>(a);
-  if (head_dim == 64) return launch<T, 64, DIRECT, RUNNING>(a);
+  if (head_dim == 128) return launch<T, 128, DIRECT, RUNNING, QUANT>(a);
+  if (head_dim == 64) return launch<T, 64, DIRECT, RUNNING, QUANT>(a);
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
-cudaError_t dispatch_mode(int direct, int running, int head_dim,
+cudaError_t dispatch_mode(int direct, int running, int quant, int head_dim,
                           const Args& a) {
-  if (direct && !running) return dispatch_d<T, true, false>(head_dim, a);
-  if (!direct && !running) return dispatch_d<T, false, false>(head_dim, a);
-  if (!direct && running) return dispatch_d<T, false, true>(head_dim, a);
+  if (direct && !running && !quant)
+    return dispatch_d<T, true, false, false>(head_dim, a);
+  if (direct && !running && quant)
+    return dispatch_d<T, true, false, true>(head_dim, a);
+  if (!direct && !running && !quant)
+    return dispatch_d<T, false, false, false>(head_dim, a);
+  if (!direct && !running && quant)
+    return dispatch_d<T, false, false, true>(head_dim, a);
+  if (!direct && running && !quant)
+    return dispatch_d<T, false, true, false>(head_dim, a);
   return cudaErrorInvalidValue;
 }
 
@@ -257,15 +356,19 @@ cudaError_t dispatch_mode(int direct, int running, int head_dim,
 
 // dtype: 0 = bf16, 1 = fp16. direct: 1 = row-major token grid with text
 // keys tk/tv folded last, 0 = tile-major q with kcat keys. running: 1 =
-// running max (permuted layout only), 0 = static offset c [B, H]. kb (DIRECT:
-// may be null), tb (may be null), tk/tv (DIRECT only). Tile token count a
-// multiple of 64. Returns the cudaError_t of the launch.
+// running max (permuted layout only), 0 = static offset c [B, H]. quant: 1 =
+// int8 Q.K^T (static offset only); sq [B, H, n_tiles] and sk [B, H,
+// n_ktiles] fp32 receive the tile scales (n_ktiles: key tiles of k, the
+// grid's tiles when direct). kb (DIRECT: may be null), tb (may be null),
+// tk/tv (DIRECT only). Tile token count a multiple of 64. Returns the
+// cudaError_t of the launches.
 extern "C" int hv_sta_attention_fwd(
-    int dtype, int direct, int running, int head_dim, const void* q,
-    const void* k, const void* v, void* o, const void* tk, const void* tv,
-    const float* kb, const float* tb, const float* c, const int* nbr, int B,
-    int H, int n_slots, int Lt, int T, int Hg, int Wg, int tt, int th,
-    int tw, long long q_bs, long long q_rs, long long k_bs, long long k_rs,
+    int dtype, int direct, int running, int quant, int head_dim,
+    const void* q, const void* k, const void* v, void* o, const void* tk,
+    const void* tv, const float* kb, const float* tb, const float* c,
+    const int* nbr, float* sq, float* sk, int B, int H, int n_slots, int Lt,
+    int n_ktiles, int T, int Hg, int Wg, int tt, int th, int tw,
+    long long q_bs, long long q_rs, long long k_bs, long long k_rs,
     long long v_bs, long long v_rs, long long tk_bs, long long tk_rs,
     long long tv_bs, long long tv_rs, long long o_bs, long long o_rs,
     long long kb_bs, float scale, void* stream) {
@@ -274,13 +377,15 @@ extern "C" int hv_sta_attention_fwd(
   if ((tt * th * tw) % BQ != 0) return cudaErrorInvalidValue;
   if (!direct && kb == nullptr) return cudaErrorInvalidValue;
   if (!running && c == nullptr) return cudaErrorInvalidValue;
-  const Args a{q, k, v, o, tk, tv, kb, tb, c, nbr, B, H, n_slots, Lt,
-               nt * nh * nw, Geometry{T, Hg, Wg, tt, th, tw, nh, nw},
-               q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, tk_bs, tk_rs, tv_bs,
-               tv_rs, o_bs, o_rs, kb_bs, scale,
-               static_cast<cudaStream_t>(stream)};
+  if (quant && (sq == nullptr || sk == nullptr)) return cudaErrorInvalidValue;
+  const Args a{q, k, v, o, tk, tv, kb, tb, c, nbr, sq, sk, B, H, n_slots,
+               Lt, nt * nh * nw, n_ktiles,
+               Geometry{T, Hg, Wg, tt, th, tw, nh, nw}, q_bs, q_rs, k_bs,
+               k_rs, v_bs, v_rs, tk_bs, tk_rs, tv_bs, tv_rs, o_bs, o_rs,
+               kb_bs, scale, static_cast<cudaStream_t>(stream)};
   if (dtype == 0)
-    return dispatch_mode<__nv_bfloat16>(direct, running, head_dim, a);
-  if (dtype == 1) return dispatch_mode<__half>(direct, running, head_dim, a);
+    return dispatch_mode<__nv_bfloat16>(direct, running, quant, head_dim, a);
+  if (dtype == 1)
+    return dispatch_mode<__half>(direct, running, quant, head_dim, a);
   return cudaErrorInvalidValue;
 }

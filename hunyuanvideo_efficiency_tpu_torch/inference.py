@@ -3,8 +3,12 @@ counterpart: inference.py; reference: hyvideo/inference.py:143-671).
 
 `Inference.from_pretrained` builds the DiT, the VAE and both text towers
 from an `InferenceArgs`: DiT and VAE from the reference `.pt` checkpoints
-when they exist (module names match their state-dict keys), else random
-weights with `allow_random_init=True`, else FileNotFoundError.
+when they exist (module names match their state-dict keys; with --use-fp8
+an fp8 checkpoint and its `_map.pt` scales), else random weights with
+`allow_random_init=True`, else FileNotFoundError. The weight tiers follow
+(JAX inference.py:157-164,201-204): fp8, int8 and int4 modulation on the
+DiT's block linears, one module at a time on the device, and int8 on the
+LLM tower.
 `HunyuanVideoSampler.predict` keeps the reference semantics: seeds
 (int / list / None -> one torch.Generator per video, :534-566), H/W
 aligned to 16 (:584-585), a fresh scheduler with the runtime flow_shift
@@ -28,7 +32,10 @@ from .models.dit_config import DiTConfig, load_dit_config
 from .models.text import build_text_encoders
 from .models.vae import build_vae
 from .models.vae_config import load_vae_config
+from .ops.quantization import quantize_dit
 from .ops.rope import get_nd_rotary_pos_embed
+from .utils.checkpoint import (fp8_map_path, load_fp8_dit_checkpoint,
+                               load_torch_state_dict)
 
 
 def align_to(value: int, alignment: int) -> int:
@@ -47,23 +54,6 @@ def get_rotary_pos_embed(cfg: DiTConfig, vae_name: str, video_length: int,
     cos, sin = get_nd_rotary_pos_embed(cfg.rope_dim_list, sizes,
                                        theta=cfg.rope_theta, device=device)
     return cos, sin, sizes
-
-
-def load_torch_state_dict(path, load_key: str = "module",
-                          prefix: str = "") -> Dict[str, torch.Tensor]:
-    """A reference checkpoint's state dict: bare, under `load_key` (the
-    deepspeed `module`/`ema` forms) or under `state_dict`, with an optional
-    key prefix stripped (reference: hyvideo/inference.py:279-354,
-    hyvideo/vae/__init__.py:94-102)."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(sd, dict) and load_key in sd:
-        sd = sd[load_key]
-    elif isinstance(sd, dict) and "state_dict" in sd:
-        sd = sd["state_dict"]
-    if prefix and any(k.startswith(prefix) for k in sd):
-        sd = {k[len(prefix):]: v for k, v in sd.items()
-              if k.startswith(prefix)}
-    return sd
 
 
 class Inference:
@@ -111,7 +101,14 @@ class Inference:
                               sta_dense_single_blocks=args.sta_dense_blocks)
         dtype = PRECISION_TO_TYPE[args.precision]
         dit_path = cls.resolve_dit_weight(args)
-        if dit_path is not None:
+        fp8_loaded = False
+        if dit_path is not None and args.use_fp8 \
+                and fp8_map_path(dit_path).exists():
+            transformer = load_fp8_dit_checkpoint(
+                dit_path, fp8_map_path(dit_path), cfg, args.load_key, device,
+                dtype)
+            fp8_loaded = True
+        elif dit_path is not None:
             transformer = build_dit(cfg, device, dtype)
             transformer.load_state_dict(
                 load_torch_state_dict(dit_path, args.load_key))
@@ -123,6 +120,9 @@ class Inference:
             raise FileNotFoundError(
                 f"No DiT checkpoint under {args.model_base}; pass "
                 f"--dit-weight or allow_random_init=True")
+        quantize_dit(transformer, fp8=args.use_fp8 and not fp8_loaded,
+                     int8=args.use_int8,
+                     int4_modulation=args.use_int4_modulation)
 
         vae_cfg = load_vae_config(args.vae)
         vae_dtype = PRECISION_TO_TYPE[args.vae_precision]
@@ -152,7 +152,8 @@ class Inference:
             hidden_state_skip_layer=args.hidden_state_skip_layer,
             apply_final_norm=args.apply_final_norm, device=device,
             dtype=PRECISION_TO_TYPE[args.text_encoder_precision],
-            generator=torch.Generator(device=device).manual_seed(2))
+            generator=torch.Generator(device=device).manual_seed(2),
+            llm_quant=args.text_encoder_quant)
         return cls(args, vae, text_encoder, text_encoder_2, transformer,
                    logger=logger)
 

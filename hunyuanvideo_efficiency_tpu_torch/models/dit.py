@@ -13,12 +13,20 @@ into the attention rows (with the bias) and MLP rows, as in the JAX block.
 With QK-norm the scores are bounded by `_analytic_score_bound`, and
 attention runs the static-offset flash kernel (K1).
 
-Under attn_mode="sta" the image queries run sliding-tile attention over the
-(T', H', W') patch grid (ops/sta.py): the RoPE table stays image-only, both
-block types split q/k/v into image and text parts (norm + RoPE on the
-image part, norm only on the text part), and the first
+Under attn_mode="sta" (and "sta_int8") the image queries run sliding-tile
+attention over the (T', H', W') patch grid (ops/sta.py): the RoPE table
+stays image-only, both block types split q/k/v into image and text parts
+(norm + RoPE on the image part, norm only on the text part), and the first
 `sta_dense_{double,single}_blocks` of each stack keep dense attention
-(JAX models/dit.py:1003-1024).
+(JAX models/dit.py:1003-1024). attn_mode="flash_int8" runs int8 Q.K^T flash
+attention (ops/flash_attention.py:flash_attention_int8).
+
+Block linears may hold a weight tier (ops/quantization.py: fp8, int8, int4
+modulation); every block linear goes through `quantization.linear`, so the
+single block's column and row slices work for each tier, and under int8 the
+MLP's activation fuses into fc1's W8A8 epilogue (JAX `mlp()`), while the
+single block applies its activation to the stored output (JAX
+models/dit.py:779-783).
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import torch.nn.functional as F
 from ..ops.attention import (attention, joint_attention, joint_key_bias,
                              sdpa_attention, text_key_bias)
 from ..ops.norms import layer_norm, rms_norm
+from ..ops.quantization import linear
 from ..ops.rope import rotate_tokens
 from .dit_config import DiTConfig
 
@@ -96,8 +105,9 @@ class MLP(nn.Module):
         self.fc1 = nn.Linear(cin, hidden, **fk)
         self.fc2 = nn.Linear(hidden, cin, **fk)
 
-    def forward(self, x, act: str):
-        return self.fc2(ACT[act](self.fc1(x)))
+    def forward(self, x, act: str, plain: bool = False):
+        return linear(self.fc2, linear(self.fc1, x, act=act, plain=plain),
+                      plain=plain)
 
 
 class ModulateDiT(nn.Module):
@@ -107,8 +117,8 @@ class ModulateDiT(nn.Module):
         super().__init__()
         self.linear = nn.Linear(hidden, factor * hidden, **fk)
 
-    def forward(self, vec):
-        return self.linear(F.silu(vec))
+    def forward(self, vec, plain: bool = False):
+        return linear(self.linear, F.silu(vec), plain=plain)
 
 
 class RMSNorm(nn.Module):
@@ -259,26 +269,30 @@ class DoubleBlock(nn.Module):
                     nn.Linear(h, h, bias=cfg.qkv_bias, **fk))
             setattr(self, f"{s}_mlp", MLP(h, m, **fk))
 
-    def _qkv(self, s: str, x):
+    def _qkv(self, s: str, x, plain: bool):
         cfg = self.cfg
         b, l, _ = x.shape
+        qkv = linear(getattr(self, f"{s}_attn_qkv"), x, plain=plain)
         q, k, v = (u.reshape(b, l, cfg.heads_num, cfg.head_dim)
-                   for u in getattr(self, f"{s}_attn_qkv")(x).chunk(3, -1))
+                   for u in qkv.chunk(3, -1))
         return q, k, v
 
     def forward(self, img, txt, vec, txt_bias, freqs_cis, token_grid=None,
-                attn_mode: Optional[str] = None, sta_plain: bool = False):
+                attn_mode: Optional[str] = None, plain: bool = False):
         """attn_mode overrides cfg.attn_mode (the dense anchors under STA);
-        token_grid and sta_plain reach joint_attention."""
+        token_grid reaches joint_attention; plain=True runs the W8A8, int8
+        attention and STA image queries on their plain versions."""
         cfg = self.cfg
         b, img_len, _ = img.shape
-        i_sh1, i_sc1, i_g1, i_sh2, i_sc2, i_g2 = self.img_mod(vec).chunk(6, -1)
-        t_sh1, t_sc1, t_g1, t_sh2, t_sc2, t_g2 = self.txt_mod(vec).chunk(6, -1)
+        i_sh1, i_sc1, i_g1, i_sh2, i_sc2, i_g2 = self.img_mod(
+            vec, plain).chunk(6, -1)
+        t_sh1, t_sc1, t_g1, t_sh2, t_sc2, t_g2 = self.txt_mod(
+            vec, plain).chunk(6, -1)
         img_m = modulate(layer_norm(img), i_sh1, i_sc1)
         txt_m = modulate(layer_norm(txt), t_sh1, t_sc1)
 
-        img_q, img_k, img_v = self._qkv("img", img_m)
-        txt_q, txt_k, txt_v = self._qkv("txt", txt_m)
+        img_q, img_k, img_v = self._qkv("img", img_m, plain)
+        txt_q, txt_k, txt_v = self._qkv("txt", txt_m, plain)
         if cfg.qk_norm:
             img_pre_q, img_pre_k = self.img_attn_q_norm, self.img_attn_k_norm
             txt_q = self.txt_attn_q_norm(txt_q)
@@ -301,17 +315,18 @@ class DoubleBlock(nn.Module):
             img_q, img_k, img_v, txt_q, txt_k, txt_v, txt_bias,
             mode=attn_mode or cfg.attn_mode, bound_mode=_bound_mode(cfg),
             score_bound=sbound, token_grid=token_grid,
-            sta_tile=cfg.sta_tile, sta_window=cfg.sta_window,
-            sta_plain=sta_plain)
+            sta_tile=cfg.sta_tile, sta_window=cfg.sta_window, plain=plain)
 
-        img = img + apply_gate(self.img_attn_proj(img_attn), i_g1)
+        img = img + apply_gate(
+            linear(self.img_attn_proj, img_attn, plain=plain), i_g1)
         img = img + apply_gate(
             self.img_mlp(modulate(layer_norm(img), i_sh2, i_sc2),
-                         cfg.mlp_act_type), i_g2)
-        txt = txt + apply_gate(self.txt_attn_proj(txt_attn), t_g1)
+                         cfg.mlp_act_type, plain), i_g2)
+        txt = txt + apply_gate(
+            linear(self.txt_attn_proj, txt_attn, plain=plain), t_g1)
         txt = txt + apply_gate(
             self.txt_mlp(modulate(layer_norm(txt), t_sh2, t_sc2),
-                         cfg.mlp_act_type), t_g2)
+                         cfg.mlp_act_type, plain), t_g2)
         return img, txt
 
 
@@ -333,19 +348,17 @@ class SingleBlock(nn.Module):
 
     def forward(self, x, vec, txt_len: int, txt_bias, freqs_cis,
                 token_grid=None, attn_mode: Optional[str] = None,
-                sta_plain: bool = False):
-        """As DoubleBlock.forward for attn_mode, token_grid and sta_plain.
+                plain: bool = False):
+        """As DoubleBlock.forward for attn_mode, token_grid and plain.
         A joint [img | txt] RoPE table rotates q/k in place; an image-only
         table (STA) takes the split path of JAX models/dit.py:758-778."""
         cfg = self.cfg
         mode = attn_mode or cfg.attn_mode
         b, l, h = x.shape
         h3 = 3 * h
-        shift, scale, gate = self.modulation(vec).chunk(3, -1)
+        shift, scale, gate = self.modulation(vec, plain).chunk(3, -1)
         x_mod = modulate(layer_norm(x), shift, scale)
-        w1, b1 = self.linear1.weight, self.linear1.bias
-        w2 = self.linear2.weight
-        qkv = F.linear(x_mod, w1[:h3], b1[:h3])
+        qkv = linear(self.linear1, x_mod, out=slice(0, h3), plain=plain)
         q, k, v = (u.reshape(b, l, cfg.heads_num, cfg.head_dim)
                    for u in qkv.chunk(3, -1))
         pre_q = self.q_norm if cfg.qk_norm else None
@@ -368,7 +381,7 @@ class SingleBlock(nn.Module):
                 iq, ik, iv, tq, tk, tv, txt_bias, mode=mode,
                 bound_mode=_bound_mode(cfg), score_bound=sbound,
                 token_grid=token_grid, sta_tile=cfg.sta_tile,
-                sta_window=cfg.sta_window, sta_plain=sta_plain)
+                sta_window=cfg.sta_window, plain=plain)
             attn = torch.cat([img_attn, txt_attn], dim=1)
         else:
             if freqs_cis is not None:
@@ -378,10 +391,13 @@ class SingleBlock(nn.Module):
                 q, k = pre_q(q), pre_k(k)
             attn = attention(q, k, v, mode=mode,
                              key_bias=joint_key_bias(txt_bias, img_len),
-                             bound_mode=_bound_mode(cfg), score_bound=sbound)
-        out = F.linear(attn, w2[:, :h], self.linear2.bias)
-        hid = ACT[cfg.mlp_act_type](F.linear(x_mod, w1[h3:], b1[h3:]))
-        out = out + F.linear(hid, w2[:, h:])
+                             bound_mode=_bound_mode(cfg), score_bound=sbound,
+                             plain=plain)
+        out = linear(self.linear2, attn, in_=slice(0, h), plain=plain)
+        hid = ACT[cfg.mlp_act_type](
+            linear(self.linear1, x_mod, out=slice(h3, None), plain=plain))
+        out = out + linear(self.linear2, hid, in_=slice(h, None), bias=False,
+                           plain=plain)
         return x + apply_gate(out, gate)
 
 
@@ -463,13 +479,14 @@ class HYVideoDiT(nn.Module):
         self.final_layer = FinalLayer(h, pt * ph * pw * cfg.out_channels, **fk)
 
     def forward(self, x, t, text_states, text_mask, text_states_2,
-                freqs_cos, freqs_sin, guidance=None, sta_plain: bool = False):
+                freqs_cos, freqs_sin, guidance=None, plain: bool = False):
         """x [B, C, T', H', W'] latent, t [B] in [0, 1000), text_states
         [B, L, text_dim], text_mask [B, L], text_states_2 [B, text_dim_2],
         freqs [img_len, head_dim] -> [B, C, T', H', W']
-        (reference: models.py:595-695). sta_plain=True runs the STA image
-        queries through the plain version instead of the kernels (a
-        reference for checks on the card; no inference path sets it)."""
+        (reference: models.py:595-695). plain=True runs the int8 linears,
+        the int8 attention and the STA image queries through their plain
+        versions instead of the kernels (a reference for checks on the
+        card; no inference path sets it)."""
         cfg = self.cfg
         b, _, ot, oh, ow = x.shape
         pt, ph, pw = cfg.patch_size
@@ -510,11 +527,11 @@ class HYVideoDiT(nn.Module):
 
         for i, blk in enumerate(self.double_blocks):
             img, txt = blk(img, txt, vec, txt_bias, freqs, grid,
-                           mode(i, cfg.sta_dense_double_blocks), sta_plain)
+                           mode(i, cfg.sta_dense_double_blocks), plain)
         xx = torch.cat([img, txt], dim=1)
         for i, blk in enumerate(self.single_blocks):
             xx = blk(xx, vec, txt_len, txt_bias, freqs, grid,
-                     mode(i, cfg.sta_dense_single_blocks), sta_plain)
+                     mode(i, cfg.sta_dense_single_blocks), plain)
         out = self.final_layer(xx[:, :img_len], vec)
         return unpatchify(out, tt, th, tw, cfg.out_channels, cfg.patch_size)
 

@@ -28,7 +28,8 @@ class DiTConfig:
     text_projection: str = "single_refiner"
     use_attention_mask: bool = True
     rope_theta: float = 256.0
-    attn_mode: str = "auto"  # auto | flash | sdpa | chunked | sta
+    # auto | flash | flash_int8 | sdpa | chunked | sta | sta_int8
+    attn_mode: str = "auto"
     # Sliding Tile Attention (attn_mode="sta"; ops/sta.py): tile shape in
     # (t, h, w) patch-grid units and the sliding window in tiles.
     sta_tile: Tuple[int, int, int] = (4, 8, 8)

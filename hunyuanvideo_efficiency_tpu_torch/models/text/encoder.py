@@ -6,7 +6,8 @@ hyvideo/text_encoder/__init__.py:102-357).
 hidden_state_skip_layer), "clipL" the CLIP-L tower (pooled output). The
 instruction template is applied around the prompt and its `crop_start`
 hidden states are cut. `HashTokenizer` stands in where no HF tokenizer
-files exist.
+files exist. quant="int8" stores the LLM's layer linears in int8 (W8A8,
+JAX encoder.py:123-142); CLIP-L is never quantized.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ...constants import PROMPT_TEMPLATE
+from ...ops.quantization import quantize_llama_int8
 from .clip import CLIP_L, CLIPTextConfig, CLIPTextModel
 from .llama import LLAMA3_8B, LlamaConfig, LlamaModel
 
@@ -76,10 +78,13 @@ class TextEncoder:
         hidden_state_skip_layer: Optional[int] = None,
         apply_final_norm: bool = False,
         use_attention_mask: bool = True,
+        quant: Optional[str] = None,
     ):
         if text_encoder_type not in ("llm", "clipL"):
             raise ValueError(
                 f"Unsupported text encoder type: {text_encoder_type}")
+        if quant not in (None, "int8"):
+            raise ValueError(f"text encoder quant must be int8|None: {quant}")
         for tpl, nm in ((prompt_template, "prompt_template"),
                         (prompt_template_video, "prompt_template_video")):
             if tpl is not None and not (isinstance(tpl, dict)
@@ -88,6 +93,9 @@ class TextEncoder:
                                  f"contains {{}}")
         self.text_encoder_type = text_encoder_type
         self.max_length = max_length
+        self.quant = quant if text_encoder_type == "llm" else None
+        if self.quant == "int8":
+            quantize_llama_int8(model)
         self.model = model
         self.prompt_template = prompt_template
         self.prompt_template_video = prompt_template_video
@@ -190,11 +198,13 @@ def build_text_encoders(
     device="cuda",
     dtype=torch.float16,
     generator: Optional[torch.Generator] = None,
+    llm_quant: Optional[str] = None,
 ) -> Tuple[TextEncoder, TextEncoder]:
     """The (llm, clipL) pair as Inference.from_pretrained builds it
     (reference: hyvideo/inference.py:210-264); the LLM max_length includes
     the template's crop_start. Random weights from `generator` when given,
-    else uninitialized (to be filled by load_state_dict)."""
+    else uninitialized (to be filled by load_state_dict); llm_quant="int8"
+    quantizes the LLM's layer linears after they are built."""
     tpl = PROMPT_TEMPLATE.get(prompt_template)
     tpl_video = PROMPT_TEMPLATE.get(prompt_template_video)
     crop = max(tpl_video.get("crop_start", 0) if tpl_video else 0,
@@ -209,7 +219,7 @@ def build_text_encoders(
                    if tokenizer_path else None),
         prompt_template=tpl, prompt_template_video=tpl_video,
         hidden_state_skip_layer=hidden_state_skip_layer,
-        apply_final_norm=apply_final_norm)
+        apply_final_norm=apply_final_norm, quant=llm_quant)
     clip = TextEncoder(
         "clipL", text_len_2, clip_model,
         tokenizer=(load_hf_tokenizer("clipL", tokenizer_path_2)

@@ -10,8 +10,10 @@ reach the final layer, so valid positions match exactly.
 * `chunked_attention`: online softmax over query and key chunks, with an
   optional block bias (the VAE mid-block's frame-causal mask at large L).
 * `flash`: the hand-written kernels of ops/flash_attention.py.
-* `sta` (joint_attention only): sliding-tile attention for the image
-  queries, ops/sta.py; it needs the (T, H, W) patch grid.
+* `flash_int8`: the int8 Q.K^T kernels of ops/flash_attention.py.
+* `sta` / `sta_int8` (joint_attention only): sliding-tile attention for
+  the image queries, ops/sta.py (bf16, or int8 Q.K^T); it needs the
+  (T, H, W) patch grid.
 
 Layout: q/k/v [B, S, H, D]; outputs [B, S, H*D].
 """
@@ -119,9 +121,10 @@ def frame_causal_block_bias(n_hw: int) -> Callable:
 
 def attention(q, k, v, mode: str = "auto", bias=None, key_bias=None,
               scale: Optional[float] = None, bound_mode: str = "auto",
-              score_bound=None) -> torch.Tensor:
+              score_bound=None, plain: bool = False) -> torch.Tensor:
     """Dispatch: "flash" (the CUDA kernels; their plain versions on CPU
-    tensors), "sdpa", "chunked"; "auto" is "flash" at every length."""
+    tensors), "flash_int8", "sdpa", "chunked"; "auto" is "flash" at every
+    length. plain=True runs flash_int8 on its plain version."""
     if mode == "auto":
         mode = "flash"
     if mode == "sdpa":
@@ -135,6 +138,15 @@ def attention(q, k, v, mode: str = "auto", bias=None, key_bias=None,
         return flash_attention(q, k, v, key_bias, scale,
                                bound_mode=bound_mode,
                                score_bound=score_bound)
+    if mode == "flash_int8":
+        # JAX ops/attention.py:298-308: "static" keeps the static-offset
+        # kernel; anything else means the safe running max
+        from .flash_attention import flash_attention_int8
+
+        return flash_attention_int8(
+            q, k, v, key_bias=key_bias, scale=scale,
+            bound_mode="static" if bound_mode == "static" else "running",
+            score_bound=score_bound, plain=plain)
     if mode in ("sta", "sta_int8"):
         raise ValueError(f"mode={mode!r} needs the image/text split and the "
                          f"token grid: call joint_attention")
@@ -146,32 +158,31 @@ def joint_attention(img_q, img_k, img_v, txt_q, txt_k, txt_v,
                     txt_bias: Optional[torch.Tensor], mode: str = "auto",
                     scale: Optional[float] = None, bound_mode: str = "auto",
                     score_bound=None, token_grid=None, sta_tile=(4, 8, 8),
-                    sta_window=(3, 3, 3), sta_plain: bool = False):
+                    sta_window=(3, 3, 3), plain: bool = False):
     """Joint attention over [img | txt] tokens on one device; returns
     (img_out, txt_out), each [B, S, H*D].
 
     mode="sta" runs Sliding Tile Attention (ops/sta.py) for the image
-    queries over the `token_grid` = (T, H, W) patch grid; sta_plain routes
-    its image queries to the plain version (a reference for checks)."""
-    if mode == "sta_int8":
-        raise NotImplementedError("attn_mode 'sta_int8' (STA with int8 "
-                                  "QK^T) is not ported to the PyTorch "
-                                  "package yet")
-    if mode == "sta":
+    queries over the `token_grid` = (T, H, W) patch grid; "sta_int8" the
+    same with int8 Q.K^T (it needs bound_mode "static", which the DiT grants
+    under QK-norm). plain routes the STA image queries and flash_int8 to
+    their plain versions (a reference for checks)."""
+    if mode in ("sta", "sta_int8"):
         if token_grid is None:
-            raise ValueError("attn_mode='sta' requires token_grid")
+            raise ValueError(f"attn_mode={mode!r} requires token_grid")
         from .sta import sta_joint_attention
 
         return sta_joint_attention(
             img_q, img_k, img_v, txt_q, txt_k, txt_v, txt_bias,
             grid=tuple(token_grid), tile=tuple(sta_tile),
             window=tuple(sta_window), scale=scale, bound_mode=bound_mode,
-            score_bound=score_bound, plain=sta_plain)
+            qk_int8=mode == "sta_int8", score_bound=score_bound, plain=plain)
     img_len = img_q.shape[1]
     q = torch.cat([img_q, txt_q], dim=1)
     k = torch.cat([img_k, txt_k], dim=1)
     v = torch.cat([img_v, txt_v], dim=1)
     out = attention(q, k, v, mode=mode,
                     key_bias=joint_key_bias(txt_bias, img_len), scale=scale,
-                    bound_mode=bound_mode, score_bound=score_bound)
+                    bound_mode=bound_mode, score_bound=score_bound,
+                    plain=plain)
     return out[:, :img_len], out[:, img_len:]

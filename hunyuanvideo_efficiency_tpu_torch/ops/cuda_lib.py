@@ -38,7 +38,16 @@ SIGNATURES = {
     },
     "sta_attention": {
         "hv_sta_attention_fwd": (
-            _I, [_I] * 4 + [_P] * 10 + [_I] * 10 + [_LL] * 13 + [_F, _P]),
+            _I, [_I] * 5 + [_P] * 12 + [_I] * 11 + [_LL] * 13 + [_F, _P]),
+    },
+    "flash_int8": {
+        "hv_flash_int8_fwd": (
+            _I, [_I] * 3 + [_P] * 8 + [_I] * 6 + [_LL] * 6 + [_F, _P]),
+    },
+    "w8a8_linear": {
+        "hv_w8a8_linear": (
+            _I, [_I, _I, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _I, _I, _I,
+                 _P]),
     },
 }
 

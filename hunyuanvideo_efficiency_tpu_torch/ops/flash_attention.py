@@ -19,6 +19,19 @@ kernel launches.
 Bound on the H100: 4*B*H*Sq*Sk*D tensor-core operations (989 TFLOP/s
 bf16), far above the bytes moved at the main path's lengths, so both are
 bound by operations; see the source note in the .cu file for the design.
+
+int8 Q.K^T (`flash_attention_int8`, JAX :816-906; `csrc/flash_int8.cu`):
+
+* `flash_int8_static` (B8a) replaces `_flash_int8_nomax_kernel`, the
+  static offset with the bound inflated for int8 rounding; the main path's
+  kernel under `--attn-mode flash_int8` with QK-norm.
+* `flash_int8_running` (B8b) replaces `_flash_int8_kernel`, the running
+  max, for models without QK-norm.
+
+Both quantize q and k symmetrically per (batch, head, block): one scale per
+`q_group` query rows and per `k_group` key rows, the blocks the JAX
+wrapper picks (`pick_block`, `int8_key_group`); their plain version is
+`flash_int8_plain`.
 """
 from __future__ import annotations
 
@@ -212,3 +225,217 @@ def merge_flash_states(s1, s2):
         return o.reshape(b, sq, hd).to(o1.dtype), m, l
     o = o1.float() * w1[..., None] + o2.float() * w2[..., None]
     return o.to(o1.dtype), m, l
+
+
+# --------------------------------------------------------------------------
+# int8 Q.K^T (SageAttention-style, arXiv 2410.02367)
+# --------------------------------------------------------------------------
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def pick_block(block: int, s: int) -> int:
+    """Largest block <= `block` that divides s, if any (JAX
+    ops/flash_attention.py:_pick_block): the int8 kernels' quantization
+    groups follow the JAX wrapper's blocks."""
+    block = min(block, _round_up(s, 128))
+    if s % block == 0:
+        return block
+    for cand in (1024, 512, 256, 128):
+        if cand < block and s % cand == 0:
+            return cand
+    return block
+
+
+def int8_key_group(block_k: int, static: bool) -> int:
+    """Keys per int8 quantization group: block_k split into the JAX
+    kernels' sub-blocks (4/2/1 static, 2/1 running)."""
+    if static:
+        n_sub = 4 if block_k % 512 == 0 else (2 if block_k % 256 == 0 else 1)
+    else:
+        n_sub = 2 if block_k % 256 == 0 else 1
+    return block_k // n_sub
+
+
+def int8_bound_inflation(d: int) -> float:
+    """(1 + sqrt(d)/254)^2: a static bound on |q.k|*scale also bounds the
+    int8-rounded scores after this factor (rounding adds at most sqrt(d)/2
+    steps to a row norm of at least 127 steps)."""
+    return (1.0 + d ** 0.5 / 254.0) ** 2
+
+
+def group_codes(x: torch.Tensor, group: int):
+    """Symmetric int8 codes of x [B, S, H, D] per (batch, head, group of
+    `group` rows), zero rows padding S to a whole group: codes as fp32
+    [B, H, S_pad, D] and scales [B, H, S_pad // group] with
+    scale = max(max|x|, 1e-6) * (1/127), codes round(x * (1/scale))."""
+    b, s, h, d = x.shape
+    s_pad = _round_up(s, group)
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, s_pad - s))
+    xf = xf.permute(0, 2, 1, 3).reshape(b, h, s_pad // group, group, d)
+    sc = xf.abs().amax(dim=(3, 4)).clamp_min(1e-6) * (1.0 / 127.0)
+    codes = torch.round(xf * (1.0 / sc)[..., None, None])
+    return codes.reshape(b, h, s_pad, d), sc
+
+
+def flash_int8_plain(q, k, v, key_bias, c, scale: float, running: bool,
+                     q_group: int, k_group: int) -> torch.Tensor:
+    """Both int8 kernels in plain PyTorch. q/k/v [B, S, H, D]; key_bias
+    [B, Sk] fp32 or None; c [B, H] fp32 static offset (unused when
+    running). s = s32(q8.k8^T) * (sq*sk*scale) (the codes' product is exact
+    in fp32 for D <= 1040), then the static p = exp(s + (kb - c)) or the
+    exact softmax, p rounded to v's type before P.V. One head at a time.
+    Returns [B, Sq, H*D]."""
+    b, sq_len, h, d = q.shape
+    sk_len = k.shape[1]
+    q8, sq = group_codes(q, q_group)
+    k8, sk = group_codes(k, k_group)
+    kb = (key_bias.reshape(b, sk_len).float() if key_bias is not None
+          else torch.zeros((b, sk_len), device=q.device))
+    kb = torch.nn.functional.pad(kb, (0, k8.shape[2] - sk_len),
+                                 value=NEG_INF)[:, None, :]
+    vf = torch.nn.functional.pad(
+        v, (0, 0, 0, 0, 0, k8.shape[2] - sk_len)).transpose(1, 2)
+    out = torch.empty((b, sq_len, h, d), dtype=q.dtype, device=q.device)
+    for hi in range(h):
+        s32 = torch.matmul(q8[:, hi], k8[:, hi].transpose(-1, -2))
+        fac = (sq[:, hi, :, None] * sk[:, hi, None, :]) * scale
+        fac = fac.repeat_interleave(q_group, 1).repeat_interleave(k_group, 2)
+        s = s32 * fac
+        if running:
+            x = s + kb
+            p = torch.exp(x - x.amax(dim=-1, keepdim=True))
+        else:
+            p = torch.exp(s + (kb - c.float()[:, hi, None, None]))
+        pv = torch.matmul(p.to(v.dtype).float(), vf[:, hi].float())
+        o = pv / p.sum(dim=-1).clamp_min(1e-37)[..., None]
+        out[:, :, hi] = o[:, :sq_len].to(q.dtype)
+    return out.reshape(b, sq_len, h * d)
+
+
+def _launch_int8(q, k, v, key_bias, c, scale, running, q_group, k_group):
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_cuda:
+            raise ValueError(f"flash int8 kernel: {name} is on {x.device}, "
+                             f"not a CUDA device")
+        if x.dtype != q.dtype:
+            raise TypeError("flash int8 kernel: q, k, v must share a dtype")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash int8 kernel takes bf16 or fp16, got "
+                        f"{q.dtype}")
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if d not in (64, 128):
+        raise ValueError(f"flash int8 kernel takes head_dim 64 or 128, got "
+                         f"{d}")
+    if k.shape != (b, sk, h, d) or v.shape != (b, sk, h, d):
+        raise ValueError(f"flash int8 kernel: bad shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    if q_group % 64 or k_group % 64:
+        raise ValueError(f"flash int8 kernel: groups {q_group}/{k_group} "
+                         f"are not multiples of 64")
+    q, k, v = _as_rows(q), _as_rows(k), _as_rows(v)
+    kb = (key_bias.reshape(b, sk).to(torch.float32).contiguous()
+          if key_bias is not None else None)
+    cc = None if running else c.to(torch.float32).expand(b, h).contiguous()
+    out = torch.empty((b, sq, h * d), dtype=q.dtype, device=q.device)
+    sq_s = torch.empty((b, h, -(-sq // q_group)), dtype=torch.float32,
+                       device=q.device)
+    sk_s = torch.empty((b, h, -(-sk // k_group)), dtype=torch.float32,
+                       device=q.device)
+    lib = cuda_lib.library("flash_int8")
+    err = lib.hv_flash_int8_fwd(
+        _DTYPE_CODE[q.dtype], int(running), d, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(),
+        kb.data_ptr() if kb is not None else None,
+        cc.data_ptr() if cc is not None else None, sq_s.data_ptr(),
+        sk_s.data_ptr(), b, h, sq, sk, q_group, k_group, q.stride(0),
+        q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        float(scale), cuda_lib.stream_ptr(q.device))
+    cuda_lib.check(err, "flash int8 attention")
+    return out
+
+
+def flash_int8_static(q, k, v, key_bias, c, scale: float, q_group: int,
+                      k_group: int) -> torch.Tensor:
+    """B8a: int8 Q.K^T with the static offset c [B, H] (already inflated
+    for int8 rounding). q/k/v [B, S, H, D] -> [B, Sq, H*D]. Kernel on CUDA
+    tensors, plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_int8_plain(q, k, v, key_bias, c, scale, False, q_group,
+                                k_group)
+    out = _launch_int8(q, k, v, key_bias, c, scale, False, q_group, k_group)
+    flash_int8_static.LAUNCHES += 1
+    return out
+
+
+flash_int8_static.LAUNCHES = 0
+
+
+def flash_int8_running(q, k, v, key_bias, scale: float, q_group: int,
+                       k_group: int) -> torch.Tensor:
+    """B8b: int8 Q.K^T with the running-max online softmax. Kernel on CUDA
+    tensors, plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_int8_plain(q, k, v, key_bias, None, scale, True,
+                                q_group, k_group)
+    out = _launch_int8(q, k, v, key_bias, None, scale, True, q_group,
+                       k_group)
+    flash_int8_running.LAUNCHES += 1
+    return out
+
+
+flash_int8_running.LAUNCHES = 0
+
+
+def flash_attention_int8(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_bias: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    block_q: int = 1024,
+    block_k: int = 2048,
+    smooth_k: bool = True,
+    bound_mode: str = "running",
+    score_bound: Optional[torch.Tensor] = None,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Flash attention with int8 Q.K^T; q/k/v [B, S, H, D] -> [B, Sq, H*D]
+    (the JAX signature and semantics).
+
+    smooth_k subtracts the per-(batch, head, channel) key mean over the whole
+    key axis (masked text padding included), taken in fp32 and cast back:
+    softmax cancels the per-query constant it changes, and the int8 error
+    shrinks. bound_mode "static" -> B8a with the bound inflated by
+    `int8_bound_inflation` (score_bound, or the Cauchy-Schwarz bound of the
+    smoothed q/k); anything else -> B8b. Unlike `flash_attention`, there is
+    no fallback to the running kernel for a large bound. block_q/block_k
+    pick the quantization groups as in the JAX wrapper. plain=True runs
+    the plain version on any device (a reference for checks on the card).
+    """
+    b, sq_len, hh, d = q.shape
+    sk_len = k.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    static = bound_mode == "static"
+    q_group = pick_block(block_q, sq_len)
+    k_group = int8_key_group(pick_block(block_k, sk_len), static)
+    if smooth_k:
+        k = k - k.float().mean(dim=1, keepdim=True).to(k.dtype)
+    kb = key_bias.reshape(b, sk_len) if key_bias is not None else None
+    if not static:
+        if plain:
+            return flash_int8_plain(q, k, v, kb, None, scale, True, q_group,
+                                    k_group)
+        return flash_int8_running(q, k, v, kb, scale, q_group, k_group)
+    if score_bound is not None:
+        c = torch.as_tensor(score_bound, dtype=torch.float32,
+                            device=q.device).expand(b, hh)
+    else:
+        c = score_bound_from_norms(q, k, scale)
+    c = c * int8_bound_inflation(d)
+    if plain:
+        return flash_int8_plain(q, k, v, kb, c, scale, False, q_group,
+                                k_group)
+    return flash_int8_static(q, k, v, kb, c, scale, q_group, k_group)

@@ -7,8 +7,9 @@ window of tiles around it, plus every text key. Text queries keep full
 attention over [img | txt]. The tile plan (`tile_plan`) is host numpy,
 static per (grid, tile, window), and equal to the JAX package's.
 
-Three kernels with one CUDA source (`csrc/sta_attention.cu`, template
-flags DIRECT and RUNNING), each a wrapper here with a `LAUNCHES` count:
+Five kernels with one CUDA source (`csrc/sta_attention.cu`, template
+flags DIRECT, RUNNING and QUANT), each a wrapper here with a `LAUNCHES`
+count:
 
 * `sta_direct` (DIRECT=1, RUNNING=0) replaces `_sta_nomax_direct_kernel`:
   static exponent offset C, q/k/v read and out written in the row-major
@@ -20,13 +21,19 @@ flags DIRECT and RUNNING), each a wrapper here with a `LAUNCHES` count:
   the neighbour table.
 * `sta_permuted_running` (DIRECT=0, RUNNING=1) replaces `_sta_kernel`: the
   same layout with a running max, for models without QK-norm.
+* `sta_direct_int8` and `sta_permuted_static_int8` (QUANT=1) are the
+  `quant=True` arms of the first two (`--attn-mode sta_int8`): Q.K^T in
+  int8 with one scale per (batch, head, tile) of the queries and of the
+  keys; the direct arm's text keys stay bf16, the permuted arm quantizes
+  its text blocks like image key tiles. The two arms compute different
+  functions, and each wrapper follows its JAX arm.
 
 On CPU tensors each wrapper runs the plain version (`sta_attention_plain`,
 built on `sta_permuted_plain`): neighbour tiles gathered per chunk of query
-tiles, fp32 scores from the model-dtype inputs, p rounded to V's type
-before P.V, the static arm exp(s*scale + kb - C) with max(l, 1e-37) and
-the running arm an exact softmax. On any other device a wrapper launches
-its kernel or raises.
+tiles, fp32 scores from the model-dtype inputs (or exact int8 products
+times sq*sk*scale), p rounded to V's type before P.V, the static arm
+exp(s*scale + kb - C) with max(l, 1e-37) and the running arm an exact
+softmax. On any other device a wrapper launches its kernel or raises.
 
 Bound on the H100: 4*D per valid query-key pair on the tensor cores; with
 a 3x3x3 window of 256-token tiles each query sees up to 6,912 image keys,
@@ -42,7 +49,7 @@ import torch
 
 from . import cuda_lib
 from .flash_attention import (_DTYPE_CODE, _as_rows, flash_attention,
-                              merge_flash_states)
+                              int8_bound_inflation, merge_flash_states)
 
 NEG_INF = -1e30
 PLAIN_TILE_CHUNK = 8   # query tiles per step of the plain version: at 540p
@@ -200,15 +207,31 @@ def sta_pair_count(grid, tile, window, txt_valid: int) -> int:
 # plain versions
 # --------------------------------------------------------------------------
 
+def tile_codes(x: torch.Tensor, block: int):
+    """Symmetric int8 codes of tile-major x [B, S, H, D] per (batch, tile
+    of `block` rows, head), the STA kernels' quant arm: codes as fp32
+    [B, S // block, block, H, D] and scales [B, S // block, H] with
+    scale = max(max|x|, 1e-6) / 127, codes round(x * (1/scale))."""
+    b, s, hh, d = x.shape
+    xf = x.float().reshape(b, s // block, block, hh, d)
+    sc = xf.abs().amax(dim=(2, 4)).clamp_min(1e-6) / 127.0
+    return torch.round(xf * (1.0 / sc)[:, :, None, :, None]), sc
+
+
 def sta_permuted_plain(qp, kcat, vcat, kb, grid, tile, window, scale: float,
-                       c: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       c: Optional[torch.Tensor] = None,
+                       qk_int8: bool = False,
+                       txt_int8: bool = True) -> torch.Tensor:
     """The function of the permuted kernels, in plain PyTorch.
 
     qp [B, S_pad, H, D] tile-major image queries; kcat/vcat [B, S_pad +
     txt_pad, H, D] = [image tiles | text padded to whole tiles]; kb
     [B, S_pad + txt_pad] fp32 key bias (-1e30 on padding); c [B, H] static
-    offset, or None for the running (exact softmax) arm. Returns
-    [B, S_pad, H*D]; rows of padding tokens are zero."""
+    offset, or None for the running (exact softmax) arm. qk_int8: int8
+    Q.K^T with the tile scales of `tile_codes` (s = s32 * sq*sk*scale);
+    txt_int8=False keeps the text blocks' scores in the input type (the
+    direct kernel's text fold). Returns [B, S_pad, H*D]; rows of padding
+    tokens are zero."""
     b, s_pad, hh, d = qp.shape
     tile = tuple(tile)
     block = tile[0] * tile[1] * tile[2]
@@ -226,6 +249,10 @@ def sta_permuted_plain(qp, kcat, vcat, kb, grid, tile, window, scale: float,
     kt = kcat.reshape(b, -1, block, hh, d)
     vt = vcat.reshape(b, -1, block, hh, d)
     kbt = kb.float().reshape(b, -1, block)
+    if qk_int8:
+        q8, sq = tile_codes(qp, block)
+        k8, sk = tile_codes(kcat, block)
+        txt_slot = nbr >= n_tiles                           # [T, S]
     out = torch.empty((b, n_tiles, block, hh * d), dtype=qp.dtype, device=dev)
     for t0 in range(0, n_tiles, PLAIN_TILE_CHUNK):
         t1 = min(t0 + PLAIN_TILE_CHUNK, n_tiles)
@@ -235,8 +262,24 @@ def sta_permuted_plain(qp, kcat, vcat, kb, grid, tile, window, scale: float,
         vg = vt[:, nb].reshape(b, cn, n_slots * block, hh, d)
         bias = (kbt[:, nb] + slot_bias[t0:t1, :, None]
                 ).reshape(b, cn, 1, 1, n_slots * block)
-        s = torch.einsum("bcqhd,bckhd->bchqk", qt[:, t0:t1].float(),
-                         kg.float()) * scale
+        if qk_int8:
+            s32 = torch.einsum("bcqhd,bckhd->bchqk", q8[:, t0:t1],
+                               k8[:, nb].reshape(b, cn, n_slots * block, hh,
+                                                 d))
+            fac = (sq[:, t0:t1, None, :] * sk[:, nb]) * scale  # [B,C,S,H]
+            s = (s32.reshape(b, cn, hh, block, n_slots, block)
+                 * fac.permute(0, 1, 3, 2)[:, :, :, None, :, None]
+                 ).reshape(b, cn, hh, block, n_slots * block)
+            if not txt_int8:
+                sf = torch.einsum("bcqhd,bckhd->bchqk",
+                                  qt[:, t0:t1].float(), kg.float()) * scale
+                keep = txt_slot[t0:t1, None, :, None].expand(
+                    cn, block, n_slots, block).reshape(
+                        cn, block, n_slots * block)
+                s = torch.where(keep[None, :, None], sf, s)
+        else:
+            s = torch.einsum("bcqhd,bckhd->bchqk", qt[:, t0:t1].float(),
+                             kg.float()) * scale
         if c is None:
             x = s + bias
             p = torch.exp(x - x.amax(dim=-1, keepdim=True))
@@ -288,20 +331,21 @@ def permuted_operands(img_q, img_k, img_v, txt_k, txt_v, txt_bias, grid,
 def sta_attention_plain(img_q, img_k, img_v, txt_k, txt_v, txt_bias, grid,
                         tile, window, scale: float,
                         c: Optional[torch.Tensor] = None,
-                        img_key_bias: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
-    """Plain version of all three STA kernels: the forward of the JAX
-    package's `sta_gathered_attention` for the image queries. img_q/k/v
+                        img_key_bias: Optional[torch.Tensor] = None,
+                        qk_int8: bool = False) -> torch.Tensor:
+    """Plain version of all STA kernels: the forward of the JAX package's
+    `sta_gathered_attention` for the image queries. img_q/k/v
     [B, S_img, H, D] row-major over `grid`; txt_k/v [B, Lt, H, D]; txt_bias
     [B, 1, 1, Lt] (or [B, Lt]) fp32 or None; c [B, H] static offset, or
     None for the running arm; img_key_bias optional [B, S_img] fp32 added
-    to the image keys. Query tiles are processed PLAIN_TILE_CHUNK at a
-    time. Returns [B, S_img, H*D]."""
+    to the image keys; qk_int8: the direct kernel's int8 arm (image Q.K^T
+    in int8, the text keys in the input type). Query tiles are processed
+    PLAIN_TILE_CHUNK at a time. Returns [B, S_img, H*D]."""
     plan, qp, kcat, vcat, kb = permuted_operands(
         img_q, img_k, img_v, txt_k, txt_v, txt_bias, grid, tile, window,
         img_key_bias)
     out = sta_permuted_plain(qp, kcat, vcat, kb, grid, tile, window, scale,
-                             c)
+                             c, qk_int8, txt_int8=False)
     return _unpermute_tokens(out, tuple(grid), plan)
 
 
@@ -338,8 +382,17 @@ def _geometry(name, grid, tile, d):
 
 
 def _launch(name, direct, running, q, k, v, out, tk, tv, kb, tb, c, nbr,
-            grid, tile, lt, scale):
+            grid, tile, lt, scale, quant=False):
     b, _, hh, d = q.shape
+    block = tile[0] * tile[1] * tile[2]
+    n_qtiles = nbr.shape[0]
+    n_ktiles = k.shape[1] // block if not direct else n_qtiles
+    sq = sk = None
+    if quant:   # scratch for the kernel's tile-scale pre-pass
+        sq = torch.empty((b, hh, n_qtiles), dtype=torch.float32,
+                         device=q.device)
+        sk = torch.empty((b, hh, n_ktiles), dtype=torch.float32,
+                         device=q.device)
     lib = cuda_lib.library("sta_attention")
 
     def ptr(x):
@@ -349,36 +402,32 @@ def _launch(name, direct, running, q, k, v, out, tk, tv, kb, tb, c, nbr,
         return (x.stride(0), x.stride(1)) if x is not None else (0, 0)
 
     err = lib.hv_sta_attention_fwd(
-        _DTYPE_CODE[q.dtype], int(direct), int(running), d,
+        _DTYPE_CODE[q.dtype], int(direct), int(running), int(quant), d,
         ptr(q), ptr(k), ptr(v), ptr(out), ptr(tk), ptr(tv), ptr(kb), ptr(tb),
-        ptr(c), ptr(nbr), b, hh, nbr.shape[1], lt, *grid, *tile,
+        ptr(c), ptr(nbr), ptr(sq), ptr(sk), b, hh, nbr.shape[1], lt,
+        n_ktiles, *grid, *tile,
         *strides(q), *strides(k), *strides(v), *strides(tk), *strides(tv),
         out.stride(0), out.stride(1), kb.stride(0) if kb is not None else 0,
         float(scale), cuda_lib.stream_ptr(q.device))
     cuda_lib.check(err, name)
 
 
-def sta_direct(img_q, img_k, img_v, txt_k, txt_v, txt_bias, c, grid, tile,
-               window, scale: float, img_key_bias=None) -> torch.Tensor:
-    """B4: static-offset STA in the row-major token grid. img_q/k/v
-    [B, S_img, H, D]; txt_k/v [B, Lt, H, D]; txt_bias [B, 1, 1, Lt] (or
-    [B, Lt]) fp32 or None; c [B, H] fp32 offsets; img_key_bias optional
-    [B, S_img] fp32. Returns [B, S_img, H*D]. Kernel on CUDA tensors, plain
-    version on CPU tensors."""
+def _direct(name, quant, img_q, img_k, img_v, txt_k, txt_v, txt_bias, c,
+            grid, tile, window, scale, img_key_bias):
     grid, tile, window = tuple(grid), tuple(tile), tuple(window)
     if img_q.device.type == "cpu":
         return sta_attention_plain(img_q, img_k, img_v, txt_k, txt_v,
                                    txt_bias, grid, tile, window, scale, c,
-                                   img_key_bias)
-    _check("sta_direct", (("img_q", img_q), ("img_k", img_k), ("img_v", img_v),
-                          ("txt_k", txt_k), ("txt_v", txt_v)), img_q.dtype)
+                                   img_key_bias, qk_int8=quant)
+    _check(name, (("img_q", img_q), ("img_k", img_k), ("img_v", img_v),
+                  ("txt_k", txt_k), ("txt_v", txt_v)), img_q.dtype)
     b, s_img, hh, d = img_q.shape
     lt = txt_k.shape[1]
-    _geometry("sta_direct", grid, tile, d)
+    _geometry(name, grid, tile, d)
     if s_img != grid[0] * grid[1] * grid[2] or img_k.shape != img_q.shape \
             or img_v.shape != img_q.shape \
             or txt_k.shape != (b, lt, hh, d) or txt_v.shape != txt_k.shape:
-        raise ValueError(f"sta_direct: bad shapes q {tuple(img_q.shape)} "
+        raise ValueError(f"{name}: bad shapes q {tuple(img_q.shape)} "
                          f"for grid {grid}, txt {tuple(txt_k.shape)}")
     q, k, v = _as_rows(img_q), _as_rows(img_k), _as_rows(img_v)
     tk, tv = _as_rows(txt_k), _as_rows(txt_v)
@@ -389,21 +438,50 @@ def sta_direct(img_q, img_k, img_v, txt_k, txt_v, txt_bias, c, grid, tile,
     cc = c.float().expand(b, hh).contiguous()
     nbr = _device_nbr(grid, tile, window, 0, q.device)
     out = torch.empty((b, s_img, hh * d), dtype=q.dtype, device=q.device)
-    _launch("sta_direct", True, False, q, k, v, out, tk, tv, kb, tb, cc, nbr,
-            grid, tile, lt, scale)
-    sta_direct.LAUNCHES += 1
+    _launch(name, True, False, q, k, v, out, tk, tv, kb, tb, cc, nbr, grid,
+            tile, lt, scale, quant)
+    return out
+
+
+def sta_direct(img_q, img_k, img_v, txt_k, txt_v, txt_bias, c, grid, tile,
+               window, scale: float, img_key_bias=None) -> torch.Tensor:
+    """B4: static-offset STA in the row-major token grid. img_q/k/v
+    [B, S_img, H, D]; txt_k/v [B, Lt, H, D]; txt_bias [B, 1, 1, Lt] (or
+    [B, Lt]) fp32 or None; c [B, H] fp32 offsets; img_key_bias optional
+    [B, S_img] fp32. Returns [B, S_img, H*D]. Kernel on CUDA tensors, plain
+    version on CPU tensors."""
+    out = _direct("sta_direct", False, img_q, img_k, img_v, txt_k, txt_v,
+                  txt_bias, c, grid, tile, window, scale, img_key_bias)
+    if img_q.device.type != "cpu":
+        sta_direct.LAUNCHES += 1
     return out
 
 
 sta_direct.LAUNCHES = 0
 
 
+def sta_direct_int8(img_q, img_k, img_v, txt_k, txt_v, txt_bias, c, grid,
+                    tile, window, scale: float,
+                    img_key_bias=None) -> torch.Tensor:
+    """B4's int8 arm: as `sta_direct` with the image Q.K^T in int8 (tile
+    scales) and the text keys in the input type; c must bound the int8
+    scores (inflated). Kernel on CUDA tensors, plain version on CPU."""
+    out = _direct("sta_direct_int8", True, img_q, img_k, img_v, txt_k, txt_v,
+                  txt_bias, c, grid, tile, window, scale, img_key_bias)
+    if img_q.device.type != "cpu":
+        sta_direct_int8.LAUNCHES += 1
+    return out
+
+
+sta_direct_int8.LAUNCHES = 0
+
+
 def _permuted(name, running, qp, kcat, vcat, kb, c, grid, tile, window,
-              scale):
+              scale, quant=False):
     grid, tile, window = tuple(grid), tuple(tile), tuple(window)
     if qp.device.type == "cpu":
         return sta_permuted_plain(qp, kcat, vcat, kb, grid, tile, window,
-                                  scale, c)
+                                  scale, c, qk_int8=quant)
     _check(name, (("qp", qp), ("kcat", kcat), ("vcat", vcat)), qp.dtype)
     b, s_pad, hh, d = qp.shape
     block = _geometry(name, grid, tile, d)
@@ -421,7 +499,7 @@ def _permuted(name, running, qp, kcat, vcat, kb, c, grid, tile, window,
     nbr = _device_nbr(grid, tile, window, kcat.shape[1] - s_pad, q.device)
     out = torch.empty((b, s_pad, hh * d), dtype=q.dtype, device=q.device)
     _launch(name, False, running, q, k, v, out, None, None, kbf, None, cc,
-            nbr, grid, tile, 0, scale)
+            nbr, grid, tile, 0, scale, quant)
     return out
 
 
@@ -438,6 +516,22 @@ def sta_permuted_static(qp, kcat, vcat, kb, c, grid, tile, window,
 
 
 sta_permuted_static.LAUNCHES = 0
+
+
+def sta_permuted_static_int8(qp, kcat, vcat, kb, c, grid, tile, window,
+                             scale: float) -> torch.Tensor:
+    """B6's int8 arm: as `sta_permuted_static` with Q.K^T in int8, every
+    key tile of kcat (text blocks included) quantized with its own scale; c
+    must bound the int8 scores (inflated). Kernel on CUDA tensors, plain
+    version on CPU."""
+    out = _permuted("sta_permuted_static_int8", False, qp, kcat, vcat, kb, c,
+                    grid, tile, window, scale, quant=True)
+    if qp.device.type != "cpu":
+        sta_permuted_static_int8.LAUNCHES += 1
+    return out
+
+
+sta_permuted_static_int8.LAUNCHES = 0
 
 
 def sta_permuted_running(qp, kcat, vcat, kb, grid, tile, window,
@@ -518,6 +612,11 @@ def sta_joint_attention(
     Any other bound_mode takes `sta_permuted_running`, the text queries
     `flash_attention(bound_mode="auto")` over those keys.
 
+    qk_int8 (needs bound_mode "static"): the image queries take the int8
+    arms `sta_direct_int8` / `sta_permuted_static_int8`, and the static
+    bound is inflated by `int8_bound_inflation` for the image and the text
+    queries alike (the text queries stay bf16 flash).
+
     score_bound: bound on |q.k|*scale broadcastable to [B, H]; without one
     the Cauchy-Schwarz bound of the image-query and all-key row norms.
     img_key_bias: optional additive fp32 [B, S_img] on the image keys, for
@@ -525,11 +624,12 @@ def sta_joint_attention(
     `sta_attention_plain` (a reference for checks on the card).
     slot_block, head_block: accepted for signature parity with the JAX
     function; the CUDA kernel's tiles are fixed at 64 x 64.
-    qk_int8, ring and lane_rotate (TPU DMA-elision plans) are not ported.
+    ring and lane_rotate (TPU DMA-elision plans) are not ported.
     """
     del slot_block, head_block
-    if qk_int8:
-        _not_ported("STA with int8 QK^T (qk_int8=True)")
+    if qk_int8 and bound_mode != "static":
+        raise ValueError("sta qk_int8 requires bound_mode='static' "
+                         "(QK-norm score bound)")
     if ring:
         _not_ported("the STA ring-buffer kernel (ring=True)")
     if lane_rotate not in (None, False):
@@ -542,23 +642,25 @@ def sta_joint_attention(
         raise ValueError(f"{s_img} image tokens for grid {grid}")
 
     def static_bound():
+        infl = int8_bound_inflation(d) if qk_int8 else 1.0
         if score_bound is not None:
             return torch.as_tensor(score_bound, dtype=torch.float32,
-                                   device=img_q.device).expand(b, hh)
+                                   device=img_q.device).expand(b, hh) * infl
         qn = img_q.float().square().sum(-1).sqrt().amax(dim=1)
         kn = torch.maximum(img_k.float().square().sum(-1).sqrt().amax(dim=1),
                            txt_k.float().square().sum(-1).sqrt().amax(dim=1))
-        return qn * kn * scale
+        return qn * kn * scale * infl
 
     if bound_mode == "static" and direct and fused:
         c = static_bound()
         if plain:
             img_out = sta_attention_plain(img_q, img_k, img_v, txt_k, txt_v,
                                           txt_bias, grid, tile, window, scale,
-                                          c, img_key_bias)
+                                          c, img_key_bias, qk_int8=qk_int8)
         else:
-            img_out = sta_direct(img_q, img_k, img_v, txt_k, txt_v, txt_bias,
-                                 c, grid, tile, window, scale, img_key_bias)
+            fn = sta_direct_int8 if qk_int8 else sta_direct
+            img_out = fn(img_q, img_k, img_v, txt_k, txt_v, txt_bias, c, grid,
+                         tile, window, scale, img_key_bias)
         # the image half reads the unpadded keys: full attention does not
         # depend on key order, and the kernels mask ragged edges themselves
         txt_out = txt_merge_attention(
@@ -574,10 +676,10 @@ def sta_joint_attention(
     c = static_bound() if static else None
     if plain:
         out_p = sta_permuted_plain(qp, kcat, vcat, kb, grid, tile, window,
-                                   scale, c)
+                                   scale, c, qk_int8=qk_int8)
     elif static:
-        out_p = sta_permuted_static(qp, kcat, vcat, kb, c, grid, tile,
-                                    window, scale)
+        fn = sta_permuted_static_int8 if qk_int8 else sta_permuted_static
+        out_p = fn(qp, kcat, vcat, kb, c, grid, tile, window, scale)
     else:
         out_p = sta_permuted_running(qp, kcat, vcat, kb, grid, tile, window,
                                      scale)

@@ -13,6 +13,17 @@ packages can compute with identical weights. Layouts:
   patch matmul [cin*pt*ph*pw, out]   -> PatchEmbed Conv3d [out, cin, pt, ph, pw]
   pointwise kernel [cin, out]        -> Conv3d weight [out, cin, 1, 1, 1]
   norm scale                         -> weight
+
+Quantized linears (the JAX ops/quantization.py trees) carry over bit for
+bit into the port's tier modules (ops/quantization.py), which the model
+must hold before `load_state_dict`:
+
+  {'kernel' s8 [in, out], 'scale_out' [.., 1, out]} -> Int8Linear weight
+      int8 [out, in], scale_out [out]
+  {'kernel' e4m3 [in, out], 'scale' [.., 1, 1]}     -> Fp8Linear weight
+      float8_e4m3fn [out, in], scale (0-d)
+  {'kernel_i4' u8 [in, out/2], 'scale_out'}         -> Int4Linear weight
+      uint8 [out/2, in], scale_out [out]
 """
 from __future__ import annotations
 
@@ -29,8 +40,26 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32))
 
 
+def _codes(a: np.ndarray) -> torch.Tensor:
+    """[in, out] integer or fp8 codes -> [out, in], the same bits."""
+    a = np.ascontiguousarray(np.asarray(a).T)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
+    return torch.from_numpy(a)
+
+
 def _lin(sd: StateDict, name: str, p: Tree) -> None:
-    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"], np.float32).T)
+    if "kernel_i4" in p:
+        sd[f"{name}.weight"] = _codes(p["kernel_i4"])
+        sd[f"{name}.scale_out"] = _t(np.asarray(p["scale_out"]).reshape(-1))
+    elif "scale_out" in p:
+        sd[f"{name}.weight"] = _codes(p["kernel"])
+        sd[f"{name}.scale_out"] = _t(np.asarray(p["scale_out"]).reshape(-1))
+    elif "scale" in p:
+        sd[f"{name}.weight"] = _codes(p["kernel"])
+        sd[f"{name}.scale"] = _t(np.asarray(p["scale"]).reshape(()))
+    else:
+        sd[f"{name}.weight"] = _t(np.asarray(p["kernel"], np.float32).T)
     if "bias" in p:
         sd[f"{name}.bias"] = _t(p["bias"])
 

@@ -3,10 +3,13 @@
     python3 scripts/torch_profile.py [--steps 2]
     python3 scripts/torch_profile.py --attn-mode sta --sta-dense-blocks 1 \
         --height 544 --width 960 --frames 65
+    python3 scripts/torch_profile.py --use-int8 --attn-mode flash_int8 \
+        --text-encoder-quant int8
 
 Builds the sampler as chip_smoke.py's main paths do (HYVideo-T/2 at full
 width, Llama-3-8B + CLIP-L, the 884-16c-hy VAE, random weights; by default
-dense attention at 256x448, 33 frames; CFG 6.0) and splits predict() into
+dense bf16 attention at 256x448, 33 frames; the weight tiers and int8
+attention modes by the CLI's flags; CFG 6.0) and splits predict() into
 its three stages: text
 encoding, the denoise loop, the tiled VAE decode. Each stage runs once to
 warm up, once on the host clock (synchronized) and once under
@@ -41,7 +44,11 @@ def category(name: str) -> str:
     low = name.lower()
     if "flash_fwd_kernel" in low:
         return "flash attention (K1/K2)"
-    if "sta_fwd_kernel" in low:
+    if "flash_int8_kernel" in low or "group_scales_kernel" in low:
+        return "int8 flash attention (B8a/B8b)"
+    if "w8a8" in low or "quant_rows_kernel" in low:
+        return "W8A8 linear (B9)"
+    if "sta_fwd_kernel" in low or "tile_scales_kernel" in low:
         return "sliding-tile attention (STA)"
     if "conv3d_s1_kernel" in low:
         return "conv3d (K3)"
@@ -87,8 +94,13 @@ def stage(label, fn, out_dir, top=12):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=2)
-    ap.add_argument("--attn-mode", default="auto", choices=["auto", "sta"])
+    ap.add_argument("--attn-mode", default="auto",
+                    choices=["auto", "sta", "flash_int8", "sta_int8"])
     ap.add_argument("--sta-dense-blocks", type=int, default=0)
+    ap.add_argument("--use-fp8", action="store_true")
+    ap.add_argument("--use-int8", action="store_true")
+    ap.add_argument("--use-int4-modulation", action="store_true")
+    ap.add_argument("--text-encoder-quant", choices=["int8"], default=None)
     ap.add_argument("--height", type=int, default=HEIGHT)
     ap.add_argument("--width", type=int, default=WIDTH)
     ap.add_argument("--frames", type=int, default=FRAMES)
@@ -104,7 +116,10 @@ def main():
     args = InferenceArgs(model="HYVideo-T/2", vae_tiling=True,
                          model_base="ckpts-not-present",
                          attn_mode=a.attn_mode,
-                         sta_dense_blocks=a.sta_dense_blocks)
+                         sta_dense_blocks=a.sta_dense_blocks,
+                         use_fp8=a.use_fp8, use_int8=a.use_int8,
+                         use_int4_modulation=a.use_int4_modulation,
+                         text_encoder_quant=a.text_encoder_quant)
     sampler = HunyuanVideoSampler.from_pretrained(args=args,
                                                   allow_random_init=True)
     randomize_modulation(sampler.transformer, 3)
@@ -142,7 +157,10 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     print(f"[env] card={smi} torch={torch.__version__} steps={a.steps} "
           f"size={a.height}x{a.width}x{a.frames} attn_mode={a.attn_mode} "
-          f"sta_dense_blocks={a.sta_dense_blocks}", flush=True)
+          f"sta_dense_blocks={a.sta_dense_blocks} use_fp8={a.use_fp8} "
+          f"use_int8={a.use_int8} "
+          f"use_int4_modulation={a.use_int4_modulation} "
+          f"text_encoder_quant={a.text_encoder_quant}", flush=True)
     stage("text_encode", text, out_dir)
     stage(f"denoise_{a.steps}_steps", denoise, out_dir)
     stage("vae_decode", decode, out_dir)

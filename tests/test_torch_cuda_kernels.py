@@ -198,3 +198,131 @@ def test_sta_direct_matches_permuted(dev, kw):
     torch.cuda.synchronize()
     for x, y in zip(a, bb):
         torch.testing.assert_close(x.float(), y.float(), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m,k,n,bias,act", [
+    (2, 512, 384, True, None),          # the modulation matvec shape class
+    (77, 256, 256, False, None),        # ragged rows
+    (300, 512, 640, True, "gelu_tanh"),  # fc1 with the fused activation
+    (129, 256, 128, True, "gelu"),
+    (64, 256, 256, True, "relu"),
+    (1, 384, 256, False, "silu"),
+])
+def test_w8a8_kernel_matches_plain(dev, dtype, m, k, n, bias, act):
+    """B9 against its plain version: without an activation the two are the
+    same arithmetic (exact s32, the same fp32 epilogue), so equal; with
+    one, 1e-2 (transcendentals of another library)."""
+    from hunyuanvideo_efficiency_tpu_torch.ops.int8_matmul import (
+        w8a8_linear, w8a8_linear_plain)
+    from hunyuanvideo_efficiency_tpu_torch.ops.quantization import (
+        quantize_tensor_int8)
+
+    g = torch.Generator(dev).manual_seed(5)
+    x = (torch.randn(m, k, generator=g, device=dev) * 3).to(dtype)
+    w8, so = quantize_tensor_int8(torch.randn(n, k, generator=g, device=dev))
+    b = torch.randn(n, generator=g, device=dev).to(dtype) if bias else None
+    n0 = w8a8_linear.LAUNCHES
+    out = w8a8_linear(x, w8, so, b, act)
+    ref = w8a8_linear_plain(x, w8, so, b, act)
+    torch.cuda.synchronize()
+    assert w8a8_linear.LAUNCHES == n0 + 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    if act is None:
+        assert torch.equal(out, ref)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), atol=TOL,
+                                   rtol=TOL)
+
+
+def test_w8a8_kernel_strided_slices(dev):
+    """Column and row slices of one weight (the single block's linear1 /
+    linear2 slices) reach the kernel as strided views, [B, L, K] inputs."""
+    from hunyuanvideo_efficiency_tpu_torch.ops.int8_matmul import (
+        w8a8_linear, w8a8_linear_plain)
+    from hunyuanvideo_efficiency_tpu_torch.ops.quantization import (
+        quantize_tensor_int8)
+
+    g = torch.Generator(dev).manual_seed(6)
+    w8, so = quantize_tensor_int8(torch.randn(768, 512, generator=g,
+                                              device=dev))
+    x = torch.randn(2, 45, 256, generator=g, device=dev).bfloat16()
+    for out_sl, in_sl in ((slice(128, 512), slice(0, 256)),
+                          (slice(0, 768), slice(256, 512))):
+        wv = w8[out_sl, in_sl]
+        out = w8a8_linear(x, wv, so[out_sl])
+        ref = w8a8_linear_plain(x, wv, so[out_sl])
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [200, 1280])
+@pytest.mark.parametrize("running", [False, True])
+def test_flash_int8_kernels_match_plain(dev, dtype, d, s, running):
+    """B8a/B8b against flash_int8_plain with the groups the wrapper picks
+    (S = 1280: query groups of 256, key groups of 640); batch 1 masks a
+    whole 64-key chunk and the tail."""
+    from hunyuanvideo_efficiency_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(dev).manual_seed(7)
+    b, h = 2, 3
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    q = (torch.nn.functional.normalize(q.float(), dim=-1) * 4).to(dtype)
+    k = (torch.nn.functional.normalize(k.float(), dim=-1) * 4).to(dtype)
+    kb = torch.zeros(b, s, device=dev)
+    kb[1, 64:128] = -1e30
+    kb[1, s - 13:] = -1e30
+    scale = d ** -0.5
+    c = torch.full((b, h), 16.0 * scale * fa.int8_bound_inflation(d),
+                   device=dev)
+    qg = fa.pick_block(1024, s)
+    kg = fa.int8_key_group(fa.pick_block(2048, s), not running)
+    counter = fa.flash_int8_running if running else fa.flash_int8_static
+    n0 = counter.LAUNCHES
+    if running:
+        out = fa.flash_int8_running(q, k, v, kb, scale, qg, kg)
+    else:
+        out = fa.flash_int8_static(q, k, v, kb, c, scale, qg, kg)
+    ref = fa.flash_int8_plain(q, k, v, kb, c, scale, running, qg, kg)
+    torch.cuda.synchronize()
+    assert counter.LAUNCHES == n0 + 1
+    assert out.dtype == dtype and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", STA_CASES)
+def test_sta_int8_kernels_match_plain(dev, dtype, d, case):
+    """The quant arms of B4 (text keys in the input type) and B6 (text
+    blocks quantized like key tiles) against their plain versions."""
+    from hunyuanvideo_efficiency_tpu_torch.ops import sta
+    from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
+        int8_bound_inflation)
+
+    grid, tile, window, lt, txt_valid = case
+    (iq, ik, iv), (_, tk, tv), tb, c = _sta_inputs(dev, dtype, grid, d, lt,
+                                                   txt_valid, seed=8)
+    c = c * int8_bound_inflation(d)
+    scale = d ** -0.5
+    plan, qp, kcat, vcat, kb = sta.permuted_operands(
+        iq, ik, iv, tk, tv, tb, grid, tile, window)
+    n0 = (sta.sta_direct_int8.LAUNCHES, sta.sta_permuted_static_int8.LAUNCHES)
+    direct = sta.sta_direct_int8(iq, ik, iv, tk, tv, tb, c, grid, tile,
+                                 window, scale)
+    permuted = sta.sta_permuted_static_int8(qp, kcat, vcat, kb, c, grid,
+                                            tile, window, scale)
+    ref_d = sta.sta_attention_plain(iq, ik, iv, tk, tv, tb, grid, tile,
+                                    window, scale, c, qk_int8=True)
+    ref_p = sta.sta_permuted_plain(qp, kcat, vcat, kb, grid, tile, window,
+                                   scale, c, qk_int8=True)
+    torch.cuda.synchronize()
+    assert (sta.sta_direct_int8.LAUNCHES,
+            sta.sta_permuted_static_int8.LAUNCHES) == (n0[0] + 1, n0[1] + 1)
+    for out, ref in ((direct, ref_d), (permuted, ref_p)):
+        assert out.dtype == dtype and out.shape == ref.shape
+        torch.testing.assert_close(out.float(), ref.float(), atol=TOL,
+                                   rtol=TOL)

@@ -1,0 +1,109 @@
+"""The port's int8 Q.K^T flash attention (ops/flash_attention.py:
+flash_attention_int8, kernels B8a/B8b) against the JAX package's on the CPU.
+
+The JAX side runs flash_attention_int8 as its own tests do: its Pallas
+kernels in interpret mode. The port runs the wrappers' plain version with
+the same quantization groups. At S = 1280 the JAX wrapper picks query
+blocks of 256 (5 groups) and one key block of 1280 split into 2 key groups
+of 640; at S = 200 one group each, padded. Inputs are fp32 from numpy with
+masked text padding; the int8 codes agree exactly, so the outputs differ
+only by fp32 sums in other orders and the online vs exact softmax:
+tolerance 1e-4 relative to the output scale.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hunyuanvideo_efficiency_tpu.ops.flash_attention import (
+    flash_attention_int8 as jax_flash_int8)
+from hunyuanvideo_efficiency_tpu_torch.ops import flash_attention as fa
+from hunyuanvideo_efficiency_tpu_torch.ops.attention import attention
+
+NEG_INF = -1e30
+
+
+def _inputs(seed, s, b=2, h=2, d=64, n_pad=20):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, s, h, d)).astype(np.float32)
+               for _ in range(3))
+    k += 0.7    # a channel-coherent key offset, what smooth_k removes
+    kb = np.zeros((b, 1, 1, s), np.float32)
+    kb[1, ..., s - n_pad:] = NEG_INF   # padded text keys of one prompt
+    return q, k, v, kb
+
+
+def _close(out, ref):
+    ref = np.asarray(ref)
+    scale = np.abs(ref).max()
+    assert out.shape == ref.shape and scale > 1e-2
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-4 * scale,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("smooth_k", [True, False])
+@pytest.mark.parametrize("bound_mode", ["static", "running"])
+@pytest.mark.parametrize("s", [200, 1280])
+def test_flash_int8_matches_jax(s, bound_mode, smooth_k):
+    q, k, v, kb = _inputs(0, s)
+    ref = jax_flash_int8(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         key_bias=jnp.asarray(kb), smooth_k=smooth_k,
+                         bound_mode=bound_mode)
+    out = fa.flash_attention_int8(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        key_bias=torch.from_numpy(kb), smooth_k=smooth_k,
+        bound_mode=bound_mode)
+    _close(out, ref)
+
+
+def test_static_with_score_bound_matches_jax():
+    """A weight-derived bound (what the DiT passes), inflated inside."""
+    q, k, v, kb = _inputs(1, 1280)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    k /= np.linalg.norm(k, axis=-1, keepdims=True)
+    ref = jax_flash_int8(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         key_bias=jnp.asarray(kb), bound_mode="static",
+                         score_bound=jnp.float32(0.25))
+    out = fa.flash_attention_int8(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        key_bias=torch.from_numpy(kb), bound_mode="static",
+        score_bound=torch.tensor(0.25))
+    _close(out, ref)
+
+
+def test_groups_follow_the_jax_blocks():
+    """_pick_block and the key sub-block rule, at the test's lengths and at
+    the main path's 4,288 tokens (query groups of 1024; key groups of 512
+    static, 1024 running)."""
+    from hunyuanvideo_efficiency_tpu.ops.flash_attention import _pick_block
+
+    for s in (200, 1280, 4288, 34936):
+        for block in (1024, 2048):
+            assert fa.pick_block(block, s) == _pick_block(block, s)
+    assert fa.pick_block(1024, 4288) == 1024
+    assert fa.int8_key_group(fa.pick_block(2048, 4288), True) == 512
+    assert fa.int8_key_group(fa.pick_block(2048, 4288), False) == 1024
+    assert fa.int8_key_group(fa.pick_block(2048, 1280), True) == 640
+
+
+def test_wrappers_on_cpu_and_dispatch():
+    """On CPU tensors the kernels' wrappers are the plain version and count
+    no launch; attention(mode="flash_int8") maps bound_mode "static" to
+    B8a and anything else to B8b, with smoothing on."""
+    q, k, v, kb = (torch.from_numpy(a) for a in _inputs(2, 200))
+    n0 = (fa.flash_int8_static.LAUNCHES, fa.flash_int8_running.LAUNCHES)
+    c = torch.full((2, 2), 9.0)
+    kb2 = kb.reshape(2, 200)
+    torch.testing.assert_close(
+        fa.flash_int8_static(q, k, v, kb2, c, 0.125, 256, 128),
+        fa.flash_int8_plain(q, k, v, kb2, c, 0.125, False, 256, 128),
+        rtol=0, atol=0)
+    for mode, running in (("static", False), ("auto", True)):
+        got = attention(q, k, v, mode="flash_int8", key_bias=kb,
+                        bound_mode=mode)
+        want = fa.flash_attention_int8(
+            q, k, v, key_bias=kb,
+            bound_mode="running" if running else "static")
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert n0 == (fa.flash_int8_static.LAUNCHES,
+                  fa.flash_int8_running.LAUNCHES)

@@ -12,10 +12,11 @@ import torch
 from hunyuanvideo_efficiency_tpu_torch.ops import cuda_lib
 from hunyuanvideo_efficiency_tpu_torch.ops.conv3d_cuda import conv3d_stride1
 from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
-    flash_running, flash_static)
-from hunyuanvideo_efficiency_tpu_torch.ops.sta import (sta_direct,
-                                                       sta_permuted_running,
-                                                       sta_permuted_static)
+    flash_int8_running, flash_int8_static, flash_running, flash_static)
+from hunyuanvideo_efficiency_tpu_torch.ops.int8_matmul import w8a8_linear
+from hunyuanvideo_efficiency_tpu_torch.ops.sta import (
+    sta_direct, sta_direct_int8, sta_permuted_running, sta_permuted_static,
+    sta_permuted_static_int8)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "hunyuanvideo_efficiency_tpu_torch"
@@ -45,6 +46,16 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_quantized_path_modules_are_covered():
+    """The modules of the quantized serving path are among the checked
+    sources."""
+    names = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    for mod in ("ops/quantization.py", "ops/int8_matmul.py",
+                "ops/flash_attention.py", "ops/sta.py", "utils/checkpoint.py",
+                "utils/weights.py", "models/text/encoder.py"):
+        assert f"hunyuanvideo_efficiency_tpu_torch/{mod}" in names
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -68,7 +79,9 @@ def test_off_cpu_tensors_never_fall_back():
     xp = torch.empty((1, 3, 6, 6, 128), dtype=torch.float16, device="meta")
     w = torch.empty((3, 3, 3, 128, 128), dtype=torch.float16, device="meta")
     kernels = (flash_static, flash_running, conv3d_stride1, sta_direct,
-               sta_permuted_static, sta_permuted_running)
+               sta_permuted_static, sta_permuted_running, w8a8_linear,
+               flash_int8_static, flash_int8_running, sta_direct_int8,
+               sta_permuted_static_int8)
     counts = [fn.LAUNCHES for fn in kernels]
     with pytest.raises(ValueError, match="CUDA"):
         flash_static(q, q, q, None, c, 0.125)
@@ -84,6 +97,18 @@ def test_off_cpu_tensors_never_fall_back():
         sta_permuted_static(q, q, q, kb, c, *geom, 0.125)
     with pytest.raises(ValueError, match="CUDA"):
         sta_permuted_running(q, q, q, kb, *geom, 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        sta_direct_int8(q, q, q, q, q, None, c, *geom, 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        sta_permuted_static_int8(q, q, q, kb, c, *geom, 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_int8_static(q, q, q, None, c, 0.125, 64, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_int8_running(q, q, q, None, 0.125, 64, 64)
+    x = torch.empty((3, 128), dtype=torch.bfloat16, device="meta")
+    w8 = torch.empty((128, 128), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        w8a8_linear(x, w8, torch.empty(128, device="meta"))
     assert counts == [fn.LAUNCHES for fn in kernels]
 
 

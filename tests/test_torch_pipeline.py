@@ -188,11 +188,14 @@ def test_predict_rejects_bad_inputs(sampler):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (dict(use_fp8=True), "weight tiers"),
+    (dict(ring_degree=2, use_fp8=True), "sequence parallelism"),
     (dict(ulysses_degree=2), "sequence parallelism"),
-    (dict(attn_mode="sta_int8"), "attn-mode sta"),
-])
+    (dict(mesh_shape="dp:2", attn_mode="sta_int8"), "sequence parallelism"),
+], ids=["flags0-weight tiers", "flags1-sequence parallelism",
+        "flags2-attn-mode sta"])
 def test_unported_flags_rejected(flags, match):
+    """Only sequence parallelism is still rejected, with or without the
+    weight tiers and int8 attention modes that are ported now."""
     with pytest.raises(ValueError, match=match):
         InferenceArgs(**flags)
 

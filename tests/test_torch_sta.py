@@ -30,6 +30,15 @@ ARMS = {
     "static_permuted_unfused": dict(bound_mode="static", fused=False),
     "running": dict(bound_mode="auto"),
 }
+# the quant arms (sta_int8): int8 Q.K^T with tile scales; the direct arm's
+# text keys stay in the input type, the permuted arms quantize them
+INT8_ARMS = {
+    "int8_direct": dict(bound_mode="static", qk_int8=True),
+    "int8_permuted_fused": dict(bound_mode="static", qk_int8=True,
+                                direct=False),
+    "int8_permuted_unfused": dict(bound_mode="static", qk_int8=True,
+                                  fused=False),
+}
 
 
 def _inputs(grid, seed=0, b=2, h=2, d=32, lt=24, key_bias=False):
@@ -118,6 +127,29 @@ def test_sta_joint_attention_matches_jax(arm, geom, key_bias):
         _close(g, w)
 
 
+@pytest.mark.parametrize("key_bias", [False, True],
+                         ids=["no_key_bias", "key_bias"])
+@pytest.mark.parametrize("score_bound", [None, 2.0], ids=["cs", "bound"])
+@pytest.mark.parametrize("arm", list(INT8_ARMS))
+def test_sta_int8_matches_jax(arm, score_bound, key_bias):
+    """Both quant arms on the ragged grid against JAX's
+    sta_joint_attention(qk_int8=True), with the Cauchy-Schwarz bound or a
+    given one (inflated inside); the int8 codes agree exactly, so the fp32
+    tolerance of the bf16 arms holds."""
+    grid, tile, window = GEOMETRIES[0]
+    img, txt, tb, ikb = _inputs(grid, seed=7, key_bias=key_bias)
+    kw = dict(grid=grid, tile=tile, window=window, **INT8_ARMS[arm])
+    want = jsta.sta_joint_attention(
+        *_jax(*img, *txt, tb), **kw, img_key_bias=_jax(ikb)[0],
+        score_bound=None if score_bound is None else jnp.float32(score_bound))
+    got = sta.sta_joint_attention(
+        *_torch(*img, *txt, tb), **kw, img_key_bias=_torch(ikb)[0],
+        score_bound=None if score_bound is None else torch.tensor(
+            score_bound))
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
 def test_wrappers_on_cpu_are_the_plain_version():
     """On CPU tensors every wrapper returns its plain version's result and
     counts no launch; the permuted layout leaves padding rows zero."""
@@ -147,9 +179,21 @@ def test_wrappers_on_cpu_are_the_plain_version():
         running, sta.sta_attention_plain(iq, ik, iv, tk, tv, tbt, grid,
                                          tile, window, scale),
         rtol=0, atol=0)
+    torch.testing.assert_close(
+        sta.sta_direct_int8(iq, ik, iv, tk, tv, tbt, c, grid, tile, window,
+                            scale),
+        sta.sta_attention_plain(iq, ik, iv, tk, tv, tbt, grid, tile, window,
+                                scale, c, qk_int8=True), rtol=0, atol=0)
+    torch.testing.assert_close(
+        sta.sta_permuted_static_int8(qp, kcat, vcat, kb, c, grid, tile,
+                                     window, scale),
+        sta.sta_permuted_plain(qp, kcat, vcat, kb, grid, tile, window, scale,
+                               c, qk_int8=True), rtol=0, atol=0)
     assert counts == (sta.sta_direct.LAUNCHES,
                       sta.sta_permuted_static.LAUNCHES,
                       sta.sta_permuted_running.LAUNCHES)
+    assert sta.sta_direct_int8.LAUNCHES == 0
+    assert sta.sta_permuted_static_int8.LAUNCHES == 0
 
 
 def test_txt_merge_attention_matches_jax():
@@ -180,15 +224,18 @@ def test_sta_pair_count_matches_dense_mask():
     assert sta.sta_pair_count(grid, tile, window, 7) == mask.sum() + 7 * s
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(qk_int8=True, bound_mode="static"), "int8"),
-    (dict(ring=True, bound_mode="static"), "ring"),
-    (dict(lane_rotate="grouped", bound_mode="static"), "lane rotation"),
-])
-def test_unported_options_raise(kw, match):
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(qk_int8=True, bound_mode="auto"), ValueError, "int8"),
+    (dict(ring=True, bound_mode="static"), NotImplementedError, "ring"),
+    (dict(lane_rotate="grouped", bound_mode="static"), NotImplementedError,
+     "lane rotation"),
+], ids=["kw0-int8", "kw1-ring", "kw2-lane rotation"])
+def test_unported_options_raise(kw, exc, match):
+    """Options not ported raise; qk_int8 without the static bound raises
+    as in JAX."""
     grid, tile, window = GEOMETRIES[0]
     img, txt, tb, _ = _inputs(grid, seed=5)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         sta.sta_joint_attention(*_torch(*img, *txt, tb), grid=grid,
                                 tile=tile, window=window, **kw)
 
@@ -197,15 +244,19 @@ def test_sta_modes_dispatch_and_reject():
     grid, tile, window = GEOMETRIES[0]
     img, txt, tb, _ = _inputs(grid, seed=6)
     args = _torch(*img, *txt, tb)
-    with pytest.raises(NotImplementedError, match="sta_int8"):
-        joint_attention(*args, mode="sta_int8", token_grid=grid)
+    with pytest.raises(ValueError, match="static"):
+        joint_attention(*args, mode="sta_int8", token_grid=grid,
+                        sta_tile=tile, sta_window=window)
     with pytest.raises(ValueError, match="token_grid"):
         joint_attention(*args, mode="sta")
     with pytest.raises(ValueError, match="joint_attention"):
         attention(args[0], args[1], args[2], mode="sta")
-    got = joint_attention(*args, mode="sta", token_grid=grid, sta_tile=tile,
-                          sta_window=window, bound_mode="static")
-    want = sta.sta_joint_attention(*args, grid=grid, tile=tile,
-                                   window=window, bound_mode="static")
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    for mode, qk_int8 in (("sta", False), ("sta_int8", True)):
+        got = joint_attention(*args, mode=mode, token_grid=grid,
+                              sta_tile=tile, sta_window=window,
+                              bound_mode="static")
+        want = sta.sta_joint_attention(*args, grid=grid, tile=tile,
+                                       window=window, bound_mode="static",
+                                       qk_int8=qk_int8)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)

@@ -55,13 +55,13 @@ def test_sta_dit_forward_matches_jax(qk_norm, dense):
             torch.from_numpy(mask), torch.from_numpy(txt2), tc, ts)
     with torch.no_grad():
         out = model(*args)
-        plain = model(*args, sta_plain=True)
+        plain = model(*args, plain=True)
     assert out.shape == ref.shape == x.shape
     scale = np.abs(ref).max()
     assert scale > 1e-2
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-4 * scale,
                                rtol=1e-4)
-    # on the CPU the wrappers are the plain version: sta_plain is exact
+    # on the CPU the wrappers are the plain version: plain is exact
     torch.testing.assert_close(plain, out, rtol=0, atol=0)
 
 
