@@ -47,18 +47,58 @@ Phases, one line each (any failure raises and exits non-zero):
      tiles) the STA kernels vs the same forward with plain=True; then both
      quantized to int8, the kernels vs plain=True under flash_int8 (and
      sta_int8 for the QK-norm DiT), with the gap to the bf16 DiT reported.
+ 14. train path: a trainable bf16 DiT at the full width and depth of
+     HYVideo-T/2 (20 + 40 blocks, every block checkpointed), batch 1,
+     256x448x33f latents (4,032 + 256 tokens), 4 SGD steps of
+     training.make_train_step on a fixed batch: per step exactly 60 launches
+     each of K1 (a block's first forward, without grad), the forward with
+     LSE (its recomputation) and the dQ and dK/dV backward kernels; the
+     loss is finite and lower at the last step, the first block's qkv
+     gradient is non-zero; seconds per step is the median after the first;
+ 15. AdamW train path: make_train_step_adamw (fp32 master, Adam moments,
+     EMA, global-norm clip) at full width and reduced depth (4 + 8 blocks),
+     3 steps: the loss falls, the parameters are the bf16 rounding of the
+     master bit for bit, the EMA is finite and differs from the master;
+ 16. STA train path: a 2+2-block full-width DiT under attn_mode="sta" on a
+     5x16x24 patch grid, one SGD step: sta_direct in both forwards of each
+     block, gradients (autograd through sta_gathered_attention) finite and
+     non-zero;
+ 17. gradient reference: the QK-norm 2+2-block DiT's flow-match loss
+     gradients with the flash kernels (checkpointed) against the same model
+     under plain attention (attn_mode="sdpa"), relative L2 per parameter;
+ 18. train entry path: the command a user runs, `python -m
+     hunyuanvideo_efficiency_tpu_torch.train` (train.main), on a directory
+     of 256x448x33f `.pt` latents written here under the temporary
+     directory: `--optimizer sgd` at the full depth, 2 steps and a 24 GiB
+     checkpoint (60 launches of each kernel a step); then the default
+     AdamW + master + EMA loop at full width and a depth of 1 + 1 blocks
+     (`--blocks 1 1`: a checkpoint is 18 bytes a parameter), 2 steps and a
+     checkpoint, then `--resume` to step 4: per step exactly 2 launches
+     each of K1 and the three training kernels, finite losses, the
+     checkpoint's files, `module` through the sampler's loader equal to
+     the rounded `master` bit for bit, the resumed optimizer count.
+The three training kernels are checked in 3 at the shape the train path
+gives them (batch 1, 4,288 tokens, q and k contiguous, v a column view of
+the fused projection as in a single block: out and lse; dQ; dK and dV) with
+SDPA's forward and backward as their yardsticks.
 Then the total seconds, one JSON line of per-kernel numbers (launches of
 each kernel from the path that runs it: K1 and K3 from 4, K2 from 5, the
 running int8 kernel from 6, W8A8 and the static int8 kernel from 7,
 sta_direct from 9, sta_permuted_running from 10, sta_direct_int8 from 11,
-sta_permuted_static and its int8 arm from 12), the nvidia-smi line, and the
-result line. Needs CUDA; there is no CPU fallback.
+sta_permuted_static and its int8 arm from 12, the three training kernels
+from 14), the nvidia-smi line, and the result line. Needs CUDA; there is no
+CPU fallback.
 """
 import dataclasses
+import gc
 import json
 import math
+import os
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -73,6 +113,9 @@ from hunyuanvideo_efficiency_tpu_torch.ops import cuda_lib, quantization
 from hunyuanvideo_efficiency_tpu_torch.ops.conv3d import replicate_pad
 from hunyuanvideo_efficiency_tpu_torch.ops.conv3d_cuda import (
     conv3d_stride1, conv3d_stride1_plain)
+from hunyuanvideo_efficiency_tpu_torch.ops.flash_backward import (
+    flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain,
+    flash_fwd_lse, flash_fwd_lse_plain, row_delta)
 from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
     flash_attention_plain, flash_int8_plain, flash_int8_running,
     flash_int8_static, flash_running, flash_static, int8_bound_inflation,
@@ -87,6 +130,8 @@ from hunyuanvideo_efficiency_tpu_torch.ops.sta import (
     sta_direct_int8, sta_joint_attention, sta_pair_count, sta_permuted_plain,
     sta_permuted_running, sta_permuted_static, sta_permuted_static_int8,
     sta_reference_mask)
+from hunyuanvideo_efficiency_tpu_torch.training import (
+    flow_match_loss, make_train_step, make_train_step_adamw)
 
 PEAK_FLOPS = 989e12     # H100 SXM dense bf16/fp16 tensor-core rate
 PEAK_INT8 = 1979e12     # H100 SXM dense int8 tensor-core rate
@@ -104,10 +149,16 @@ INT8_STEPS = 2
 INT8_RUNNING_STEPS = 1
 FP8_STEPS = 1
 STA_INT8_STEPS = 1
+TRAIN_STEPS, TRAIN_LR = 4, 0.1
+TRAIN_LATENT = (16, 9, 32, 56)       # 256x448x33f: a 9x16x28 patch grid
+ADAMW_STEPS, ADAMW_LR, ADAMW_BLOCKS = 3, 1e-4, (4, 8)
+ENTRY_STEPS, ENTRY_BLOCKS = 2, (1, 1)
+STA_TRAIN_LATENT = (16, 5, 32, 48)   # a 5x16x24 patch grid, 2x2x3 tiles
 KERNELS = (flash_static, flash_running, conv3d_stride1, sta_direct,
            sta_permuted_static, sta_permuted_running, w8a8_linear,
            flash_int8_static, flash_int8_running, sta_direct_int8,
-           sta_permuted_static_int8)
+           sta_permuted_static_int8, flash_fwd_lse, flash_bwd_dq,
+           flash_bwd_dkv)
 SRC = "hunyuanvideo_efficiency_tpu_torch/csrc/"
 JAX = "hunyuanvideo_efficiency_tpu/ops/"
 
@@ -144,12 +195,13 @@ def errors(out, ref):
     return diff, diff / max(ref.float().abs().max().item(), 1e-30)
 
 
-def flash_inputs(dev):
-    """The main path's attention at 256x448x33: B=2, H=24, D=128, 4032 img
-    + 256 txt tokens of which 40 are valid, bf16, RMS-normalized q/k, C from
-    the DiT's analytic bound with unit RMSNorm scales."""
+def flash_inputs(dev, b=2):
+    """The main path's attention at 256x448x33: B=2 (CFG; a train step has
+    b=1), H=24, D=128, 4032 img + 256 txt tokens of which 40 are valid,
+    bf16, RMS-normalized q/k, C from the DiT's analytic bound with unit
+    RMSNorm scales."""
     g = torch.Generator(dev).manual_seed(0)
-    b, s, h, d, txt_valid = 2, 4032 + 256, 24, 128, 40
+    s, h, d, txt_valid = 4032 + 256, 24, 128, 40
     qk = []
     for _ in range(2):
         x = torch.randn(b, s, h, d, generator=g, device=dev)
@@ -252,6 +304,102 @@ def check_flash_int8(dev, smi, lib_ms):
         rows.append(dict(
             name=name, route="cuda", source=SRC + "flash_int8.cu",
             replaces=f"{JAX}flash_attention.py:{line}", max_abs_err=abs_err,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+            library_ms=lib_ms))
+    return rows
+
+
+def check_flash_backward(dev, smi):
+    """B5f, B5q and B5kv at the shape the train path gives them: batch 1,
+    the tokens of flash_inputs, q and k contiguous (the outputs of QK-norm
+    and RoPE), v a column view of a fused [1, S, 3*H*D] projection (what a
+    single block passes; 40 of the 60 blocks), a random dO. Each against its
+    plain version: out and dQ/dK/dV max relative error 2e-2 (bf16 outputs),
+    lse max abs error 2e-3 (fp32, sums in another order); dK and dV of the
+    masked text keys exactly zero; two runs equal bit for bit. The backward
+    kernels and their plain versions read the same lse and delta (the plain
+    forward's). Yardsticks: SDPA's forward for B5f and SDPA's backward
+    through autograd, which computes dQ, dK and dV in one pass, for B5q and
+    B5kv alike. Bounds: 2, 3 and 4 products of 2*B*H*Sq*Sk_valid*D
+    operations against each tensor once."""
+    q, k, v, kb, _, flops, _ = flash_inputs(dev, b=1)
+    b, s, h, d = q.shape
+    fused = torch.zeros(b, s, 3, h, d, dtype=v.dtype, device=dev)
+    fused[:, :, 2] = v
+    v = fused[:, :, 2]
+    assert q.is_contiguous() and not v.is_contiguous()
+    scale = d ** -0.5
+    g = torch.Generator(dev).manual_seed(3)
+    do = torch.randn(b, s, h * d, generator=g, device=dev).bfloat16()
+    ref_out, ref_lse = flash_fwd_lse_plain(q, k, v, kb, scale)
+    delta = row_delta(do, ref_out, h)
+    args = (q, k, v, kb, do, ref_lse, delta, scale)
+    masked = kb[0] < 0
+    tensor = q.numel() * 2
+    stats = (ref_lse.numel() + kb.numel()) * 4
+
+    mask = (kb == 0)[:, None, None, :]
+    with torch.enable_grad():
+        leaves = [x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v)]
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, attn_mask=mask)
+    fwd_lib_ms = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            *(x.detach() for x in leaves), attn_mask=mask), 10)
+    dot = do.reshape(b, s, h, d).transpose(1, 2)
+    bwd_lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, leaves, dot, retain_graph=True), 10)
+    del lib_out, leaves
+
+    def run_fwd():
+        return flash_fwd_lse(q, k, v, kb, scale)
+
+    def run_dkv():
+        return flash_bwd_dkv(*args)
+
+    cases = (
+        ("flash_fwd_lse", "flash_attention.cu", 40, run_fwd,
+         lambda: flash_fwd_lse_plain(q, k, v, kb, scale), flops,
+         4 * tensor + stats, fwd_lib_ms),
+        ("flash_bwd_dq", "flash_backward.cu", 138,
+         lambda: (flash_bwd_dq(*args),),
+         lambda: (flash_bwd_dq_plain(*args),), 1.5 * flops,
+         5 * tensor + 2 * stats, bwd_lib_ms),
+        ("flash_bwd_dkv", "flash_backward.cu", 165, run_dkv,
+         lambda: flash_bwd_dkv_plain(*args), 2 * flops,
+         6 * tensor + 2 * stats, bwd_lib_ms))
+    rows = []
+    for name, source, line, fn, plain, ops, nbytes, lib_ms in cases:
+        out, again, ref = fn(), fn(), plain()
+        torch.cuda.synchronize()
+        worst = 0.0
+        for i, (o, o2, r) in enumerate(zip(out, again, ref)):
+            abs_err, rel_err = errors(o, r)
+            is_lse = name == "flash_fwd_lse" and i == 1
+            if (abs_err > 2e-3) if is_lse else (rel_err > 2e-2):
+                raise AssertionError(f"{name} output {i}: max abs error "
+                                     f"{abs_err}, rel {rel_err}")
+            if not torch.equal(o, o2):
+                raise AssertionError(f"{name} output {i}: two runs differ")
+            if name == "flash_bwd_dkv" and (
+                    torch.count_nonzero(o[:, masked]).item()
+                    or not torch.count_nonzero(o[:, ~masked]).item()):
+                raise AssertionError(f"{name} output {i}: masked keys must "
+                                     f"get exactly zero, the others not")
+            worst = max(worst, abs_err)
+        del out, again, ref
+        ms = cuda_ms(fn, 10)
+        plain_ms = cuda_ms(plain, 2)
+        bound_ms, by = bound(ops, nbytes)
+        phase("kernel", name=name, shape=f"[{b},{s},{h},{d}]bf16",
+              v="column view of fused qkv", max_abs_err=worst,
+              tol="rel 2e-2 (bf16), lse abs 2e-3", kernel_ms=ms,
+              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+              tflops=ops / ms / 1e9, card=smi)
+        rows.append(dict(
+            name=name, route="cuda", source=SRC + source,
+            replaces=f"{JAX}flash_backward.py:{line}", max_abs_err=worst,
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
             library_ms=lib_ms))
     return rows
@@ -1023,6 +1171,344 @@ def int8_reference_check(dev, models):
                 attn: 4, "w8a8_linear": block_linear_calls(model)})
 
 
+def train_batch(dev, cfg, latent, seed, txt_len=256, txt_valid=40):
+    """One fixed training batch: a [1, *latent] clean latent and noise,
+    t = 0.5, `txt_len` text tokens of which `txt_valid` are valid, the
+    pooled text vector and the grid RoPE tables; also the patch grid."""
+    g = torch.Generator(dev).manual_seed(seed)
+    x0 = torch.randn(1, *latent, generator=g, device=dev)
+    noise = torch.randn(1, *latent, generator=g, device=dev)
+    t = torch.full((1,), 0.5, device=dev)
+    pe = torch.randn(1, txt_len, cfg.text_states_dim, generator=g,
+                     device=dev)
+    mask = torch.ones(1, txt_len, dtype=torch.long, device=dev)
+    mask[:, txt_valid:] = 0
+    pe2 = torch.randn(1, cfg.text_states_dim_2, generator=g, device=dev)
+    grid = (latent[1] // cfg.patch_size[0], latent[2] // cfg.patch_size[1],
+            latent[3] // cfg.patch_size[2])
+    cos, sin = get_nd_rotary_pos_embed(cfg.rope_dim_list, grid,
+                                       theta=cfg.rope_theta, device=dev)
+    return (x0, noise, t, pe, mask, pe2, cos.reshape(*grid, -1),
+            sin.reshape(*grid, -1)), grid
+
+
+def train_setup(dev, latent, seed, **cfg):
+    """A trainable bf16 DiT at the full width of HYVideo-T/2 (cfg overrides
+    cut the depth or set attn_mode), its zero-initialized adaLN and final
+    layers randomized, and one fixed batch of `train_batch`."""
+    cfg = dataclasses.replace(DiTConfig(), **cfg)
+    model = dit_mod.build_dit(cfg, dev, torch.bfloat16,
+                              torch.Generator(dev).manual_seed(seed),
+                              trainable=True)
+    randomize_modulation(model, seed + 1)
+    batch, grid = train_batch(dev, cfg, latent, seed + 2)
+    return model, batch, grid
+
+
+def watch_grads(params):
+    """Hooks that record each watched parameter's gradient norm and
+    finiteness as it is computed (the train steps free the gradients).
+    Returns ({name: [norm, ...]}, remove)."""
+    seen, handles = {}, []
+    for name, p in params.items():
+        def hook(grad, name=name):
+            seen.setdefault(name, []).append(grad.float().norm().item())
+        handles.append(p.register_hook(hook))
+    return seen, lambda: [h.remove() for h in handles]
+
+
+def train_path(dev, smi):
+    """SGD steps of make_train_step at full width and depth on a fixed
+    batch; launch counts per step, loss, the first block's qkv gradient,
+    peak memory and seconds per step."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model, batch, grid = train_setup(dev, TRAIN_LATENT, 20)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    n_blocks = len(model.double_blocks) + len(model.single_blocks)
+    step = make_train_step(model, lr=TRAIN_LR)
+    qkv = "double_blocks.0.img_attn_qkv.weight"
+    seen, remove = watch_grads({qkv: model.get_parameter(qkv)})
+    reset_counts()
+    losses, secs, per_step, before = [], [], [], read_counts()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.time()
+        losses.append(step(*batch).item())
+        torch.cuda.synchronize()
+        secs.append(time.time() - t0)
+        now = read_counts()
+        per_step.append({k: now[k] - before[k] for k in now if now[k]})
+        before = now
+    remove()
+    launches = read_counts()
+    phase("train_path", blocks=f"{len(model.double_blocks)}+"
+          f"{len(model.single_blocks)}", remat=True, dtype="bf16",
+          dit_params=sum(p.numel() for p in model.parameters()),
+          tokens=f"{grid[0] * grid[1] * grid[2]}+256", optimizer="sgd",
+          lr=TRAIN_LR, losses=json.dumps(losses),
+          qkv_grad_norm=json.dumps(seen[qkv]),
+          build_s=build_s, first_step_s=secs[0],
+          s_per_step=statistics.median(secs[1:]),
+          step_seconds=json.dumps(secs),
+          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30,
+          per_step=json.dumps(per_step), card=smi)
+    want = dict(flash_static=n_blocks, flash_fwd_lse=n_blocks,
+                flash_bwd_dq=n_blocks, flash_bwd_dkv=n_blocks)
+    for got in per_step:
+        if got != want:
+            raise AssertionError(f"train step launches {got}, expected "
+                                 f"{want}")
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[1] < losses[0]:
+        raise AssertionError(f"train losses {losses}: not finite or not "
+                             f"lower at step 2")
+    if len(seen[qkv]) != TRAIN_STEPS or not all(
+            math.isfinite(n) and n > 0 for n in seen[qkv]):
+        raise AssertionError(f"first block's qkv gradient norms {seen[qkv]}")
+    return launches
+
+
+def train_adamw_path(dev, smi):
+    """make_train_step_adamw at full width and reduced depth: the master,
+    Adam moments and EMA cost about 20 bytes a parameter."""
+    torch.cuda.reset_peak_memory_stats()
+    blocks = ADAMW_BLOCKS
+    model, batch, _ = train_setup(dev, TRAIN_LATENT, 30,
+                                  mm_double_blocks_depth=blocks[0],
+                                  mm_single_blocks_depth=blocks[1])
+    step, init_fn = make_train_step_adamw(model, lr=ADAMW_LR,
+                                          weight_decay=1e-4, grad_clip=1.0,
+                                          ema_decay=0.99)
+    state = init_fn()
+    reset_counts()
+    losses, secs = [], []
+    for _ in range(ADAMW_STEPS):
+        t0 = time.time()
+        state, loss = step(state, *batch)
+        losses.append(loss.item())
+        secs.append(time.time() - t0)
+    rounded = all(torch.equal(p.detach(), state["master"][n].bfloat16())
+                  for n, p in model.named_parameters())
+    ema_gap = max((state["ema"][n] - m).abs().max().item()
+                  for n, m in state["master"].items())
+    ema_finite = all(bool(torch.isfinite(e).all())
+                     for e in state["ema"].values())
+    launches = {k: n for k, n in read_counts().items() if n}
+    phase("train_adamw_path", blocks=f"{blocks[0]}+{blocks[1]}",
+          dit_params=sum(p.numel() for p in model.parameters()),
+          optimizer="adamw + clip 1.0 + ema 0.99, fp32 master", lr=ADAMW_LR,
+          losses=json.dumps(losses), step=state["step"],
+          params_are_rounded_master=rounded, ema_master_max_gap=ema_gap,
+          ema_finite=ema_finite, s_per_step=statistics.median(secs[1:]),
+          step_seconds=json.dumps(secs),
+          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30,
+          launches=json.dumps(launches), card=smi)
+    n = (blocks[0] + blocks[1]) * ADAMW_STEPS
+    expect("AdamW train path", read_counts(), dict(
+        flash_static=n, flash_fwd_lse=n, flash_bwd_dq=n, flash_bwd_dkv=n))
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"AdamW losses {losses}: not finite or not "
+                             f"falling")
+    if not rounded or not ema_finite or not ema_gap > 0 \
+            or state["step"] != ADAMW_STEPS:
+        raise AssertionError("AdamW state: parameters are not the rounded "
+                             "master, or the EMA is not a finite trailing "
+                             "average, or the step count is off")
+
+
+def train_sta_path(dev, smi):
+    """One SGD step of a 2+2-block full-width DiT under attn_mode="sta":
+    sta_direct in the no-grad forward and in the recomputation of every
+    block (K1 twice per forward for the text queries), the backward through
+    sta_gathered_attention."""
+    model, batch, grid = train_setup(dev, STA_TRAIN_LATENT, 40,
+                                     attn_mode="sta",
+                                     mm_double_blocks_depth=2,
+                                     mm_single_blocks_depth=2)
+    step = make_train_step(model, lr=TRAIN_LR)
+    seen, remove = watch_grads(dict(model.named_parameters()))
+    reset_counts()
+    loss = step(*batch).item()
+    torch.cuda.synchronize()
+    remove()
+    launches = {k: n for k, n in read_counts().items() if n}
+    norms = [n for ns in seen.values() for n in ns]
+    block_names = [n for n in seen if "_blocks." in n]
+    phase("train_sta_path", blocks="2+2", grid=json.dumps(grid),
+          tile=json.dumps(STA_TILE), loss=loss, params_with_grad=len(seen),
+          min_block_grad_norm=min(min(seen[n]) for n in block_names),
+          max_grad_norm=max(norms), launches=json.dumps(launches), card=smi)
+    expect("STA train path", read_counts(), dict(
+        sta_direct=8, flash_static=16, flash_fwd_lse=0, flash_bwd_dq=0))
+    n_params = sum(1 for _ in model.parameters())
+    if not math.isfinite(loss) or len(seen) != n_params \
+            or not all(math.isfinite(n) for n in norms) \
+            or not all(min(seen[n]) > 0 for n in block_names):
+        raise AssertionError(f"STA train step: loss {loss}, {len(seen)} of "
+                             f"{n_params} parameters got a gradient, norms "
+                             f"finite and non-zero in the blocks?")
+
+
+def train_entry_path(smi):
+    """The `train` entry as a user calls it (train.main: the dataset
+    loader, the CPU generator's draws, the optimizer, the checkpoint writer
+    and --resume), on the card at full width, twice: with `--optimizer sgd`
+    at the full depth (ENTRY_STEPS steps and a checkpoint), and with the
+    default AdamW + master + EMA at ENTRY_BLOCKS depth (ENTRY_STEPS steps
+    and a checkpoint, then a resumed run to twice that)."""
+    from hunyuanvideo_efficiency_tpu_torch import train as train_cli
+    from hunyuanvideo_efficiency_tpu_torch.data.dataset_loader import (
+        save_tensor)
+    from hunyuanvideo_efficiency_tpu_torch.utils.checkpoint import (
+        load_torch_state_dict)
+    from hunyuanvideo_efficiency_tpu_torch.utils.train_io import load_tree
+
+    names = ("flash_static", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
+    root = tempfile.mkdtemp(prefix="hv_train_entry_")
+    try:
+        data = os.path.join(root, "latents")
+        os.makedirs(data)
+        g = torch.Generator().manual_seed(60)
+        for i in range(2):
+            save_tensor(os.path.join(data, f"clip{i}.pt"),
+                        torch.randn(*TRAIN_LATENT, generator=g))
+
+        # the full depth on one card: bf16 weights and gradients only
+        torch.cuda.reset_peak_memory_stats()
+        out = os.path.join(root, "run_sgd")
+        reset_counts()
+        t0 = time.time()
+        losses = train_cli.main([
+            "--data-dir", data, "--latents", "--output-dir", out,
+            "--optimizer", "sgd", "--lr", "1e-2", "--seed", "61", "--steps",
+            str(ENTRY_STEPS)])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        ck = os.path.join(out, f"step_{ENTRY_STEPS:07d}")
+        files = sorted(os.listdir(ck))
+        module_gb = os.path.getsize(os.path.join(ck, "module")) / 2**30
+        shutil.rmtree(out)
+        want = {name: 60 * ENTRY_STEPS for name in names}
+        phase("train_entry_path",
+              entry="hunyuanvideo_efficiency_tpu_torch.train",
+              blocks="20+40", optimizer="sgd", losses=json.dumps(losses),
+              run_seconds=seconds, files=json.dumps(files),
+              module_gb=module_gb, max_memory_allocated_gb=(
+                  torch.cuda.max_memory_allocated() / 2**30),
+              launches=json.dumps(want), card=smi)
+        expect("train entry, sgd at full depth", read_counts(), want)
+        if len(losses) != ENTRY_STEPS \
+                or not all(math.isfinite(x) for x in losses) \
+                or files != ["meta.json", "module"] or module_gb < 23.8:
+            raise AssertionError(f"train entry, sgd: losses {losses}, "
+                                 f"files {files}, module {module_gb} GiB")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        want = {name: sum(ENTRY_BLOCKS) * ENTRY_STEPS for name in names}
+        out = os.path.join(root, "run")
+        common = ["--data-dir", data, "--latents", "--output-dir", out,
+                  "--blocks", *map(str, ENTRY_BLOCKS), "--lr", "1e-4",
+                  "--ema-decay", "0.99", "--seed", "61"]
+        runs = []
+        for steps, extra in (
+                (ENTRY_STEPS, []),
+                (2 * ENTRY_STEPS, ["--resume", os.path.join(
+                    out, f"step_{ENTRY_STEPS:07d}")])):
+            reset_counts()
+            t0 = time.time()
+            losses = train_cli.main(common + ["--steps", str(steps)] + extra)
+            torch.cuda.synchronize()
+            runs.append(dict(losses=losses, seconds=time.time() - t0))
+            expect(f"train entry to step {steps}", read_counts(), want)
+            if len(losses) != ENTRY_STEPS \
+                    or not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"train entry losses {losses}")
+        ck = os.path.join(out, f"step_{2 * ENTRY_STEPS:07d}")
+        files = {}
+        for sub in (f"step_{ENTRY_STEPS:07d}", f"step_{2 * ENTRY_STEPS:07d}"):
+            for name in ("module", "ema", "opt_state", "master", "meta.json"):
+                files[f"{sub}/{name}"] = os.path.getsize(
+                    os.path.join(out, sub, name))
+        with open(os.path.join(ck, "meta.json")) as f:
+            meta = json.load(f)
+        module = load_torch_state_dict(os.path.join(ck, "module"), "module")
+        master = load_tree(os.path.join(ck, "master"))
+        count = load_tree(os.path.join(ck, "opt_state"))["count"]
+        rounded = set(module) == set(master) and all(
+            module[n].dtype == torch.bfloat16
+            and torch.equal(module[n], master[n].bfloat16()) for n in module)
+        moved = sum(1 for n, e in load_tree(os.path.join(ck, "ema")).items()
+                    if not torch.equal(e, master[n]))
+    finally:
+        shutil.rmtree(root)
+    phase("train_entry_path", entry="hunyuanvideo_efficiency_tpu_torch.train",
+          blocks=f"{ENTRY_BLOCKS[0]}+{ENTRY_BLOCKS[1]}", optimizer="adamw",
+          dit_params=sum(t.numel() for t in module.values()),
+          losses=json.dumps([r["losses"] for r in runs]),
+          run_seconds=json.dumps([r["seconds"] for r in runs]),
+          checkpoint_gb=sum(files.values()) / 2 / 2**30, meta=json.dumps(meta),
+          opt_count=count, module_is_rounded_master=rounded,
+          ema_tensors_moved=moved,
+          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30,
+          launches_per_run=json.dumps(want), card=smi)
+    if meta["step"] != 2 * ENTRY_STEPS or count != 2 * ENTRY_STEPS \
+            or not rounded or not moved:
+        raise AssertionError("train entry: the resumed checkpoint's step, "
+                             "optimizer count, rounded master or EMA is off")
+
+
+def grad_reference_check(dev, model, tol=5e-2):
+    """Flow-match loss gradients of the QK-norm 2+2-block DiT with the
+    flash kernels (blocks checkpointed: K1, then B5f, B5q, B5kv) against the
+    same weights under plain attention (attn_mode="sdpa", torch autograd),
+    relative L2 per parameter."""
+    cfg = model.cfg
+    batch, grid = train_batch(dev, cfg, (16, 5, 32, 32), 50, txt_len=64,
+                              txt_valid=20)
+    x0, noise, t, pe, mask, pe2, cos_g, sin_g = batch
+    d = cos_g.shape[-1]
+    tokens = [dit_mod.patchify_raw(x, cfg.patch_size) for x in (x0, noise)]
+    model.requires_grad_(True)
+    grads, losses = {}, {}
+    for mode, remat in (("flash", True), ("sdpa", False)):
+        set_attn_mode(model, mode)
+        for m in model.modules():
+            if isinstance(getattr(m, "cfg", None), DiTConfig):
+                m.cfg = dataclasses.replace(m.cfg, remat_blocks=remat)
+        reset_counts()
+        with torch.enable_grad():
+            loss = flow_match_loss(model, *tokens, t, pe, mask, pe2,
+                                   cos_g.reshape(-1, d), sin_g.reshape(-1, d),
+                                   None)
+            loss.backward()
+        if mode == "flash":
+            launches = read_counts()
+        losses[mode] = loss.item()
+        grads[mode] = {n: p.grad.float() for n, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+    model.requires_grad_(False)
+    rel = {n: ((grads["flash"][n] - g).norm() / g.norm()).item()
+           for n, g in grads["sdpa"].items() if g.norm().item() > 0}
+    worst = max(rel, key=rel.get)
+    phase("grad_reference", model="HYVideo-T/2 2+2 blocks",
+          check="flash kernels (checkpointed) vs plain attention",
+          tokens=f"{grid[0] * grid[1] * grid[2]}+64",
+          params_compared=len(rel), max_rel_l2=rel[worst], worst=worst,
+          tol=tol, loss_flash=losses["flash"], loss_plain=losses["sdpa"],
+          launches=json.dumps({k: n for k, n in launches.items() if n}))
+    expect("gradient reference", launches, dict(
+        flash_static=4, flash_fwd_lse=4, flash_bwd_dq=4, flash_bwd_dkv=4))
+    if len(rel) < 0.9 * len(grads["sdpa"]) or not rel[worst] <= tol:
+        raise AssertionError(f"gradients with the flash kernels disagree "
+                             f"with plain attention: {worst} rel L2 "
+                             f"{rel[worst]} ({len(rel)} compared)")
+
+
 @torch.no_grad()
 def main():
     t_start = time.time()
@@ -1047,6 +1533,7 @@ def main():
           libraries=len(cuda_lib.SIGNATURES))
 
     rows = check_flash(dev, smi)
+    rows += check_flash_backward(dev, smi)
     rows += check_flash_int8(dev, smi, rows[0]["library_ms"])
     rows += check_w8a8(dev, smi) + check_conv(dev, smi)
     sta_rows = check_sta(dev, smi)
@@ -1087,6 +1574,22 @@ def main():
     reference_check(dev, models)
     sta_reference_check(dev, models)
     int8_reference_check(dev, models)
+    del models, k2_model
+    k1_model = dit_mod.build_dit(k1_model.cfg, dev, torch.bfloat16,
+                                 torch.Generator(dev).manual_seed(5))
+    randomize_modulation(k1_model, 6)
+    grad_reference_check(dev, k1_model)
+    del k1_model
+    torch.cuda.empty_cache()
+    train_launches = train_path(dev, smi)
+    for name in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"):
+        launches[name] = train_launches[name]
+    torch.cuda.empty_cache()
+    train_adamw_path(dev, smi)
+    torch.cuda.empty_cache()
+    train_sta_path(dev, smi)
+    torch.cuda.empty_cache()
+    train_entry_path(smi)
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

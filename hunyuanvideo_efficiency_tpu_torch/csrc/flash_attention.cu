@@ -1,14 +1,19 @@
 // Flash attention forward over the MM-DiT joint [img | txt] sequence.
 //
-// Replaces two Pallas TPU kernels of the JAX package, as one source with a
-// template flag:
+// Replaces three Pallas TPU kernels of the JAX package, as one source with
+// template flags:
 //   RUNNING = false: ops/flash_attention.py:_flash_nomax_kernel, the softmax
 //     with a static per-(batch, head) exponent offset C (no running max):
 //       p = exp(s*scale + (kb - C)),  l += sum(p),  acc += p.V
 //   RUNNING = true:  ops/flash_attention.py:_flash_kernel, the classic
 //     online softmax with a running row max m and rescale exp(m_old - m_new).
-// Both finish with out = acc / max(l, 1e-37) and can write the partial-
-// softmax state (m, l) as [B, Sq, H] fp32 (m = C for the static kernel).
+//   RUNNING = true, LSE = true: ops/flash_backward.py:_fwd_kernel, the
+//     training forward: the running-max kernel that also writes the row
+//     log-sum-exp lse = m + log(max(l, 1e-37)) as [B, H, Sq] fp32, from which
+//     the backward kernels (flash_backward.cu) recompute the probabilities.
+// All finish with out = acc / max(l, 1e-37); without LSE they can write the
+// partial-softmax state (m, l) as [B, Sq, H] fp32 (m = C for the static
+// kernel).
 //
 // Layout: q/k/v are [B, S, H*D] with each head a column slice (row strides
 // are arguments), the key bias kb is [B, Sk] fp32 with entries <= 0, C is
@@ -37,15 +42,16 @@ using hv::BQ;
 using hv::NEG_INF;
 using hv::THREADS;
 
-template <typename T, int D, bool RUNNING>
+template <typename T, int D, bool RUNNING, bool LSE>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  const float* __restrict__ kb, const float* __restrict__ cb,
                  float* __restrict__ m_out, float* __restrict__ l_out,
-                 int H, int Sq, int Sk, long long q_bs, long long q_rs,
-                 long long k_bs, long long k_rs, long long v_bs,
-                 long long v_rs, float scale) {
+                 float* __restrict__ lse_out, int H, int Sq, int Sk,
+                 long long q_bs, long long q_rs, long long k_bs,
+                 long long k_rs, long long v_bs, long long v_rs,
+                 float scale) {
   constexpr int DP = D + 8;   // padded rows: conflict-free fragment loads
   constexpr int CH = D / 8;   // 16-byte chunks per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -121,7 +127,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       *reinterpret_cast<uint32_t*>(oh + r * o_rs + dn * 8 + 2 * t) =
           hv::pack2(acc[dn][2 * i] / denom, acc[dn][2 * i + 1] / denom,
                     T());
-    if (m_out != nullptr && t == 0) {
+    if (LSE) {
+      if (t == 0)
+        lse_out[((long long)b * H + h) * Sq + r] = m_r[i] + logf(denom);
+    } else if (m_out != nullptr && t == 0) {
       const long long idx = ((long long)b * Sq + r) * H + h;
       m_out[idx] = RUNNING ? m_r[i] : c_off;
       l_out[idx] = l_r[i];
@@ -129,14 +138,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, bool RUNNING>
+template <typename T, int D, bool RUNNING, bool LSE>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const float* kb, const float* c, float* m_out,
-                   float* l_out, int B, int H, int Sq, int Sk,
+                   float* l_out, float* lse_out, int B, int H, int Sq, int Sk,
                    long long q_bs, long long q_rs, long long k_bs,
                    long long k_rs, long long v_bs, long long v_rs,
                    float scale, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, D, RUNNING>;
+  auto kern = flash_fwd_kernel<T, D, RUNNING, LSE>;
   const int smem = hv::tile_smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -144,26 +153,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), kb, c, m_out, l_out, H,
-      Sq, Sk, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), kb, c, m_out, l_out,
+      lse_out, H, Sq, Sk, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale);
   return cudaGetLastError();
 }
 
-template <typename T, bool RUNNING>
+template <typename T, bool RUNNING, bool LSE = false>
 cudaError_t dispatch_d(int head_dim, const void* q, const void* k,
                        const void* v, void* o, const float* kb,
-                       const float* c, float* m_out, float* l_out, int B,
-                       int H, int Sq, int Sk, long long q_bs, long long q_rs,
-                       long long k_bs, long long k_rs, long long v_bs,
-                       long long v_rs, float scale, cudaStream_t stream) {
+                       const float* c, float* m_out, float* l_out,
+                       float* lse_out, int B, int H, int Sq, int Sk,
+                       long long q_bs, long long q_rs, long long k_bs,
+                       long long k_rs, long long v_bs, long long v_rs,
+                       float scale, cudaStream_t stream) {
   if (head_dim == 128)
-    return launch<T, 128, RUNNING>(q, k, v, o, kb, c, m_out, l_out, B, H, Sq,
-                                   Sk, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
-                                   scale, stream);
+    return launch<T, 128, RUNNING, LSE>(q, k, v, o, kb, c, m_out, l_out,
+                                        lse_out, B, H, Sq, Sk, q_bs, q_rs,
+                                        k_bs, k_rs, v_bs, v_rs, scale,
+                                        stream);
   if (head_dim == 64)
-    return launch<T, 64, RUNNING>(q, k, v, o, kb, c, m_out, l_out, B, H, Sq,
-                                  Sk, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
-                                  scale, stream);
+    return launch<T, 64, RUNNING, LSE>(q, k, v, o, kb, c, m_out, l_out,
+                                       lse_out, B, H, Sq, Sk, q_bs, q_rs,
+                                       k_bs, k_rs, v_bs, v_rs, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -180,22 +191,40 @@ extern "C" int hv_flash_attention_fwd(
     long long v_rs, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && running == 0)
-    return dispatch_d<__nv_bfloat16, false>(head_dim, q, k, v, o, kb, c,
-                                            m_out, l_out, B, H, Sq, Sk, q_bs,
-                                            q_rs, k_bs, k_rs, v_bs, v_rs,
-                                            scale, st);
+    return dispatch_d<__nv_bfloat16, false>(
+        head_dim, q, k, v, o, kb, c, m_out, l_out, nullptr, B, H, Sq, Sk,
+        q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale, st);
   if (dtype == 0 && running == 1)
-    return dispatch_d<__nv_bfloat16, true>(head_dim, q, k, v, o, kb, c,
-                                           m_out, l_out, B, H, Sq, Sk, q_bs,
-                                           q_rs, k_bs, k_rs, v_bs, v_rs,
-                                           scale, st);
+    return dispatch_d<__nv_bfloat16, true>(
+        head_dim, q, k, v, o, kb, c, m_out, l_out, nullptr, B, H, Sq, Sk,
+        q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale, st);
   if (dtype == 1 && running == 0)
-    return dispatch_d<__half, false>(head_dim, q, k, v, o, kb, c, m_out,
-                                     l_out, B, H, Sq, Sk, q_bs, q_rs, k_bs,
-                                     k_rs, v_bs, v_rs, scale, st);
+    return dispatch_d<__half, false>(
+        head_dim, q, k, v, o, kb, c, m_out, l_out, nullptr, B, H, Sq, Sk,
+        q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale, st);
   if (dtype == 1 && running == 1)
-    return dispatch_d<__half, true>(head_dim, q, k, v, o, kb, c, m_out,
-                                    l_out, B, H, Sq, Sk, q_bs, q_rs, k_bs,
-                                    k_rs, v_bs, v_rs, scale, st);
+    return dispatch_d<__half, true>(
+        head_dim, q, k, v, o, kb, c, m_out, l_out, nullptr, B, H, Sq, Sk,
+        q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale, st);
+  return cudaErrorInvalidValue;
+}
+
+// The training forward (running max, writes lse [B, H, Sq] fp32). dtype and
+// head_dim as above; kb may be null. Returns the cudaError_t of the launch.
+extern "C" int hv_flash_fwd_lse(int dtype, int head_dim, const void* q,
+                                const void* k, const void* v, void* o,
+                                const float* kb, float* lse, int B, int H,
+                                int Sq, int Sk, long long q_bs, long long q_rs,
+                                long long k_bs, long long k_rs, long long v_bs,
+                                long long v_rs, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_d<__nv_bfloat16, true, true>(
+        head_dim, q, k, v, o, kb, nullptr, nullptr, nullptr, lse, B, H, Sq,
+        Sk, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale, st);
+  if (dtype == 1)
+    return dispatch_d<__half, true, true>(
+        head_dim, q, k, v, o, kb, nullptr, nullptr, nullptr, lse, B, H, Sq,
+        Sk, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale, st);
   return cudaErrorInvalidValue;
 }

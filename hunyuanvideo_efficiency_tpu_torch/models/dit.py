@@ -21,6 +21,13 @@ stays image-only, both block types split q/k/v into image and text parts
 (JAX models/dit.py:1003-1024). attn_mode="flash_int8" runs int8 Q.K^T flash
 attention (ops/flash_attention.py:flash_attention_int8).
 
+Training: `forward_tokens` is the JAX `dit_forward_tokens` (raw patch tokens
+in, output patch tokens out), `build_dit(trainable=True)` leaves the
+parameters differentiable, and `cfg.remat_blocks` checkpoints every block
+(torch.utils.checkpoint, the reentrant form: a block's first forward runs
+without grad, i.e. through the LSE-free attention kernels, and is run again
+with grad inside the backward pass).
+
 Block linears may hold a weight tier (ops/quantization.py: fp8, int8, int4
 modulation); every block linear goes through `quantization.linear`, so the
 single block's column and row slices work for each tier, and under int8 the
@@ -36,6 +43,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import (attention, joint_attention, joint_key_bias,
                              sdpa_attention, text_key_bias)
@@ -242,9 +250,10 @@ def _analytic_score_bound(cfg: DiTConfig, d: int, norm_pairs):
             bound = bound + norm.bias.float().square().sum().sqrt()
         return bound
 
-    qb = torch.stack([row_bound(nq) for nq, _ in norm_pairs]).max()
-    kb = torch.stack([row_bound(nk) for _, nk in norm_pairs]).max()
-    return torch.clamp(qb * kb * (d ** -0.5) * 1.02, max=60.0)
+    with torch.no_grad():   # the bound only shifts an exponent offset
+        qb = torch.stack([row_bound(nq) for nq, _ in norm_pairs]).max()
+        kb = torch.stack([row_bound(nk) for _, nk in norm_pairs]).max()
+        return torch.clamp(qb * kb * (d ** -0.5) * 1.02, max=60.0)
 
 
 def _bound_mode(cfg: DiTConfig) -> str:
@@ -488,9 +497,24 @@ class HYVideoDiT(nn.Module):
         versions instead of the kernels (a reference for checks on the
         card; no inference path sets it)."""
         cfg = self.cfg
-        b, _, ot, oh, ow = x.shape
+        _, _, ot, oh, ow = x.shape
         pt, ph, pw = cfg.patch_size
         tt, th, tw = ot // pt, oh // ph, ow // pw
+        out = self.forward_tokens(
+            patchify_raw(x, cfg.patch_size), t, text_states, text_mask,
+            text_states_2, freqs_cos, freqs_sin, guidance,
+            token_grid=(tt, th, tw), plain=plain)
+        return unpatchify(out, tt, th, tw, cfg.out_channels, cfg.patch_size)
+
+    def forward_tokens(self, x_tokens, t, text_states, text_mask,
+                       text_states_2, freqs_cos, freqs_sin, guidance=None,
+                       token_grid=None, plain: bool = False):
+        """Token-form forward (JAX `dit_forward_tokens`): raw patch tokens
+        [B, L, C*pt*ph*pw] in, output patch tokens [B, L, pt*ph*pw*out_c]
+        out; the other arguments as `forward`. token_grid is the (T', H',
+        W') patch grid, needed under attn_mode "sta". With
+        cfg.remat_blocks and grad mode on, every block is checkpointed."""
+        cfg = self.cfg
         dtype = self.img_in.proj.weight.dtype
 
         vec = self.time_in(t) + self.vector_in(text_states_2.to(dtype))
@@ -499,7 +523,7 @@ class HYVideoDiT(nn.Module):
                 raise ValueError("guidance required for guidance-distilled "
                                  "model")
             vec = vec + self.guidance_in(guidance)
-        img = self.img_in(patchify_raw(x, cfg.patch_size))
+        img = self.img_in(x_tokens)
         img_len = img.shape[1]
         text_states = text_states.to(dtype)
         if cfg.text_projection == "linear":
@@ -520,20 +544,32 @@ class HYVideoDiT(nn.Module):
             fd = freqs_cos.shape[-1]
             freqs = (torch.cat([freqs_cos, freqs_cos.new_ones(txt_len, fd)]),
                      torch.cat([freqs_sin, freqs_sin.new_zeros(txt_len, fd)]))
-        grid = (tt, th, tw)
+        remat = cfg.remat_blocks and torch.is_grad_enabled()
 
-        def mode(i, n_dense):
-            return "auto" if sta and i < n_dense else None
+        def run(blk, n_dense, i, *xs):
+            mode = "auto" if sta and i < n_dense else None
+
+            # every differentiable input (the streams and vec) is an
+            # argument: the reentrant checkpoint returns gradients only for
+            # its tensor arguments
+            def fn(v, *ys):
+                if len(ys) == 2:
+                    return blk(*ys, v, txt_bias, freqs, token_grid, mode,
+                               plain)
+                return blk(*ys, v, txt_len, txt_bias, freqs, token_grid,
+                           mode, plain)
+
+            if remat:
+                return checkpoint(fn, vec, *xs, use_reentrant=True,
+                                  preserve_rng_state=False)
+            return fn(vec, *xs)
 
         for i, blk in enumerate(self.double_blocks):
-            img, txt = blk(img, txt, vec, txt_bias, freqs, grid,
-                           mode(i, cfg.sta_dense_double_blocks), plain)
+            img, txt = run(blk, cfg.sta_dense_double_blocks, i, img, txt)
         xx = torch.cat([img, txt], dim=1)
         for i, blk in enumerate(self.single_blocks):
-            xx = blk(xx, vec, txt_len, txt_bias, freqs, grid,
-                     mode(i, cfg.sta_dense_single_blocks), plain)
-        out = self.final_layer(xx[:, :img_len], vec)
-        return unpatchify(out, tt, th, tw, cfg.out_channels, cfg.patch_size)
+            xx = run(blk, cfg.sta_dense_single_blocks, i, xx)
+        return self.final_layer(xx[:, :img_len], vec)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "HYVideoDiT":
@@ -568,13 +604,16 @@ class HYVideoDiT(nn.Module):
 
 
 def build_dit(cfg: DiTConfig, device="cuda", dtype=torch.bfloat16,
-              generator: Optional[torch.Generator] = None) -> HYVideoDiT:
+              generator: Optional[torch.Generator] = None,
+              trainable: bool = False) -> HYVideoDiT:
     """A DiT with storage allocated on `device` (no default init pass);
     random weights from `generator` when given, else uninitialized (to be
-    filled by load_state_dict)."""
+    filled by load_state_dict). Its parameters take gradients only with
+    trainable=True (training.py); the model has no dropout or batch
+    statistics, so it stays in eval mode either way."""
     with torch.device("meta"):
         model = HYVideoDiT(cfg, dtype=dtype)
-    model = model.to_empty(device=device).eval().requires_grad_(False)
+    model = model.to_empty(device=device).eval().requires_grad_(trainable)
     if generator is not None:
         model.init_weights(generator)
     return model

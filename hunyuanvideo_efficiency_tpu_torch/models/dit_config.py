@@ -30,6 +30,9 @@ class DiTConfig:
     rope_theta: float = 256.0
     # auto | flash | flash_int8 | sdpa | chunked | sta | sta_int8
     attn_mode: str = "auto"
+    # Recompute each block in the backward pass (gradient checkpointing)
+    # instead of keeping its activations; no effect without gradients.
+    remat_blocks: bool = False
     # Sliding Tile Attention (attn_mode="sta"; ops/sta.py): tile shape in
     # (t, h, w) patch-grid units and the sliding window in tiles.
     sta_tile: Tuple[int, int, int] = (4, 8, 8)

@@ -9,11 +9,16 @@ reach the final layer, so valid positions match exactly.
   mid-block, text towers) — plain matmul + softmax, as XLA computed it.
 * `chunked_attention`: online softmax over query and key chunks, with an
   optional block bias (the VAE mid-block's frame-causal mask at large L).
-* `flash`: the hand-written kernels of ops/flash_attention.py.
-* `flash_int8`: the int8 Q.K^T kernels of ops/flash_attention.py.
+* `flash`: the hand-written kernels, through `flash_attention_vjp`
+  (ops/flash_backward.py): the LSE-free kernels of ops/flash_attention.py
+  when no gradient is wanted, the forward-with-LSE and the two backward
+  kernels under differentiation.
+* `flash_int8`: the int8 Q.K^T kernels of ops/flash_attention.py
+  (inference only: no backward).
 * `sta` / `sta_int8` (joint_attention only): sliding-tile attention for
-  the image queries, ops/sta.py (bf16, or int8 Q.K^T); it needs the
-  (T, H, W) patch grid.
+  the image queries, ops/sta.py (bf16, or int8 Q.K^T), differentiable
+  through `sta_joint_attention_trainable`; it needs the (T, H, W) patch
+  grid.
 
 Layout: q/k/v [B, S, H, D]; outputs [B, S, H*D].
 """
@@ -133,12 +138,16 @@ def attention(q, k, v, mode: str = "auto", bias=None, key_bias=None,
     if mode == "chunked":
         return chunked_attention(q, k, v, key_bias=key_bias, scale=scale)
     if mode == "flash":
-        from .flash_attention import flash_attention
+        from .flash_backward import flash_attention_vjp
 
-        return flash_attention(q, k, v, key_bias, scale,
-                               bound_mode=bound_mode,
-                               score_bound=score_bound)
+        return flash_attention_vjp(q, k, v, key_bias, score_bound, scale,
+                                   bound_mode=bound_mode)
     if mode == "flash_int8":
+        if torch.is_grad_enabled() and any(x.requires_grad
+                                           for x in (q, k, v)):
+            raise NotImplementedError(
+                "attention mode 'flash_int8' is inference only: it has no "
+                "backward (train with 'flash', 'sta' or 'sdpa')")
         # JAX ops/attention.py:298-308: "static" keeps the static-offset
         # kernel; anything else means the safe running max
         from .flash_attention import flash_attention_int8
@@ -170,9 +179,9 @@ def joint_attention(img_q, img_k, img_v, txt_q, txt_k, txt_v,
     if mode in ("sta", "sta_int8"):
         if token_grid is None:
             raise ValueError(f"attn_mode={mode!r} requires token_grid")
-        from .sta import sta_joint_attention
+        from .sta import sta_joint_attention_trainable
 
-        return sta_joint_attention(
+        return sta_joint_attention_trainable(
             img_q, img_k, img_v, txt_q, txt_k, txt_v, txt_bias,
             grid=tuple(token_grid), tile=tuple(sta_tile),
             window=tuple(sta_window), scale=scale, bound_mode=bound_mode,

@@ -31,6 +31,8 @@ SIGNATURES = {
         "hv_flash_attention_fwd": (
             _I, [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                  _LL, _LL, _LL, _LL, _LL, _LL, _F, _P]),
+        "hv_flash_fwd_lse": (
+            _I, [_I] * 2 + [_P] * 6 + [_I] * 4 + [_LL] * 6 + [_F, _P]),
     },
     "conv3d": {
         "hv_conv3d_stride1": (
@@ -48,6 +50,12 @@ SIGNATURES = {
         "hv_w8a8_linear": (
             _I, [_I, _I, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _I, _I, _I,
                  _P]),
+    },
+    "flash_backward": {
+        "hv_flash_bwd_dq": (
+            _I, [_I] * 2 + [_P] * 8 + [_I] * 4 + [_LL] * 6 + [_F, _P]),
+        "hv_flash_bwd_dkv": (
+            _I, [_I] * 2 + [_P] * 9 + [_I] * 4 + [_LL] * 6 + [_F, _P]),
     },
 }
 

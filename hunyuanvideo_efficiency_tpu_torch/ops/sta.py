@@ -35,6 +35,11 @@ times sq*sk*scale), p rounded to V's type before P.V, the static arm
 exp(s*scale + kb - C) with max(l, 1e-37) and the running arm an exact
 softmax. On any other device a wrapper launches its kernel or raises.
 
+Training: `sta_joint_attention_trainable` keeps the kernel forward and
+takes its gradients from autograd through `sta_gathered_attention`, the
+differentiable gathered form (the JAX package has no Pallas kernel in this
+backward either).
+
 Bound on the H100: 4*D per valid query-key pair on the tensor cores; with
 a 3x3x3 window of 256-token tiles each query sees up to 6,912 image keys,
 far above the bytes of q/k/v/out, so the kernels are bound by operations.
@@ -688,3 +693,127 @@ def sta_joint_attention(
         txt_q, kcat, vcat, key_bias=kb, scale=scale,
         bound_mode="static" if static else "auto", score_bound=c)
     return img_out, txt_out
+
+
+# --------------------------------------------------------------------------
+# trainable STA: differentiable gathered form + kernel-forward wrapper
+# --------------------------------------------------------------------------
+
+def sta_gathered_attention(img_q, img_k, img_v, txt_q, txt_k, txt_v, txt_bias,
+                           *, grid, tile=(4, 8, 8), window=(3, 3, 3),
+                           scale=None, tile_chunk: int = 32):
+    """Differentiable plain-PyTorch STA with the tile plan of the kernels
+    (JAX `sta_gathered_attention`): per query tile the neighbour key/value
+    tiles are gathered into one key set, the text keys appended, and an
+    fp32 softmax runs per tile, so autograd derives the sparse backward (the
+    gather's transpose scatter-adds dK/dV). `tile_chunk` query tiles are
+    processed per step. Returns (img_out [B, S_img, H*D], txt_out
+    [B, Lt, H*D]); the text queries keep full attention over [img | txt]."""
+    from .attention import chunked_attention, sdpa_attention
+
+    b, s_img, hh, d = img_q.shape
+    lt = txt_q.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    grid, tile, window = tuple(grid), tuple(tile), tuple(window)
+    block = tile[0] * tile[1] * tile[2]
+    plan = tile_plan(grid, tile, window, 0)
+    n_tiles, n_slots = plan["n_tiles"], plan["n_slots"]
+    dev = img_q.device
+    nbr = torch.from_numpy(plan["nbr"]).to(dev, torch.long)
+
+    def tiles(x):
+        return _permute_tokens(x, grid, tile, plan).reshape(
+            b, n_tiles, block, hh, d)
+
+    qt, kt, vt = tiles(img_q), tiles(img_k), tiles(img_v)
+    # zero-padded tokens of edge tiles must not be attended as keys; -1
+    # slots gather tile 0 and are masked
+    valid = _valid_tokens(grid, plan["padded_grid"]).reshape(-1)[plan["perm"]]
+    tok_bias = torch.from_numpy(np.where(valid, 0.0, NEG_INF).astype(
+        np.float32)).to(dev).reshape(n_tiles, block)
+    slot_bias = torch.where(nbr >= 0, 0.0, NEG_INF).to(dev)
+    idx = nbr.clamp_min(0)
+    tb_row = (txt_bias.reshape(b, lt).float() if txt_bias is not None
+              else torch.zeros((b, lt), device=dev))
+
+    outs = []
+    for t0 in range(0, n_tiles, tile_chunk):
+        t1 = min(t0 + tile_chunk, n_tiles)
+        nb, cn = idx[t0:t1], t1 - t0
+        q_c = qt[:, t0:t1].float()
+        kg = kt[:, nb].reshape(b, cn, n_slots * block, hh, d)
+        vg = vt[:, nb].reshape(b, cn, n_slots * block, hh, d)
+        kb = (tok_bias[nb] + slot_bias[t0:t1, :, None]).reshape(
+            cn, n_slots * block)
+        s_i = torch.einsum("bcqhd,bckhd->bchqk", q_c, kg.float()) * scale
+        s_i = s_i + kb[None, :, None, None, :]
+        s_t = torch.einsum("bcqhd,blhd->bchql", q_c, txt_k.float()) * scale
+        s_t = s_t + tb_row[:, None, None, None, :]
+        p = torch.softmax(torch.cat([s_i, s_t], dim=-1), dim=-1)
+        o = (torch.einsum("bchqk,bckhd->bcqhd",
+                          p[..., :n_slots * block].to(vg.dtype), vg)
+             + torch.einsum("bchql,blhd->bcqhd",
+                            p[..., n_slots * block:].to(txt_v.dtype), txt_v))
+        outs.append(o.reshape(b, cn, block, hh * d).to(img_q.dtype))
+    out_t = torch.cat(outs, dim=1).reshape(b, n_tiles * block, hh * d)
+    img_out = _unpermute_tokens(out_t, grid, plan, tile)
+
+    full_kb = torch.cat([torch.zeros((b, s_img), device=dev), tb_row],
+                        dim=1)[:, None, None, :]
+    k_all = torch.cat([img_k, txt_k], dim=1)
+    v_all = torch.cat([img_v, txt_v], dim=1)
+    if s_img > 8192:
+        txt_out = chunked_attention(txt_q, k_all, v_all, key_bias=full_kb,
+                                    scale=scale)
+    else:
+        txt_out = sdpa_attention(txt_q, k_all, v_all, bias=full_kb,
+                                 scale=scale)
+    return img_out, txt_out
+
+
+class _STATrainable(torch.autograd.Function):
+    """Kernel forward (`sta_joint_attention`), gathered-form backward: both
+    compute the same function, so autograd through `sta_gathered_attention`
+    on the saved inputs gives the sparse attention gradients. txt_bias and
+    score_bound (which only shifts the kernels' exponent offset) get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, iq, ik, iv, tq, tk, tv, txt_bias, score_bound, opts):
+        ctx.save_for_backward(iq, ik, iv, tq, tk, tv, txt_bias)
+        ctx.opts = opts
+        return sta_joint_attention(iq, ik, iv, tq, tk, tv, txt_bias,
+                                   score_bound=score_bound, **opts)
+
+    @staticmethod
+    def backward(ctx, g_img, g_txt):
+        *qkv, txt_bias = ctx.saved_tensors
+        o = ctx.opts
+        with torch.enable_grad():
+            ins = [x.detach().requires_grad_(True) for x in qkv]
+            outs = sta_gathered_attention(
+                *ins, txt_bias, grid=o["grid"], tile=o["tile"],
+                window=o["window"], scale=o["scale"])
+            grads = torch.autograd.grad(outs, ins, (g_img, g_txt))
+        return (*grads, None, None, None)
+
+
+def sta_joint_attention_trainable(img_q, img_k, img_v, txt_q, txt_k, txt_v,
+                                  txt_bias, *, grid, tile=(4, 8, 8),
+                                  window=(3, 3, 3), scale=None,
+                                  bound_mode="auto", qk_int8=False,
+                                  score_bound=None, plain=False):
+    """`sta_joint_attention` with a sparse backward: the same forward (the
+    kernel dispatch), differentiable through the gathered form. What
+    `joint_attention(mode="sta")` routes through, so fine-tuning under STA
+    works; without a gradient to compute it is `sta_joint_attention`."""
+    opts = dict(grid=tuple(grid), tile=tuple(tile), window=tuple(window),
+                scale=scale, bound_mode=bound_mode, qk_int8=bool(qk_int8),
+                plain=plain)
+    qkv = (img_q, img_k, img_v, txt_q, txt_k, txt_v)
+    if not (torch.is_grad_enabled() and any(x.requires_grad for x in qkv)):
+        return sta_joint_attention(*qkv, txt_bias, score_bound=score_bound,
+                                   **opts)
+    if score_bound is not None:
+        score_bound = torch.as_tensor(score_bound).detach()
+    return _STATrainable.apply(*qkv, txt_bias, score_bound, opts)

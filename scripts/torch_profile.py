@@ -6,6 +6,9 @@
     python3 scripts/torch_profile.py --use-int8 --attn-mode flash_int8 \
         --text-encoder-quant int8
 
+    python3 scripts/torch_profile.py --train [--train-blocks 20 40]
+    python3 scripts/torch_profile.py --train --adamw --train-blocks 4 8
+
 Builds the sampler as chip_smoke.py's main paths do (HYVideo-T/2 at full
 width, Llama-3-8B + CLIP-L, the 884-16c-hy VAE, random weights; by default
 dense bf16 attention at 256x448, 33 frames; the weight tiers and int8
@@ -17,10 +20,17 @@ torch.profiler. Per stage it prints one line: wall seconds, the device's
 kernel seconds and busy share (kernel time over wall time; one stream, so
 kernels do not overlap), and kernel time by category; then the stage's
 top kernels by device time; the full tables go to --out (build/profile/).
+With --train it profiles one train step instead (chip_smoke.py's train
+path: a trainable bf16 DiT at full width, every block checkpointed, batch 1
+at 256x448x33f latents; SGD, or AdamW + master + EMA with --adamw), as one
+stage whose categories split the attention kernels (K1, B5f, B5q, B5kv);
+a stage of the loss and backward pass alone comes first, so the step's time
+less that stage's is the optimizer's (its kernels are elementwise, "other").
 Needs CUDA.
 """
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -33,15 +43,27 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from chip_smoke import (FRAMES, HEIGHT, WIDTH,  # noqa: E402
-                        randomize_modulation)
+from chip_smoke import (FRAMES, HEIGHT, TRAIN_LATENT,  # noqa: E402
+                        TRAIN_LR, WIDTH, randomize_modulation, train_setup)
 from hunyuanvideo_efficiency_tpu_torch.config import InferenceArgs  # noqa: E402
 from hunyuanvideo_efficiency_tpu_torch.inference import (  # noqa: E402
     HunyuanVideoSampler, get_rotary_pos_embed)
 
 
+# the LSE instantiation of csrc/flash_attention.cu's forward template:
+# flash_fwd_kernel<T, D, RUNNING=true, LSE=true>
+LSE_FORWARD = re.compile(
+    r"flash_fwd_kernel<[^>]*(true|\(bool\)1), (true|\(bool\)1)>")
+
+
 def category(name: str) -> str:
     low = name.lower()
+    if LSE_FORWARD.search(low):
+        return "flash forward with LSE (B5f)"
+    if "flash_bwd_dq_kernel" in low:
+        return "flash backward dQ (B5q)"
+    if "flash_bwd_dkv_kernel" in low:
+        return "flash backward dK/dV (B5kv)"
     if "flash_fwd_kernel" in low:
         return "flash attention (K1/K2)"
     if "flash_int8_kernel" in low or "group_scales_kernel" in low:
@@ -91,8 +113,59 @@ def stage(label, fn, out_dir, top=12):
     (out_dir / f"{label}.txt").write_text("\n".join(lines) + "\n")
 
 
+def train_stage(a, out_dir):
+    """One train step of chip_smoke.py's train path under the profiler."""
+    from hunyuanvideo_efficiency_tpu_torch.models.dit import patchify_raw
+    from hunyuanvideo_efficiency_tpu_torch.training import (
+        flow_match_loss, make_train_step, make_train_step_adamw)
+
+    dev = torch.device("cuda")
+    model, batch, _ = train_setup(
+        dev, TRAIN_LATENT, 20, mm_double_blocks_depth=a.train_blocks[0],
+        mm_single_blocks_depth=a.train_blocks[1])
+    if a.adamw:
+        step_fn, init_fn = make_train_step_adamw(
+            model, lr=1e-4, weight_decay=1e-4, grad_clip=1.0, ema_decay=0.99)
+        state = init_fn()
+
+        def step():
+            step_fn(state, *batch)
+    else:
+        sgd = make_train_step(model, lr=TRAIN_LR)
+
+        def step():
+            sgd(*batch)
+
+    def loss_backward():
+        x0, noise, t, pe, mask, pe2, cos_g, sin_g = batch
+        d = cos_g.shape[-1]
+        for p in model.parameters():
+            p.grad = None
+        with torch.enable_grad():
+            flow_match_loss(
+                model, patchify_raw(x0, model.cfg.patch_size),
+                patchify_raw(noise, model.cfg.patch_size), t, pe, mask, pe2,
+                cos_g.reshape(-1, d), sin_g.reshape(-1, d), None).backward()
+
+    label = (f"{'adamw' if a.adamw else 'sgd'}_"
+             f"{a.train_blocks[0]}+{a.train_blocks[1]}_blocks")
+    torch.cuda.reset_peak_memory_stats()
+    # the step minus its loss + backward part is the optimizer's share
+    stage(f"train_loss_backward_{label}", loss_backward, out_dir, top=4)
+    stage(f"train_step_{label}", step, out_dir, top=16)
+    print(f"[train] params={sum(p.numel() for p in model.parameters())} "
+          f"max_memory_allocated_gb="
+          f"{torch.cuda.max_memory_allocated() / 2**30}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--train", action="store_true",
+                    help="profile one train step instead of predict()")
+    ap.add_argument("--adamw", action="store_true",
+                    help="with --train: AdamW + fp32 master + EMA")
+    ap.add_argument("--train-blocks", type=int, nargs=2, default=(20, 40),
+                    metavar=("DOUBLE", "SINGLE"))
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--attn-mode", default="auto",
                     choices=["auto", "sta", "flash_int8", "sta_int8"])
@@ -112,6 +185,15 @@ def main():
     out_dir.mkdir(parents=True, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if a.train:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        print(f"[env] card={smi} torch={torch.__version__} train=True "
+              f"adamw={a.adamw} blocks={list(a.train_blocks)}", flush=True)
+        train_stage(a, out_dir)
+        return
 
     args = InferenceArgs(model="HYVideo-T/2", vae_tiling=True,
                          model_base="ckpts-not-present",

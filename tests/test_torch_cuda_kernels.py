@@ -326,3 +326,108 @@ def test_sta_int8_kernels_match_plain(dev, dtype, d, case):
         assert out.dtype == dtype and out.shape == ref.shape
         torch.testing.assert_close(out.float(), ref.float(), atol=TOL,
                                    rtol=TOL)
+
+
+def _backward_inputs(dev, dtype, sq, sk, d, masked, seed=21):
+    """q/k of unit norm times 4, v and dO ~ N(0, 1), a key bias masking the
+    last `masked` keys of batch 1, as strided views of fused projections
+    (q/k/v as columns of one [B, S, 3, H, D] tensor when sq == sk)."""
+    g = torch.Generator(dev).manual_seed(seed)
+    b, h = 2, 3
+
+    def unit(x):
+        return (torch.nn.functional.normalize(x.float(), dim=-1) * 4)
+
+    if sq == sk:
+        fused = torch.randn(b, sq, 3, h, d, generator=g, device=dev)
+        fused[:, :, 0], fused[:, :, 1] = unit(fused[:, :, 0]), unit(
+            fused[:, :, 1])
+        fused = fused.to(dtype)
+        q, k, v = fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
+        assert not q.is_contiguous()
+    else:
+        q = unit(torch.randn(b, sq, h, d, generator=g, device=dev)).to(dtype)
+        k = unit(torch.randn(b, sk, h, d, generator=g, device=dev)).to(dtype)
+        v = torch.randn(b, sk, h, d, generator=g, device=dev).to(dtype)
+    do = torch.randn(b, sq, h * d, generator=g, device=dev).to(dtype)
+    kb = torch.zeros(b, sk, device=dev)
+    if masked:
+        kb[1, sk - masked:] = -1e30
+    return q, k, v, kb, do
+
+
+BACKWARD_CASES = [(200, 200, 13), (77, 333, 0), (333, 77, 20), (1000, 1000, 5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk,masked", BACKWARD_CASES)
+def test_flash_backward_kernels_match_plain(dev, dtype, d, sq, sk, masked):
+    """B5f, B5q and B5kv on ragged query and key lengths, strided q/k/v
+    views and masked keys, against their plain versions on the same lse
+    and delta; masked keys get exactly zero dK and dV; two runs agree bit
+    for bit; each wrapper counts one launch per call."""
+    from hunyuanvideo_efficiency_tpu_torch.ops import flash_backward as fb
+
+    q, k, v, kb, do = _backward_inputs(dev, dtype, sq, sk, d, masked)
+    scale = d ** -0.5
+    n0 = (fb.flash_fwd_lse.LAUNCHES, fb.flash_bwd_dq.LAUNCHES,
+          fb.flash_bwd_dkv.LAUNCHES)
+    out, lse = fb.flash_fwd_lse(q, k, v, kb, scale)
+    ref_out, ref_lse = fb.flash_fwd_lse_plain(q, k, v, kb, scale)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=TOL,
+                               rtol=TOL)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-3, rtol=1e-4)
+    delta = fb.row_delta(do, ref_out, q.shape[2])
+    args = (q, k, v, kb, do, ref_lse, delta, scale)
+    dq = fb.flash_bwd_dq(*args)
+    dk, dv = fb.flash_bwd_dkv(*args)
+    again = (fb.flash_bwd_dq(*args), *fb.flash_bwd_dkv(*args))
+    ref = (fb.flash_bwd_dq_plain(*args), *fb.flash_bwd_dkv_plain(*args))
+    torch.cuda.synchronize()
+    assert (fb.flash_fwd_lse.LAUNCHES, fb.flash_bwd_dq.LAUNCHES,
+            fb.flash_bwd_dkv.LAUNCHES) == (n0[0] + 1, n0[1] + 2, n0[2] + 2)
+    for name, got, rerun, want in zip(("dq", "dk", "dv"), (dq, dk, dv), again,
+                                      ref):
+        assert got.dtype == dtype and got.shape == want.shape, name
+        assert torch.isfinite(got.float()).all(), name
+        assert torch.equal(got, rerun), name
+        scale_ = want.float().abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=2 * TOL * scale_, rtol=TOL, msg=name)
+    if masked:
+        assert torch.count_nonzero(dk[1, sk - masked:]) == 0
+        assert torch.count_nonzero(dv[1, sk - masked:]) == 0
+        assert torch.count_nonzero(dv[1, :sk - masked]) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_vjp_on_the_card(dev, dtype):
+    """flash_attention_vjp through autograd on the card (the backward runs
+    on autograd's thread): gradients against autograd through plain
+    attention in fp32, an expanded dO, and the LSE-free kernel when no
+    gradient is wanted."""
+    from hunyuanvideo_efficiency_tpu_torch.ops import flash_backward as fb
+    from hunyuanvideo_efficiency_tpu_torch.ops.attention import sdpa_attention
+
+    q, k, v, kb, _ = _backward_inputs(dev, dtype, 300, 300, 128, 17)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    n0 = (flash_static.LAUNCHES + flash_running.LAUNCHES,
+          fb.flash_fwd_lse.LAUNCHES, fb.flash_bwd_dq.LAUNCHES,
+          fb.flash_bwd_dkv.LAUNCHES)
+    with torch.no_grad():
+        fb.flash_attention_vjp(*leaves, kb)
+    assert flash_static.LAUNCHES + flash_running.LAUNCHES == n0[0] + 1
+    out = fb.flash_attention_vjp(*leaves, kb)
+    out.sum().backward()          # dO is an expanded scalar
+    torch.cuda.synchronize()
+    assert (fb.flash_fwd_lse.LAUNCHES, fb.flash_bwd_dq.LAUNCHES,
+            fb.flash_bwd_dkv.LAUNCHES) == (n0[1] + 1, n0[2] + 1, n0[3] + 1)
+    ref_leaves = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
+    sdpa_attention(*ref_leaves, bias=kb[:, None, None, :]).sum().backward()
+    for got, want in zip(leaves, ref_leaves):
+        assert got.grad.dtype == dtype
+        scale_ = want.grad.abs().max().item()
+        torch.testing.assert_close(got.grad.float(), want.grad,
+                                   atol=3 * TOL * scale_, rtol=3 * TOL)

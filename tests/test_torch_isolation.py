@@ -13,6 +13,8 @@ from hunyuanvideo_efficiency_tpu_torch.ops import cuda_lib
 from hunyuanvideo_efficiency_tpu_torch.ops.conv3d_cuda import conv3d_stride1
 from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
     flash_int8_running, flash_int8_static, flash_running, flash_static)
+from hunyuanvideo_efficiency_tpu_torch.ops.flash_backward import (
+    flash_bwd_dkv, flash_bwd_dq, flash_fwd_lse)
 from hunyuanvideo_efficiency_tpu_torch.ops.int8_matmul import w8a8_linear
 from hunyuanvideo_efficiency_tpu_torch.ops.sta import (
     sta_direct, sta_direct_int8, sta_permuted_running, sta_permuted_static,
@@ -56,6 +58,14 @@ def test_quantized_path_modules_are_covered():
         assert f"hunyuanvideo_efficiency_tpu_torch/{mod}" in names
 
 
+def test_training_path_modules_are_covered():
+    """The modules of the fine-tuning path are among the checked sources."""
+    names = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    for mod in ("ops/flash_backward.py", "training.py", "train.py",
+                "utils/train_io.py", "data/dataset_loader.py"):
+        assert f"hunyuanvideo_efficiency_tpu_torch/{mod}" in names
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -81,8 +91,17 @@ def test_off_cpu_tensors_never_fall_back():
     kernels = (flash_static, flash_running, conv3d_stride1, sta_direct,
                sta_permuted_static, sta_permuted_running, w8a8_linear,
                flash_int8_static, flash_int8_running, sta_direct_int8,
-               sta_permuted_static_int8)
+               sta_permuted_static_int8, flash_fwd_lse, flash_bwd_dq,
+               flash_bwd_dkv)
     counts = [fn.LAUNCHES for fn in kernels]
+    do = torch.empty((1, 64, 128), dtype=torch.bfloat16, device="meta")
+    stat = torch.empty((1, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_fwd_lse(q, q, q, None, 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_bwd_dq(q, q, q, None, do, stat, stat, 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_bwd_dkv(q, q, q, None, do, stat, stat, 0.125)
     with pytest.raises(ValueError, match="CUDA"):
         flash_static(q, q, q, None, c, 0.125)
     with pytest.raises(ValueError, match="CUDA"):
@@ -135,3 +154,17 @@ def test_library_path_tracks_sources(monkeypatch, tmp_path):
         assert p.parent == tmp_path and p.name.startswith(f"lib{n}-")
         assert cuda_lib.library_path(n) == p
         assert (cuda_lib.CSRC / f"{n}.cu").exists()
+
+
+@pytest.mark.parametrize("name", sorted(cuda_lib.SIGNATURES))
+def test_signatures_match_the_sources_exports(name):
+    """Each source's `extern "C"` functions are exactly the ones its
+    SIGNATURES entry binds, with as many arguments."""
+    import re
+
+    text = (cuda_lib.CSRC / f"{name}.cu").read_text()
+    exports = {m.group(1): m.group(2) for m in re.finditer(
+        r'extern "C" int (\w+)\s*\(([^)]*)\)', text)}
+    assert set(exports) == set(cuda_lib.SIGNATURES[name])
+    for fn, (_, argtypes) in cuda_lib.SIGNATURES[name].items():
+        assert len(exports[fn].split(",")) == len(argtypes), fn
