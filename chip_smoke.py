@@ -11,8 +11,12 @@ Phases, one line each (any failure raises and exits non-zero):
      library call's time as a yardstick, and the card's lower bound: K1/K2
      and the int8 flash kernels at the main path's attention, the W8A8
      linear at its qkv, fc1 (fused gelu_tanh) and modulation-matvec shapes,
-     K3, and the STA kernels with their int8 arms at 540p (B=2, 24 heads x
-     128, a 17x34x60 patch grid, 256 text keys of which 40 are valid, bf16);
+     K3 and the temporal-reuse conv B11 on the same inputs, B11 again at
+     the conv probe's three bf16 decoder stages (its timed entry from the
+     first, the probe being the path that runs it), and the STA
+     kernels with their int8 arms and the ring kernel B10 at 540p (B=2, 24
+     heads x 128, a 17x34x60 patch grid, 256 text keys of which 40 are
+     valid, bf16);
   4. main path: HunyuanVideoSampler.from_pretrained at the full width of
      HYVideo-T/2 (bf16), Llama-3-8B + CLIP-L (fp16) and the 884-16c-hy VAE
      (fp16), random weights from fixed seeds, then predict() with CFG at
@@ -33,7 +37,9 @@ Phases, one line each (any failure raises and exits non-zero):
   9. STA main path: from_pretrained with --attn-mode sta and one dense
      anchor block per stack, predict() with CFG at 544x960, 65 frames (the
      CLI's 540p), 2 steps: sta_direct in the 58 STA blocks, K1 in the
-     anchors and in the text half of every STA block;
+     anchors and in the text half of every STA block; then the same
+     predict() under sta.set_sta_ring(True): sta_ring 58 times a step and
+     none of sta_direct, the switch reset afterwards;
  10. STA running-max path: the no-QK-norm 2+2-block DiT of 5 under
      attn_mode="sta" in the same predict() for 1 step: sta_permuted_running
      for the image queries, K2 for the text queries;
@@ -41,10 +47,13 @@ Phases, one line each (any failure raises and exits non-zero):
      540p, 1 step: sta_direct_int8 58 times, K1 118 times, W8A8 400 times;
  12. STA permuted path: sta_joint_attention(direct=False) and (fused=False)
      at the shapes of 3, each against the direct arm (B4 vs B6), and the
-     int8 permuted arm against its plain version;
+     int8 permuted arm against its plain version; then the conv probe
+     (probes/conv_probe.py, one timed call a form): F.conv3d, K3 and B11 at
+     the decoder's three heavy stages after a numerics check;
  13. reference: the two 2+2-block DiTs, flash kernels vs plain attention,
      then under attn_mode="sta" on a 13x26x28 patch grid (4x4x4 ragged
-     tiles) the STA kernels vs the same forward with plain=True; then both
+     tiles) the STA kernels vs the same forward with plain=True, and for
+     the QK-norm DiT again under set_sta_ring(True) (sta_ring); then both
      quantized to int8, the kernels vs plain=True under flash_int8 (and
      sta_int8 for the QK-norm DiT), with the gap to the bf16 DiT reported.
  14. train path: a trainable bf16 DiT at the full width and depth of
@@ -84,9 +93,10 @@ SDPA's forward and backward as their yardsticks.
 Then the total seconds, one JSON line of per-kernel numbers (launches of
 each kernel from the path that runs it: K1 and K3 from 4, K2 from 5, the
 running int8 kernel from 6, W8A8 and the static int8 kernel from 7,
-sta_direct from 9, sta_permuted_running from 10, sta_direct_int8 from 11,
-sta_permuted_static and its int8 arm from 12, the three training kernels
-from 14), the nvidia-smi line, and the result line. Needs CUDA; there is no
+sta_direct and sta_ring from 9, sta_permuted_running from 10,
+sta_direct_int8 from 11, sta_permuted_static and its int8 arm and B11 from
+12, the three training kernels from 14), the nvidia-smi line, and the
+result line. Needs CUDA; there is no
 CPU fallback.
 """
 import dataclasses
@@ -112,7 +122,7 @@ from hunyuanvideo_efficiency_tpu_torch.models.dit_config import DiTConfig
 from hunyuanvideo_efficiency_tpu_torch.ops import cuda_lib, quantization
 from hunyuanvideo_efficiency_tpu_torch.ops.conv3d import replicate_pad
 from hunyuanvideo_efficiency_tpu_torch.ops.conv3d_cuda import (
-    conv3d_stride1, conv3d_stride1_plain)
+    conv3d_stride1, conv3d_stride1_plain, conv3d_stride1_v2)
 from hunyuanvideo_efficiency_tpu_torch.ops.flash_backward import (
     flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain,
     flash_fwd_lse, flash_fwd_lse_plain, row_delta)
@@ -126,10 +136,12 @@ from hunyuanvideo_efficiency_tpu_torch.ops.quantization import (
     quantize_dit, quantize_tensor_int8)
 from hunyuanvideo_efficiency_tpu_torch.ops.rope import get_nd_rotary_pos_embed
 from hunyuanvideo_efficiency_tpu_torch.ops.sta import (
-    _unpermute_tokens, permuted_operands, sta_attention_plain, sta_direct,
-    sta_direct_int8, sta_joint_attention, sta_pair_count, sta_permuted_plain,
+    _padded_grid, _permute_tokens_cols, _unpermute_tokens, permuted_operands,
+    set_sta_ring, sta_attention_plain, sta_direct, sta_direct_int8,
+    sta_joint_attention, sta_pair_count, sta_permuted_plain,
     sta_permuted_running, sta_permuted_static, sta_permuted_static_int8,
-    sta_reference_mask)
+    sta_reference_mask, sta_ring, sta_ring_plain)
+from hunyuanvideo_efficiency_tpu_torch.probes import conv_probe
 from hunyuanvideo_efficiency_tpu_torch.training import (
     flow_match_loss, make_train_step, make_train_step_adamw)
 
@@ -158,7 +170,7 @@ KERNELS = (flash_static, flash_running, conv3d_stride1, sta_direct,
            sta_permuted_static, sta_permuted_running, w8a8_linear,
            flash_int8_static, flash_int8_running, sta_direct_int8,
            sta_permuted_static_int8, flash_fwd_lse, flash_bwd_dq,
-           flash_bwd_dkv)
+           flash_bwd_dkv, sta_ring, conv3d_stride1_v2)
 SRC = "hunyuanvideo_efficiency_tpu_torch/csrc/"
 JAX = "hunyuanvideo_efficiency_tpu/ops/"
 
@@ -459,10 +471,12 @@ def check_w8a8(dev, smi):
 def check_conv(dev, smi):
     """K3 (fp16) at the decoder's 128- and 512-channel stages, and at the
     main path's largest stage (the last up block of a 256x256, 33-frame
-    decode tile); the last gives the timed entry."""
+    decode tile); the last gives the timed entry. B11 (conv3d_stride1_v2,
+    the temporal-reuse kernel) on the same inputs against the same plain
+    version, with K3's time beside its own; B11's entry comes from
+    check_conv_v2, at the shapes of the path that runs it."""
     g = torch.Generator(dev).manual_seed(1)
     worst = 0.0
-    row = None
     for shape in ((1, 9, 64, 64, 128, 128), (1, 9, 32, 32, 512, 512),
                   (1, 33, 256, 256, 128, 128)):
         b, t, hh, ww, cin, cout = shape
@@ -471,38 +485,101 @@ def check_conv(dev, smi):
         w = (torch.randn(3, 3, 3, cin, cout, generator=g, device=dev)
              / math.sqrt(27 * cin)).half()
         bias = torch.randn(cout, generator=g, device=dev).half()
-        out = conv3d_stride1(xp, w, bias)
         ref = conv3d_stride1_plain(xp, w, bias)
-        torch.cuda.synchronize()
-        abs_err, rel_err = errors(out, ref)
-        if rel_err > 5e-3:
-            raise AssertionError(f"conv3d {shape}: max rel error {rel_err} "
-                                 f"> 5e-3")
-        worst = max(worst, abs_err)
-        del out, ref
+        abs_err = {}
+        for fn in (conv3d_stride1, conv3d_stride1_v2):
+            out = fn(xp, w, bias)
+            torch.cuda.synchronize()
+            abs_err[fn.__name__], rel_err = errors(out, ref)
+            if rel_err > 5e-3:
+                raise AssertionError(f"{fn.__name__} {shape}: max rel error "
+                                     f"{rel_err} > 5e-3")
+            del out
+        del ref
         flops = 2 * 27 * cin * cout * b * t * hh * ww
         nbytes = (xp.numel() + w.numel() + b * t * hh * ww * cout) * 2 \
             + cout * 2
         ms = cuda_ms(lambda: conv3d_stride1(xp, w, bias), 10)
+        v2_ms = cuda_ms(lambda: conv3d_stride1_v2(xp, w, bias), 10)
         plain_ms = cuda_ms(lambda: conv3d_stride1_plain(xp, w, bias), 2)
         x_ncdhw = xp.permute(0, 4, 1, 2, 3)
         w_oi = w.permute(4, 3, 0, 1, 2).contiguous()
         lib_ms = cuda_ms(lambda: torch.nn.functional.conv3d(x_ncdhw, w_oi,
                                                             bias), 10)
         bound_ms, by = bound(flops, nbytes)
-        phase("kernel", name="conv3d_stride1",
-              shape=f"[{b},{t},{hh},{ww},{cin}]->{cout}fp16",
-              max_abs_err=abs_err, tol="rel 5e-3 (fp16)", kernel_ms=ms,
-              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-              tflops=flops / ms / 1e9, card=smi)
+        shape_s = f"[{b},{t},{hh},{ww},{cin}]->{cout}fp16"
+        phase("kernel", name="conv3d_stride1", shape=shape_s,
+              max_abs_err=abs_err["conv3d_stride1"], tol="rel 5e-3 (fp16)",
+              kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+              bound_ms=bound_ms, tflops=flops / ms / 1e9, card=smi)
+        phase("kernel", name="conv3d_stride1_v2", shape=shape_s,
+              max_abs_err=abs_err["conv3d_stride1_v2"],
+              tol="rel 5e-3 (fp16)",
+              kernel_ms=v2_ms, k3_ms=ms, plain_ms=plain_ms,
+              library_ms=lib_ms, bound_ms=bound_ms,
+              tflops=flops / v2_ms / 1e9, card=smi)
+        worst = max(worst, abs_err["conv3d_stride1"])
         row = dict(name="conv3d_stride1", route="cuda",
-                   source="hunyuanvideo_efficiency_tpu_torch/csrc/conv3d.cu",
-                   replaces="hunyuanvideo_efficiency_tpu/ops/"
-                            "conv3d_pallas.py:50",
+                   source=SRC + "conv3d.cu",
+                   replaces=f"{JAX}conv3d_pallas.py:50", max_abs_err=worst,
                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                    library_ms=lib_ms)
         del xp, x, x_ncdhw
-    row["max_abs_err"] = worst
+    return [row]
+
+
+def check_conv_v2(dev, smi):
+    """B11 at the shapes of the path that runs it, the conv probe's three
+    decoder stages (conv_probe.SHAPES, bf16, no bias), on the input padded as
+    conv_probe.v2_conv pads it: against conv3d_stride1_plain, max relative
+    error 1e-2 (bf16: one rounding step of the largest output is up to 2^-7
+    of it), and equal to K3 bit for bit (both sum the taps in the same
+    order). The first, largest shape gives the timed entry, with K3's time
+    beside B11's."""
+    g = torch.Generator(dev).manual_seed(2)
+    row = None
+    for t, hh, ww, cin, cout in conv_probe.SHAPES:
+        x = torch.randn(1, t, hh, ww, cin, generator=g, device=dev).bfloat16()
+        xp = replicate_pad(x, (2, 0), (1, 1), (1, 1))
+        del x
+        w = (torch.randn(3, 3, 3, cin, cout, generator=g, device=dev)
+             * 0.02).bfloat16()
+        out = conv3d_stride1_v2(xp, w)
+        abs_err, rel_err = errors(out, conv3d_stride1_plain(xp, w))
+        k3_diff = (out.float() - conv3d_stride1(xp, w).float()).abs().max()
+        torch.cuda.synchronize()
+        del out
+        shape_s = f"[1,{t},{hh},{ww},{cin}]->{cout}bf16"
+        if rel_err > 1e-2 or k3_diff.item() != 0:
+            raise AssertionError(f"conv3d_stride1_v2 {shape_s}: max rel "
+                                 f"error {rel_err} > 1e-2 or differs from "
+                                 f"K3 by {k3_diff.item()}")
+        fields = dict(max_abs_err=abs_err, max_rel_err=rel_err,
+                      tol="rel 1e-2 (bf16), == K3", vs_k3_max_abs_diff=0.0)
+        if row is None:
+            flops = 2 * 27 * cin * cout * t * hh * ww
+            nbytes = (xp.numel() + w.numel() + t * hh * ww * cout) * 2
+            ms = cuda_ms(lambda: conv3d_stride1_v2(xp, w), 10)
+            k3_ms = cuda_ms(lambda: conv3d_stride1(xp, w), 10)
+            plain_ms = cuda_ms(lambda: conv3d_stride1_plain(xp, w), 2)
+            x_ncdhw = xp.permute(0, 4, 1, 2, 3)
+            w_oi = w.permute(4, 3, 0, 1, 2).contiguous()
+            lib_ms = cuda_ms(lambda: torch.nn.functional.conv3d(x_ncdhw,
+                                                                w_oi), 10)
+            bound_ms, by = bound(flops, nbytes)
+            fields.update(kernel_ms=ms, k3_ms=k3_ms, plain_ms=plain_ms,
+                          library_ms=lib_ms, bound_ms=bound_ms,
+                          tflops=flops / ms / 1e9)
+            row = dict(name="conv3d_stride1_v2", route="cuda",
+                       source=SRC + "conv3d_v2.cu",
+                       replaces=f"{JAX}conv3d_pallas.py:136",
+                       max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+            del x_ncdhw, w_oi
+        row["max_abs_err"] = max(row["max_abs_err"], abs_err)
+        phase("kernel", name="conv3d_stride1_v2", shape=shape_s, **fields,
+              card=smi)
+        del xp, w
     return [row]
 
 
@@ -667,6 +744,54 @@ def check_sta_int8(dev, smi, lib_ms):
     return rows
 
 
+def check_sta_ring(dev, smi, lib_ms):
+    """B10 at the 540p inputs of check_sta, on its own operands (q5 a view
+    of the row-major queries, K/V copied to w-major order), against
+    sta_ring_plain, max relative error 2e-2; the bound is B4's (the same
+    valid pairs), the yardstick check_sta's masked SDPA; sta_direct is timed
+    on the same inputs in the same call, before and after."""
+    (iq, ik, iv), (_, tk, tv), tb, c = sta_inputs(dev, 11)
+    b, s, h, d = iq.shape
+    lt, txt_valid = tk.shape[1], 40
+    grid, tile, window, scale = STA_GRID, STA_TILE, STA_WINDOW, d ** -0.5
+    pg = _padded_grid(grid, tile)
+    args = (iq.reshape(b, *grid, h * d),
+            _permute_tokens_cols(ik, grid, tile, pg),
+            _permute_tokens_cols(iv, grid, tile, pg),
+            tk.reshape(b, lt, h * d), tv.reshape(b, lt, h * d),
+            tb.reshape(b, lt), c, grid, tile, window, scale)
+    pairs = sta_pair_count(grid, tile, window, txt_valid)
+    bound_ms, by = bound(4 * d * h * b * pairs,
+                         4 * iq.numel() * 2 + 2 * tk.numel() * 2)
+    out, ref = sta_ring(*args), sta_ring_plain(*args)
+    torch.cuda.synchronize()
+    abs_err, rel_err = errors(out, ref)
+    del out, ref
+    if rel_err > 2e-2:
+        raise AssertionError(f"sta_ring: max rel error {rel_err} > 2e-2")
+
+    def direct():
+        return sta_direct(iq, ik, iv, tk, tv, tb, c, grid, tile, window,
+                          scale)
+
+    direct_ms = [cuda_ms(direct, 5)]
+    ms = cuda_ms(lambda: sta_ring(*args), 5)
+    direct_ms.append(cuda_ms(direct, 5))
+    plain_ms = cuda_ms(lambda: sta_ring_plain(*args), 2)
+    phase("kernel", name="sta_ring", shape=f"[{b},{s},{h},{d}]bf16",
+          grid=json.dumps(grid), tile=json.dumps(tile),
+          window=json.dumps(window), text_keys=f"{lt}({txt_valid} valid)",
+          pairs_per_head=pairs, max_abs_err=abs_err, tol="rel 2e-2 (bf16)",
+          kernel_ms=ms, sta_direct_ms=json.dumps(direct_ms),
+          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+          tflops=4 * d * h * b * pairs / ms / 1e9, card=smi)
+    return [dict(name="sta_ring", route="cuda",
+                 source=SRC + "sta_attention.cu",
+                 replaces=f"{JAX}sta.py:950", max_abs_err=abs_err, ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                 library_ms=lib_ms)]
+
+
 def randomize_modulation(model, seed):
     """init_weights zero-inits the adaLN and final layers (every block is
     then the identity): give them random values, re-quantized in the tier
@@ -805,7 +930,41 @@ def sta_main_path(smi):
             or launches["conv3d_stride1"] == 0:
         raise AssertionError(f"STA main path launches {launches}, expected "
                              f"{want} and K3 in the decode")
-    return sampler, launches
+    return sampler, launches, r["out"]["samples"]
+
+
+def sta_ring_path(sampler, direct_video, smi):
+    """The same predict() (sta_main_path's sampler, seed and size) under
+    set_sta_ring(True): the ring kernel in the 58 STA blocks, none of
+    sta_direct; the switch goes back to False even on failure. The video's
+    mean absolute difference to sta_main_path's (the same function through
+    the other kernel) is reported."""
+    set_sta_ring(True)
+    try:
+        reset_counts()
+        r = timed_predict(sampler,
+                          "A cat walks on the grass, realistic style.",
+                          (STA_FRAMES, STA_HEIGHT, STA_WIDTH), STA_STEPS, 42)
+    finally:
+        set_sta_ring(False)
+    diff = (r["out"]["samples"].float() - direct_video.float()).abs().mean()
+    phase("sta_ring_path", size=f"{STA_HEIGHT}x{STA_WIDTH}x{STA_FRAMES}",
+          steps=STA_STEPS, switch="set_sta_ring(True)",
+          s_per_step=r["s_per_step"], first_step_s=r["first_step_s"],
+          decode_s=r["decode_s"], gen_s=r["gen_s"],
+          max_memory_allocated_gb=r["max_memory_allocated_gb"],
+          video_mean_abs_diff_vs_sta_direct=diff.item(),
+          launches=json.dumps(r["launches"]),
+          per_step=json.dumps(r["per_step"]), card=smi)
+    per_step = dict(sta_ring=58, sta_direct=0, flash_static=2 + 2 * 58)
+    for step in r["per_step"]:
+        expect("STA ring path step", step, per_step)
+    expect("STA ring path", r["launches"],
+           {k: n * STA_STEPS for k, n in per_step.items()})
+    if r["launches"]["conv3d_stride1"] == 0:
+        raise AssertionError("K3 was not launched during the ring path's "
+                             "decode")
+    return r["launches"]
 
 
 def sta_running_path(sampler, model, smi):
@@ -1024,6 +1183,22 @@ def sta_permuted_path(dev, smi):
     return launches
 
 
+def conv_probe_path(smi):
+    """The conv probe's main (probes/conv_probe.py) at its three decoder
+    stages, one timed call each: F.conv3d, K3 and B11 after its numerics
+    check; B11's launch count comes from here."""
+    reset_counts()
+    results = conv_probe.main(reps=1)
+    launches = read_counts()
+    phase("conv_probe", results=json.dumps(results),
+          launches=json.dumps({k: n for k, n in launches.items() if n}),
+          card=smi)
+    if launches["conv3d_stride1_v2"] == 0 or launches["conv3d_stride1"] == 0:
+        raise AssertionError(f"conv probe launches {launches}: expected K3 "
+                             f"and B11")
+    return launches
+
+
 def set_attn_mode(model, mode):
     for m in model.modules():
         if isinstance(getattr(m, "cfg", None), DiTConfig):
@@ -1116,6 +1291,27 @@ def sta_reference_check(dev, models):
             raise AssertionError(f"{label}: STA forward disagrees with the "
                                  f"plain version: rel L2 {diff}, launches "
                                  f"{launches}")
+        if not cfg.qk_norm:
+            continue
+        # the ring arm: gh = 4 >= wh, so every STA block takes sta_ring
+        set_sta_ring(True)
+        try:
+            reset_counts()
+            with torch.no_grad():
+                out = model(x, t, txt, mask, txt2, cos, sin).float()
+            launches = read_counts()
+        finally:
+            set_sta_ring(False)
+        diff = ((out - ref).norm() / ref.norm()).item()
+        finite = bool(torch.isfinite(out).all())
+        phase("sta_reference", model=label, grid=json.dumps(grid),
+              arm="set_sta_ring(True)",
+              check="the ring kernel vs sta_attention_plain", rel_l2=diff,
+              tol=5e-2, finite=finite, launches=json.dumps(launches))
+        if not finite or diff > 5e-2:
+            raise AssertionError(f"{label}: the ring arm disagrees with the "
+                                 f"plain version: rel L2 {diff}")
+        expect(f"{label} ring arm", launches, dict(sta_ring=4, sta_direct=0))
 
 
 def int8_reference_check(dev, models):
@@ -1536,8 +1732,10 @@ def main():
     rows += check_flash_backward(dev, smi)
     rows += check_flash_int8(dev, smi, rows[0]["library_ms"])
     rows += check_w8a8(dev, smi) + check_conv(dev, smi)
+    rows += check_conv_v2(dev, smi)
     sta_rows = check_sta(dev, smi)
     rows += sta_rows + check_sta_int8(dev, smi, sta_rows[0]["library_ms"])
+    rows += check_sta_ring(dev, smi, sta_rows[0]["library_ms"])
     torch.cuda.empty_cache()
     sampler, launches = main_path(smi)
     k2_model, k2_launches = running_max_path(sampler, smi)
@@ -1552,8 +1750,11 @@ def main():
     torch.cuda.empty_cache()
     fp8_int4_path(smi)
     torch.cuda.empty_cache()
-    sampler, sta_launches = sta_main_path(smi)
+    sampler, sta_launches, sta_video = sta_main_path(smi)
     launches["sta_direct"] = sta_launches["sta_direct"]
+    launches["sta_ring"] = sta_ring_path(sampler, sta_video,
+                                         smi)["sta_ring"]
+    del sta_video
     launches["sta_permuted_running"] = sta_running_path(
         sampler, k2_model, smi)["sta_permuted_running"]
     del sampler
@@ -1563,6 +1764,8 @@ def main():
     perm_launches = sta_permuted_path(dev, smi)
     for name in ("sta_permuted_static", "sta_permuted_static_int8"):
         launches[name] = perm_launches[name]
+    torch.cuda.empty_cache()
+    launches["conv3d_stride1_v2"] = conv_probe_path(smi)["conv3d_stride1_v2"]
     torch.cuda.empty_cache()
     k1_model = dit_mod.build_dit(
         dataclasses.replace(DiTConfig(), mm_double_blocks_depth=2,

@@ -1,8 +1,8 @@
 // Sliding-tile attention (STA) forward for the image queries of the MM-DiT
 // joint [img | txt] sequence.
 //
-// Replaces three Pallas TPU kernels of the JAX package's ops/sta.py, as one
-// source with three template flags:
+// Replaces four Pallas TPU kernels of the JAX package's ops/sta.py, as one
+// source with four template flags:
 //   DIRECT = true,  RUNNING = false: _sta_nomax_direct_kernel. q/k/v are
 //     the row-major [B, S_img, H*D] token grid of a (T, Hg, Wg) patch grid;
 //     a tile's tokens are addressed through their (t, h, w) coordinates.
@@ -26,6 +26,20 @@
 //     them. s = s32 * (sq * sk * scale). The direct kernel's text keys stay
 //     bf16/fp16 (the TPU's resident text fold); in the permuted layout the
 //     text blocks are key tiles like any other and are quantized.
+//   RING = true (with DIRECT = true, RUNNING = QUANT = false):
+//     _sta_ring_kernel. q and the text keys as DIRECT, but the image keys
+//     and values are kp/vp [B, S_pad, H*D], zero-padded in w-major tile order
+//     (tile s = (c*gt + a)*gh + b), so the window column c of query tile
+//     (a, bh) is wt contiguous runs of wh tiles from tile row
+//     sb = clamp(bh - wh/2, 0, gh - wh). There is no neighbour table and no
+//     key-bias operand: slot (column, run, tile of the run) and key validity
+//     (the column and run exist, |b - bh| <= wh/2, the token lies inside the
+//     grid) are computed here from the geometry, as the TPU's col_bias. The
+//     TPU's VMEM ring of ww + 1 columns does not fit in shared memory (one
+//     head's K column at (4, 8, 8) / (3, 3, 3) is 2,304 keys x 128 x 2 B =
+//     590 KB): this kernel reads the runs through L2, with the query tile's
+//     column innermost in the launch order, so the query tiles that share two
+//     of their three columns run together.
 // The softmax is the flash kernels': static p = exp(s*scale + (kb - C)) or
 // running online softmax, then out = acc / max(l, 1e-37). Rows of padding
 // tokens are not stored (DIRECT) or stored as zeros (permuted layout).
@@ -49,7 +63,8 @@
 // registers. Positions beyond the grid are masked here (no zero-padded copy
 // of K/V), and a chunk with no valid key, or a 64-query block with no valid
 // query, is skipped whole. Not yet done: wgmma, TMA, a cp.async ring, K/V
-// reuse across the neighbouring query tiles that share them.
+// reuse across the neighbouring query tiles that share them (under RING a
+// warp-specialised TMA producer keeping a shared-memory ring of chunks full).
 #include "flash_tile.cuh"
 
 namespace {
@@ -62,7 +77,8 @@ using hv::THREADS;
 struct Geometry {
   int T, Hg, Wg;   // token grid
   int tt, th, tw;  // tile
-  int nh, nw;      // tiles along h and w
+  int nt, nh, nw;  // tiles along t, h and w
+  int wt, wh, ww;  // window in tiles (RING)
 };
 
 // Row-major token index of flat position f of tile `tile`, or -1 when the
@@ -76,6 +92,26 @@ __device__ __forceinline__ int token_of(const Geometry& g, int tile, int f) {
   const int w = cc * g.tw + f % g.tw;
   if (t >= g.T || h >= g.Hg || w >= g.Wg) return -1;
   return (t * g.Hg + h) * g.Wg + w;
+}
+
+// RING: the w-major key tile of slot s = (dc*wt + da)*wh + r of row-major
+// query tile `tile` (window column dc, run da, tile r of the run), or -1 when
+// the column or run lies beyond the grid or the tile is outside the
+// h-window. n_slots = (2*(ww/2) + 1) * wt * wh.
+__device__ __forceinline__ int ring_tile(const Geometry& g, int tile, int s) {
+  const int a = tile / (g.nh * g.nw);
+  const int bh = (tile / g.nw) % g.nh;
+  const int cc = tile % g.nw + s / (g.wt * g.wh) - g.ww / 2;
+  const int aa = a + (s / g.wh) % g.wt - g.wt / 2;
+  const int bb = min(max(bh - g.wh / 2, 0), g.nh - g.wh) + s % g.wh;
+  if (cc < 0 || cc >= g.nw || aa < 0 || aa >= g.nt || abs(bb - bh) > g.wh / 2)
+    return -1;
+  return (cc * g.nt + aa) * g.nh + bb;
+}
+
+// The row-major index of w-major tile s.
+__device__ __forceinline__ int row_major_tile(const Geometry& g, int s) {
+  return ((s / g.nh) % g.nt * g.nh + s % g.nh) * g.nw + s / (g.nh * g.nt);
 }
 
 // One int8 scale per (b, h, tile) of x: max(max|x|, 1e-6) / 127 over the
@@ -102,7 +138,7 @@ tile_scales_kernel(const T* __restrict__ x, long long bs, long long rs,
     out[((long long)b * H + h) * gridDim.x + tile] = fmaxf(m, 1e-6f) / 127.f;
 }
 
-template <typename T, int D, bool DIRECT, bool RUNNING, bool QUANT>
+template <typename T, int D, bool DIRECT, bool RUNNING, bool QUANT, bool RING>
 __global__ void __launch_bounds__(THREADS)
 sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, T* __restrict__ o,
@@ -195,10 +231,12 @@ sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // Chunks: k_subs per image slot, then (DIRECT) the text keys.
   const int n_img = n_slots * k_subs;
   const int n_chunks = n_img + (DIRECT ? (Lt + BK - 1) / BK : 0);
-  const int* nbr_q = nbr + (long long)qi * n_slots;
+  const int* nbr_q = RING ? nullptr : nbr + (long long)qi * n_slots;
   for (int ci = 0; ci < n_chunks; ++ci) {
     const bool img = ci < n_img;
-    const int nb = img ? nbr_q[ci / k_subs] : 0;
+    const int nb = !img ? 0
+                   : RING ? ring_tile(geo, qi, ci / k_subs)
+                          : nbr_q[ci / k_subs];
     if (nb < 0) continue;  // uniform across the block
     __syncthreads();       // every warp is done with the previous chunk
     int any = 0;
@@ -209,6 +247,11 @@ sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int j = (ci - n_img) * BK + tid;
         row = j < Lt ? j : -1;
         bias = row < 0 ? NEG_INF : (tb ? tb[(long long)b * Lt + j] : 0.f);
+      } else if (RING) {  // w-major rows; padding tokens are masked
+        const int f = (ci % k_subs) * BK + tid;
+        row = token_of(geo, row_major_tile(geo, nb), f) < 0 ? -1
+                                                             : nb * block + f;
+        bias = row < 0 ? NEG_INF : 0.f;
       } else if (DIRECT) {
         row = token_of(geo, nb, (ci % k_subs) * BK + tid);
         bias = row < 0 ? NEG_INF : (kb ? kb[b * kb_bs + row] : 0.f);
@@ -299,7 +342,7 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D, bool DIRECT, bool RUNNING, bool QUANT>
+template <typename T, int D, bool DIRECT, bool RUNNING, bool QUANT, bool RING>
 cudaError_t launch(const Args& a) {
   if (QUANT) {
     tile_scales_kernel<T, D, DIRECT>
@@ -311,7 +354,7 @@ cudaError_t launch(const Args& a) {
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  auto kern = sta_fwd_kernel<T, D, DIRECT, RUNNING, QUANT>;
+  auto kern = sta_fwd_kernel<T, D, DIRECT, RUNNING, QUANT, RING>;
   const int smem = hv::tile_smem_bytes<T, D>()
                    + (QUANT ? BQ * hv::s8_row<D>() : 0);
   cudaError_t err = cudaFuncSetAttribute(
@@ -329,10 +372,11 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, bool DIRECT, bool RUNNING, bool QUANT>
+template <typename T, bool DIRECT, bool RUNNING, bool QUANT,
+          bool RING = false>
 cudaError_t dispatch_d(int head_dim, const Args& a) {
-  if (head_dim == 128) return launch<T, 128, DIRECT, RUNNING, QUANT>(a);
-  if (head_dim == 64) return launch<T, 64, DIRECT, RUNNING, QUANT>(a);
+  if (head_dim == 128) return launch<T, 128, DIRECT, RUNNING, QUANT, RING>(a);
+  if (head_dim == 64) return launch<T, 64, DIRECT, RUNNING, QUANT, RING>(a);
   return cudaErrorInvalidValue;
 }
 
@@ -380,12 +424,45 @@ extern "C" int hv_sta_attention_fwd(
   if (quant && (sq == nullptr || sk == nullptr)) return cudaErrorInvalidValue;
   const Args a{q, k, v, o, tk, tv, kb, tb, c, nbr, sq, sk, B, H, n_slots,
                Lt, nt * nh * nw, n_ktiles,
-               Geometry{T, Hg, Wg, tt, th, tw, nh, nw}, q_bs, q_rs, k_bs,
+               Geometry{T, Hg, Wg, tt, th, tw, nt, nh, nw, 0, 0, 0}, q_bs,
+               q_rs, k_bs,
                k_rs, v_bs, v_rs, tk_bs, tk_rs, tv_bs, tv_rs, o_bs, o_rs,
                kb_bs, scale, static_cast<cudaStream_t>(stream)};
   if (dtype == 0)
     return dispatch_mode<__nv_bfloat16>(direct, running, quant, head_dim, a);
   if (dtype == 1)
     return dispatch_mode<__half>(direct, running, quant, head_dim, a);
+  return cudaErrorInvalidValue;
+}
+
+// The RING arm (B10). dtype: 0 = bf16, 1 = fp16. q [B, T*Hg*Wg rows]
+// row-major, kp/vp [B, S_pad rows] w-major, o [B, T*Hg*Wg rows], tk/tv
+// [B, Lt rows], each row H*D wide with the given batch and row strides (in
+// elements); tb [B, Lt] and c [B, H] fp32. The tile's token count must be a
+// multiple of 64, gh >= wh and ww >= 2 (the ring gate). Returns the
+// cudaError_t of the launch.
+extern "C" int hv_sta_ring_fwd(
+    int dtype, int head_dim, const void* q, const void* kp, const void* vp,
+    void* o, const void* tk, const void* tv, const float* tb, const float* c,
+    int B, int H, int Lt, int T, int Hg, int Wg, int tt, int th, int tw,
+    int wt, int wh, int ww, long long q_bs, long long q_rs, long long k_bs,
+    long long k_rs, long long v_bs, long long v_rs, long long tk_bs,
+    long long tk_rs, long long tv_bs, long long tv_rs, long long o_bs,
+    long long o_rs, float scale, void* stream) {
+  const int nt = (T + tt - 1) / tt, nh = (Hg + th - 1) / th,
+            nw = (Wg + tw - 1) / tw;
+  if ((tt * th * tw) % BQ != 0 || nh < wh || ww < 2 || tb == nullptr ||
+      c == nullptr)
+    return cudaErrorInvalidValue;
+  const Args a{q, kp, vp, o, tk, tv, nullptr, tb, c, nullptr, nullptr,
+               nullptr, B, H, (2 * (ww / 2) + 1) * wt * wh, Lt,
+               nt * nh * nw, 0,
+               Geometry{T, Hg, Wg, tt, th, tw, nt, nh, nw, wt, wh, ww}, q_bs,
+               q_rs, k_bs, k_rs, v_bs, v_rs, tk_bs, tk_rs, tv_bs, tv_rs,
+               o_bs, o_rs, 0, scale, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0)
+    return dispatch_d<__nv_bfloat16, true, false, false, true>(head_dim, a);
+  if (dtype == 1)
+    return dispatch_d<__half, true, false, false, true>(head_dim, a);
   return cudaErrorInvalidValue;
 }

@@ -6,9 +6,10 @@ both sides, edge-replicate, so frame t never sees frames > t (reference:
 hyvideo/vae/unet_causal_3d_blocks.py:49-75). Tensors stay NDHWC
 [B, T, H, W, C] and kernels [kt, kh, kw, Cin, Cout] at these functions, as
 in the JAX package. Stride-1 3x3x3 convs inside the K3 gate run the CUDA
-kernel of ops/conv3d_cuda.py; the rest (stride-2 downsamplers, the 16- and
-3-channel conv_in/conv_out, 1x1x1 shortcuts) use F.conv3d, as XLA computed
-them outside any Pallas kernel.
+kernel of ops/conv3d_cuda.py (K3); the rest (stride-2 downsamplers, the 16-
+and 3-channel conv_in/conv_out, 1x1x1 shortcuts) use F.conv3d, as XLA
+computed them outside any Pallas kernel. Nothing routes to the temporal-reuse
+kernel B11 (`conv3d_stride1_v2`), as in JAX: the conv probe calls it.
 """
 from __future__ import annotations
 
@@ -44,13 +45,26 @@ def replicate_pad_t(x: torch.Tensor, before: int, after: int = 0
 
 def causal_conv3d(x: torch.Tensor, kernel: torch.Tensor,
                   bias: Optional[torch.Tensor] = None,
-                  stride: Tuple[int, int, int] = (1, 1, 1)) -> torch.Tensor:
+                  stride: Tuple[int, int, int] = (1, 1, 1),
+                  impl: str = "auto") -> torch.Tensor:
     """Causal conv of [B, T, H, W, Cin] with kernel [kt, kh, kw, Cin, Cout]
     (exactly F.pad(..., (kw//2, kw//2, kh//2, kh//2, kt-1, 0),
-    mode='replicate') then a valid conv)."""
+    mode='replicate') then a valid conv).
+
+    impl (JAX ops/conv3d.py:causal_conv3d): "auto" takes K3 inside its gate
+    and F.conv3d outside it; "cuda" (JAX's "pallas") takes K3 and raises
+    outside the gate; "3d" takes F.conv3d. JAX's "t2d" is an XLA:TPU layout
+    choice and is not carried over."""
+    if impl not in ("auto", "cuda", "3d"):
+        raise ValueError(f"causal_conv3d impl={impl!r}: expected 'auto', "
+                         f"'cuda' or '3d'")
     kt, kh, kw = kernel.shape[:3]
     xp = replicate_pad(x, (kt - 1, 0), (kh // 2, kh // 2), (kw // 2, kw // 2))
-    if conv_applicable(kernel.shape, stride):
+    gated = conv_applicable(kernel.shape, stride)
+    if impl == "cuda" and not gated:
+        raise ValueError(f"the K3 conv gate rejects kernel "
+                         f"{tuple(kernel.shape)} stride {tuple(stride)}")
+    if gated and impl != "3d":
         return conv3d_stride1(xp, kernel, bias)
     out = F.conv3d(xp.permute(0, 4, 1, 2, 3),
                    kernel.to(x.dtype).permute(4, 3, 0, 1, 2),

@@ -1,10 +1,13 @@
-"""Implicit-GEMM stride-1 3x3x3 conv of a pre-padded NDHWC input (kernel K3).
+"""Implicit-GEMM stride-1 3x3x3 conv of a pre-padded NDHWC input (kernels
+K3 and B11).
 
 Counterpart of the JAX package's ops/conv3d_pallas.py. `conv3d_stride1`
 runs the CUDA kernel of `csrc/conv3d.cu` (which replaces the Pallas kernel
-`_conv_kernel`) on CUDA tensors and its plain PyTorch version
-`conv3d_stride1_plain` on CPU tensors; any other device raises.
-`conv3d_stride1.LAUNCHES` counts kernel launches.
+`_conv_kernel`) and `conv3d_stride1_v2` the one of `csrc/conv3d_v2.cu`
+(which replaces `_conv_kernel_v2`: the same function, each input frame read
+once per sweep over T) on CUDA tensors; both run the plain PyTorch version
+`conv3d_stride1_plain` on CPU tensors; any other device raises. Each
+wrapper's `LAUNCHES` counts its kernel's launches.
 
 Bound on the H100: 2*27*Cin*Cout*B*T*H*W tensor-core operations (989
 TFLOP/s fp16) against one read of the input and one write of the output,
@@ -53,7 +56,7 @@ def conv3d_stride1_plain(xp: torch.Tensor, kernel: torch.Tensor,
     return out.to(xp.dtype)
 
 
-def _launch(xp, kernel, bias):
+def _launch(xp, kernel, bias, v2=False):
     if not xp.is_cuda or not kernel.is_cuda:
         raise ValueError(f"conv3d kernel: input on {xp.device}, weights on "
                          f"{kernel.device}; both must be on a CUDA device")
@@ -71,12 +74,13 @@ def _launch(xp, kernel, bias):
     wt = kernel.to(xp.dtype).permute(0, 1, 2, 4, 3).contiguous()
     bf = bias.to(torch.float32).contiguous() if bias is not None else None
     out = torch.empty((b, t, h, w, cout), dtype=xp.dtype, device=xp.device)
-    lib = cuda_lib.library("conv3d")
-    err = lib.hv_conv3d_stride1(
-        _DTYPE_CODE[xp.dtype], xp.data_ptr(), wt.data_ptr(),
-        bf.data_ptr() if bf is not None else None, out.data_ptr(),
-        b, t, h, w, cin, cout, cuda_lib.stream_ptr(xp.device))
-    cuda_lib.check(err, "conv3d")
+    name = "conv3d_v2" if v2 else "conv3d"
+    lib = cuda_lib.library(name)
+    fn = lib.hv_conv3d_stride1_v2 if v2 else lib.hv_conv3d_stride1
+    err = fn(_DTYPE_CODE[xp.dtype], xp.data_ptr(), wt.data_ptr(),
+             bf.data_ptr() if bf is not None else None, out.data_ptr(),
+             b, t, h, w, cin, cout, cuda_lib.stream_ptr(xp.device))
+    cuda_lib.check(err, name)
     return out
 
 
@@ -92,3 +96,18 @@ def conv3d_stride1(xp: torch.Tensor, kernel: torch.Tensor,
 
 
 conv3d_stride1.LAUNCHES = 0
+
+
+def conv3d_stride1_v2(xp: torch.Tensor, kernel: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """B11 wrapper, K3's contract: xp [B, T+2, H+2, W+2, Cin] (already
+    causally padded), kernel [3, 3, 3, Cin, Cout] with Cin and Cout
+    multiples of 128, bias [Cout] -> [B, T, H, W, Cout]."""
+    if xp.device.type == "cpu":
+        return conv3d_stride1_plain(xp, kernel, bias)
+    out = _launch(xp, kernel, bias, v2=True)
+    conv3d_stride1_v2.LAUNCHES += 1
+    return out
+
+
+conv3d_stride1_v2.LAUNCHES = 0

@@ -38,9 +38,15 @@ SIGNATURES = {
         "hv_conv3d_stride1": (
             _I, [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     },
+    "conv3d_v2": {
+        "hv_conv3d_stride1_v2": (
+            _I, [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    },
     "sta_attention": {
         "hv_sta_attention_fwd": (
             _I, [_I] * 5 + [_P] * 12 + [_I] * 11 + [_LL] * 13 + [_F, _P]),
+        "hv_sta_ring_fwd": (
+            _I, [_I] * 2 + [_P] * 8 + [_I] * 12 + [_LL] * 12 + [_F, _P]),
     },
     "flash_int8": {
         "hv_flash_int8_fwd": (

@@ -28,6 +28,14 @@ count:
   its text blocks like image key tiles. The two arms compute different
   functions, and each wrapper follows its JAX arm.
 
+A sixth, `sta_ring` (the `RING` flag of `csrc/sta_attention.cu`), replaces
+`_sta_ring_kernel`: the direct static arm with K/V in w-major tile order
+(`_permute_tokens_cols`), so that a query tile's window column is wt
+contiguous runs of wh tiles, and the validity computed in the kernel
+(`ring_plan` describes it on the host for the plain version
+`sta_ring_plain`). `set_sta_ring(True)` makes it the direct arm's default
+where the geometry admits it.
+
 On CPU tensors each wrapper runs the plain version (`sta_attention_plain`,
 built on `sta_permuted_plain`): neighbour tiles gathered per chunk of query
 tiles, fp32 scores from the model-dtype inputs (or exact int8 products
@@ -191,6 +199,78 @@ def sta_reference_mask(grid, tile, window, s_img):
     return tmask[tile_id[:, None], tile_id[None, :]]
 
 
+def _padded_grid(grid, tile):
+    return tuple(_ceil(n, k) * k for n, k in zip(grid, tile))
+
+
+def _permute_tokens_cols(x, grid, tile, padded_grid):
+    """[B, S_img, H, D] row-major -> [B, S_pad, H*D] zero-padded, in w-MAJOR
+    tile order (tile index s = (c*gt + a)*gh + b): one window column of a
+    query tile, the tiles (a + da, wh rows from the clamped start, c), is
+    wt contiguous runs of wh tiles (the ring kernel's operand layout)."""
+    b, s, hh, d = x.shape
+    tp, hp, wp = padded_grid
+    tt, th, tw = tile
+    xg = _pad_tokens_5d(x, grid, padded_grid)
+    xg = xg.reshape(b, tp // tt, tt, hp // th, th, wp // tw, tw, hh * d)
+    xg = xg.permute(0, 5, 1, 3, 2, 4, 6, 7)   # b, gw, gt, gh, tt, th, tw
+    return xg.reshape(b, tp * hp * wp, hh * d)
+
+
+def _cols_img_bias(grid, tile, padded_grid) -> np.ndarray:
+    """Token validity (0 / NEG_INF) over the w-major order of
+    `_permute_tokens_cols`, [S_pad] fp32 (host numpy)."""
+    t, h, w = grid
+    tt, th, tw = tile
+    tp, hp, wp = padded_grid
+    v = np.zeros((tp, hp, wp), np.float32)
+    v[:t, :h, :w] = 1.0
+    v = v.reshape(tp // tt, tt, hp // th, th, wp // tw, tw)
+    v = v.transpose(4, 0, 2, 1, 3, 5).reshape(-1)
+    return np.where(v > 0, 0.0, NEG_INF).astype(np.float32)
+
+
+def ring_geometry_ok(grid, tile, window) -> bool:
+    """The ring kernel's geometry gate (JAX sta.py:1454-1463): at least wh
+    tile rows for the clamped h-runs, and a window at least 2 columns
+    wide."""
+    gh = _ceil(grid[1], tile[1])
+    return gh >= window[1] and window[2] >= 2
+
+
+@functools.lru_cache(maxsize=16)
+def ring_plan(grid, tile, window):
+    """The key set of each query tile under the ring kernel (host numpy):
+    for query tile (a, bh, cw) in row-major tile order, its window columns
+    cw + dc, each as wt runs (da) of wh tiles from the clamped start
+    sb = clip(bh - wh//2, 0, gh - wh). Returns the w-major row of every key
+    [n_tiles, ncol*wt*wh*block] (int64; out-of-range runs clamped to a real
+    one) and its bias (0, or NEG_INF outside the h-window, beyond the grid
+    in t or in columns, or on a padding token), the validity of JAX's
+    `col_bias` (sta.py:1048-1073)."""
+    t, h, w = grid
+    tt, th, tw = tile
+    wt, wh, ww = window
+    gt, gh, gw = _ceil(t, tt), _ceil(h, th), _ceil(w, tw)
+    block = tt * th * tw
+    a, bh, cw = (x.reshape(-1, 1, 1, 1, 1) for x in np.meshgrid(
+        np.arange(gt), np.arange(gh), np.arange(gw), indexing="ij"))
+    dc = np.arange(-(ww // 2), ww // 2 + 1).reshape(1, -1, 1, 1, 1)
+    da = np.arange(wt).reshape(1, 1, -1, 1, 1)
+    r = np.arange(wh).reshape(1, 1, 1, -1, 1)
+    tok = np.arange(block).reshape(1, 1, 1, 1, -1)
+    cc, aa = cw + dc, a + da - wt // 2
+    bb = np.clip(bh - wh // 2, 0, gh - wh) + r
+    rows = ((np.clip(cc, 0, gw - 1) * gt + np.clip(aa, 0, gt - 1)) * gh
+            + bb) * block + tok
+    ok = ((cc >= 0) & (cc < gw) & (aa >= 0) & (aa < gt)
+          & (np.abs(bb - bh) <= wh // 2))
+    tok_bias = _cols_img_bias(grid, tile, _padded_grid(grid, tile))
+    bias = np.where(ok, tok_bias[rows], NEG_INF).astype(np.float32)
+    n = gt * gh * gw
+    return rows.reshape(n, -1), bias.reshape(n, -1)
+
+
 def _tile_rows(grid, plan) -> np.ndarray:
     """Valid tokens of each tile, [n_tiles] (host numpy)."""
     valid = _valid_tokens(grid, plan["padded_grid"]).reshape(-1)
@@ -352,6 +432,59 @@ def sta_attention_plain(img_q, img_k, img_v, txt_k, txt_v, txt_bias, grid,
     out = sta_permuted_plain(qp, kcat, vcat, kb, grid, tile, window, scale,
                              c, qk_int8, txt_int8=False)
     return _unpermute_tokens(out, tuple(grid), plan)
+
+
+def sta_ring_plain(q5, kp, vp, txt_k, txt_v, txt_bias, c, grid, tile,
+                   window, scale: float) -> torch.Tensor:
+    """The ring kernel's function from its own operands, in plain PyTorch:
+    q5 [B, T, H, W, H*D] row-major queries; kp/vp [B, S_pad, H*D] w-major
+    (`_permute_tokens_cols`); txt_k/txt_v [B, Lt, H*D]; txt_bias [B, Lt]
+    fp32; c [B, heads] static offsets. Each query tile gathers its window
+    columns as wt runs of wh tiles (`ring_plan`), masked as the kernel masks
+    them, then the text keys; p = exp(s*scale + (bias - c)), rounded to V's
+    type before P.V, out = acc / max(l, 1e-37). PLAIN_TILE_CHUNK query
+    tiles at a time. Returns [B, T, H, W, H*D]."""
+    grid, tile, window = tuple(grid), tuple(tile), tuple(window)
+    if not ring_geometry_ok(grid, tile, window):
+        raise ValueError(f"sta_ring: grid {grid} with tile {tile} has fewer "
+                         f"h-tiles than window {window} needs, or ww < 2")
+    b, hd = q5.shape[0], q5.shape[-1]
+    hh = c.shape[1]
+    d = hd // hh
+    lt = txt_k.shape[1]
+    plan = tile_plan(grid, tile, window, 0)
+    n_tiles, block = plan["n_tiles"], plan["tokens_per_tile"]
+    rows, kbias = (torch.from_numpy(x).to(q5.device)
+                   for x in ring_plan(grid, tile, window))
+    n_keys = rows.shape[1]
+    qt = _permute_tokens(q5.reshape(b, -1, hh, d), grid, tile, plan).reshape(
+        b, n_tiles, block, hh, d)
+    tk = txt_k.reshape(b, lt, hh, d).float()
+    tv = txt_v.reshape(b, lt, hh, d).float()
+    tb = txt_bias.float()[:, None, None, None, :]
+    off = c.float()[:, None, :, None, None]
+    out = torch.empty((b, n_tiles, block, hd), dtype=q5.dtype,
+                      device=q5.device)
+    for t0 in range(0, n_tiles, PLAIN_TILE_CHUNK):
+        t1 = min(t0 + PLAIN_TILE_CHUNK, n_tiles)
+        cn = t1 - t0
+        kg = kp[:, rows[t0:t1]].reshape(b, cn, n_keys, hh, d).float()
+        vg = vp[:, rows[t0:t1]].reshape(b, cn, n_keys, hh, d).float()
+        q = qt[:, t0:t1].float()
+        s = torch.cat([
+            torch.einsum("bcqhd,bckhd->bchqk", q, kg) * scale
+            + kbias[None, t0:t1, None, None, :],
+            torch.einsum("bcqhd,blhd->bchql", q, tk) * scale + tb], dim=-1)
+        p = torch.exp(s - off)
+        l = p.sum(dim=-1)
+        p = p.to(vp.dtype).float()
+        o = (torch.einsum("bchqk,bckhd->bchqd", p[..., :n_keys], vg)
+             + torch.einsum("bchql,blhd->bchqd", p[..., n_keys:], tv))
+        o = o / l.clamp_min(1e-37)[..., None]
+        out[:, t0:t1] = o.permute(0, 1, 3, 2, 4).reshape(
+            b, cn, block, hd).to(q5.dtype)
+    return _unpermute_tokens(out.reshape(b, -1, hd), grid, plan).reshape(
+        b, *grid, hd)
 
 
 # --------------------------------------------------------------------------
@@ -554,6 +687,63 @@ def sta_permuted_running(qp, kcat, vcat, kb, grid, tile, window,
 sta_permuted_running.LAUNCHES = 0
 
 
+def sta_ring(q5, kp, vp, txt_k, txt_v, txt_bias, c, grid, tile, window,
+             scale: float) -> torch.Tensor:
+    """B10: static-offset STA reading K/V as contiguous window-column runs
+    of the w-major layout, validity computed in the kernel from the geometry
+    (no neighbour table, no key-bias operand). q5 [B, T, H, W, H*D]
+    row-major; kp/vp [B, S_pad, H*D] from `_permute_tokens_cols`;
+    txt_k/txt_v [B, Lt, H*D]; txt_bias [B, Lt] fp32; c [B, heads] fp32
+    (heads = c.shape[1]). Returns [B, T, H, W, H*D]. Kernel on CUDA
+    tensors, `sta_ring_plain` on CPU tensors."""
+    grid, tile, window = tuple(grid), tuple(tile), tuple(window)
+    if q5.device.type == "cpu":
+        return sta_ring_plain(q5, kp, vp, txt_k, txt_v, txt_bias, c, grid,
+                              tile, window, scale)
+    name = "sta_ring"
+    _check(name, (("q5", q5), ("kp", kp), ("vp", vp), ("txt_k", txt_k),
+                  ("txt_v", txt_v)), q5.dtype)
+    b, hd = q5.shape[0], q5.shape[-1]
+    hh = c.shape[1]
+    d = hd // hh
+    lt = txt_k.shape[1]
+    block = _geometry(name, grid, tile, d)
+    s_pad = int(np.prod(_padded_grid(grid, tile)))
+    if not ring_geometry_ok(grid, tile, window):
+        raise ValueError(f"{name}: grid {grid} with tile {tile} fails the "
+                         f"ring gate for window {window}")
+    if q5.shape != (b, *grid, hh * d) or kp.shape != (b, s_pad, hd) \
+            or vp.shape != kp.shape or txt_k.shape != (b, lt, hd) \
+            or txt_v.shape != txt_k.shape or txt_bias.shape != (b, lt) \
+            or c.shape != (b, hh):
+        raise ValueError(f"{name}: bad shapes q5 {tuple(q5.shape)} kp "
+                         f"{tuple(kp.shape)} txt {tuple(txt_k.shape)} "
+                         f"bias {tuple(txt_bias.shape)} c {tuple(c.shape)} "
+                         f"for grid {grid}, tile {tile}")
+    n_img = grid[0] * grid[1] * grid[2]
+    q = _as_rows(q5.reshape(b, n_img, hh, d))
+    k, v = (_as_rows(x.reshape(b, s_pad, hh, d)) for x in (kp, vp))
+    tk, tv = (_as_rows(x.reshape(b, lt, hh, d)) for x in (txt_k, txt_v))
+    tb = txt_bias.float().contiguous()
+    cc = c.float().contiguous()
+    out = torch.empty((b, *grid, hd), dtype=q5.dtype, device=q5.device)
+    lib = cuda_lib.library("sta_attention")
+    err = lib.hv_sta_ring_fwd(
+        _DTYPE_CODE[q5.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), tk.data_ptr(), tv.data_ptr(), tb.data_ptr(),
+        cc.data_ptr(), b, hh, lt, *grid, *tile, *window,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+        v.stride(1), tk.stride(0), tk.stride(1), tv.stride(0), tv.stride(1),
+        out.stride(0), out.stride(3), float(scale),
+        cuda_lib.stream_ptr(q5.device))
+    cuda_lib.check(err, name)
+    sta_ring.LAUNCHES += 1
+    return out
+
+
+sta_ring.LAUNCHES = 0
+
+
 # --------------------------------------------------------------------------
 # dispatch
 # --------------------------------------------------------------------------
@@ -580,6 +770,34 @@ def txt_merge_attention(txt_q, kp, vp, img_bias, txt_k, txt_v, txt_bias,
 def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported to the PyTorch package "
                               f"yet")
+
+
+_STA_RING = False
+
+
+def set_sta_ring(on: bool) -> None:
+    """Default for sta_joint_attention(ring=None), so the DiT needs no
+    plumbing: route the static direct arm through the ring kernel
+    (`sta_ring`, B10) when the geometry admits it. Read at every call."""
+    global _STA_RING
+    _STA_RING = bool(on)
+
+
+def _ring_image(img_q, img_k, img_v, txt_k, txt_v, txt_bias, c, grid, tile,
+                window, scale):
+    """The image queries through `sta_ring`: the w-major K/V copies, the
+    row-major queries as a 5-d view, the text flattened to [B, Lt, H*D]."""
+    b, s_img, hh, d = img_q.shape
+    lt = txt_k.shape[1]
+    pg = _padded_grid(grid, tile)
+    kp = _permute_tokens_cols(img_k, grid, tile, pg)
+    vp = _permute_tokens_cols(img_v, grid, tile, pg)
+    tb = (txt_bias.reshape(b, lt).float() if txt_bias is not None
+          else torch.zeros((b, lt), device=img_q.device))
+    out5 = sta_ring(img_q.reshape(b, *grid, hh * d), kp, vp,
+                    txt_k.reshape(b, lt, hh * d), txt_v.reshape(b, lt, hh * d),
+                    tb, c, grid, tile, window, scale)
+    return out5.reshape(b, s_img, hh * d)
 
 
 def sta_joint_attention(
@@ -622,21 +840,28 @@ def sta_joint_attention(
     bound is inflated by `int8_bound_inflation` for the image and the text
     queries alike (the text queries stay bf16 flash).
 
+    ring (None: the module default, `set_sta_ring`): the static direct arm
+    takes `sta_ring` (B10) instead of `sta_direct` when JAX's gate admits
+    the call (sta.py:1454-1463): no qk_int8, no slot_block, no
+    img_key_bias, at least wh tile rows and a window at least 2 columns
+    wide; otherwise it takes `sta_direct`, as JAX does. The text queries of
+    the ring arm read the unpadded image keys (`txt_merge_attention`, as
+    the direct arm; JAX's card branch merges over the w-major copies, the
+    same function since full attention does not depend on key order).
+
     score_bound: bound on |q.k|*scale broadcastable to [B, H]; without one
     the Cauchy-Schwarz bound of the image-query and all-key row norms.
     img_key_bias: optional additive fp32 [B, S_img] on the image keys, for
     image and text queries alike. plain=True routes the image queries to
     `sta_attention_plain` (a reference for checks on the card).
     slot_block, head_block: accepted for signature parity with the JAX
-    function; the CUDA kernel's tiles are fixed at 64 x 64.
-    ring and lane_rotate (TPU DMA-elision plans) are not ported.
+    function; the CUDA kernels' tiles are fixed at 64 x 64.
+    lane_rotate (a TPU DMA-elision plan) is not ported.
     """
-    del slot_block, head_block
+    del head_block
     if qk_int8 and bound_mode != "static":
         raise ValueError("sta qk_int8 requires bound_mode='static' "
                          "(QK-norm score bound)")
-    if ring:
-        _not_ported("the STA ring-buffer kernel (ring=True)")
     if lane_rotate not in (None, False):
         _not_ported(f"STA lane rotation (lane_rotate={lane_rotate!r})")
     b, s_img, hh, d = img_q.shape
@@ -658,10 +883,16 @@ def sta_joint_attention(
 
     if bound_mode == "static" and direct and fused:
         c = static_bound()
+        use_ring = ((_STA_RING if ring is None else ring) and not qk_int8
+                    and slot_block is None and img_key_bias is None
+                    and ring_geometry_ok(grid, tile, window))
         if plain:
             img_out = sta_attention_plain(img_q, img_k, img_v, txt_k, txt_v,
                                           txt_bias, grid, tile, window, scale,
                                           c, img_key_bias, qk_int8=qk_int8)
+        elif use_ring:
+            img_out = _ring_image(img_q, img_k, img_v, txt_k, txt_v,
+                                  txt_bias, c, grid, tile, window, scale)
         else:
             fn = sta_direct_int8 if qk_int8 else sta_direct
             img_out = fn(img_q, img_k, img_v, txt_k, txt_v, txt_bias, c, grid,

@@ -2,7 +2,7 @@
 
     python3 scripts/torch_profile.py [--steps 2]
     python3 scripts/torch_profile.py --attn-mode sta --sta-dense-blocks 1 \
-        --height 544 --width 960 --frames 65
+        --height 544 --width 960 --frames 65 [--sta-ring]
     python3 scripts/torch_profile.py --use-int8 --attn-mode flash_int8 \
         --text-encoder-quant int8
 
@@ -12,7 +12,8 @@
 Builds the sampler as chip_smoke.py's main paths do (HYVideo-T/2 at full
 width, Llama-3-8B + CLIP-L, the 884-16c-hy VAE, random weights; by default
 dense bf16 attention at 256x448, 33 frames; the weight tiers and int8
-attention modes by the CLI's flags; CFG 6.0) and splits predict() into
+attention modes by the CLI's flags; --sta-ring switches the STA blocks to
+the ring kernel with sta.set_sta_ring(True); CFG 6.0) and splits predict() into
 its three stages: text
 encoding, the denoise loop, the tiled VAE decode. Each stage runs once to
 warm up, once on the host clock (synchronized) and once under
@@ -48,12 +49,16 @@ from chip_smoke import (FRAMES, HEIGHT, TRAIN_LATENT,  # noqa: E402
 from hunyuanvideo_efficiency_tpu_torch.config import InferenceArgs  # noqa: E402
 from hunyuanvideo_efficiency_tpu_torch.inference import (  # noqa: E402
     HunyuanVideoSampler, get_rotary_pos_embed)
+from hunyuanvideo_efficiency_tpu_torch.ops import sta  # noqa: E402
 
 
 # the LSE instantiation of csrc/flash_attention.cu's forward template:
 # flash_fwd_kernel<T, D, RUNNING=true, LSE=true>
 LSE_FORWARD = re.compile(
     r"flash_fwd_kernel<[^>]*(true|\(bool\)1), (true|\(bool\)1)>")
+# the RING instantiation of csrc/sta_attention.cu's forward template:
+# sta_fwd_kernel<T, D, DIRECT, RUNNING, QUANT, RING=true>
+RING_STA = re.compile(r"sta_fwd_kernel<[^>]*(true|\(bool\)1)>")
 
 
 def category(name: str) -> str:
@@ -70,10 +75,14 @@ def category(name: str) -> str:
         return "int8 flash attention (B8a/B8b)"
     if "w8a8" in low or "quant_rows_kernel" in low:
         return "W8A8 linear (B9)"
+    if RING_STA.search(low):
+        return "STA ring (B10)"
     if "sta_fwd_kernel" in low or "tile_scales_kernel" in low:
         return "sliding-tile attention (STA)"
     if "conv3d_s1_kernel" in low:
         return "conv3d (K3)"
+    if "conv3d_v2_kernel" in low:
+        return "conv3d v2 (B11)"
     if "cudnn" in low or "fprop" in low:
         return "other conv (cuDNN)"
     if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
@@ -170,6 +179,8 @@ def main():
     ap.add_argument("--attn-mode", default="auto",
                     choices=["auto", "sta", "flash_int8", "sta_int8"])
     ap.add_argument("--sta-dense-blocks", type=int, default=0)
+    ap.add_argument("--sta-ring", action="store_true",
+                    help="the STA blocks through the ring kernel (B10)")
     ap.add_argument("--use-fp8", action="store_true")
     ap.add_argument("--use-int8", action="store_true")
     ap.add_argument("--use-int4-modulation", action="store_true")
@@ -205,6 +216,7 @@ def main():
     sampler = HunyuanVideoSampler.from_pretrained(args=args,
                                                   allow_random_init=True)
     randomize_modulation(sampler.transformer, 3)
+    sta.set_sta_ring(a.sta_ring)
     pipe, dev = sampler.pipeline, sampler.device
     prompt = "A cat walks on the grass, realistic style."
     cos, sin, (tt, th, tw) = get_rotary_pos_embed(
@@ -239,7 +251,8 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     print(f"[env] card={smi} torch={torch.__version__} steps={a.steps} "
           f"size={a.height}x{a.width}x{a.frames} attn_mode={a.attn_mode} "
-          f"sta_dense_blocks={a.sta_dense_blocks} use_fp8={a.use_fp8} "
+          f"sta_dense_blocks={a.sta_dense_blocks} sta_ring={a.sta_ring} "
+          f"use_fp8={a.use_fp8} "
           f"use_int8={a.use_int8} "
           f"use_int4_modulation={a.use_int4_modulation} "
           f"text_encoder_quant={a.text_encoder_quant}", flush=True)

@@ -10,10 +10,11 @@ import pytest
 import torch
 
 from hunyuanvideo_efficiency_tpu_torch.ops.conv3d_cuda import (
-    conv3d_stride1, conv3d_stride1_plain)
+    conv3d_stride1, conv3d_stride1_plain, conv3d_stride1_v2)
 from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_plain, flash_running, flash_static,
     merge_flash_states)
+from hunyuanvideo_efficiency_tpu_torch.ops.sta import ring_geometry_ok
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-2
@@ -100,6 +101,38 @@ def test_conv3d_kernel_matches_plain(dev, dtype, shape):
                                rtol=TOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 3, 8, 16, 128, 128),
+                                   (2, 2, 13, 21, 256, 128),
+                                   (1, 2, 9, 9, 128, 256),
+                                   (1, 1, 8, 16, 128, 128),
+                                   (2, 3, 10, 20, 128, 128),
+                                   (1, 7, 17, 9, 256, 256)])
+def test_conv3d_v2_kernel_matches_plain_and_k3(dev, dtype, shape):
+    """B11 against the plain version and against K3 on the same input: K3's
+    test shapes, T = 1, 2 and 3 (a sweep shorter than the three taps) and a
+    longer one with ragged H and W tiles."""
+    b, t, h, w, cin, cout = shape
+    g = torch.Generator(dev).manual_seed(11)
+    xp = torch.randn(b, t + 2, h + 2, w + 2, cin, generator=g,
+                     device=dev).to(dtype)
+    kern = (torch.randn(3, 3, 3, cin, cout, generator=g, device=dev)
+            / (27 * cin) ** 0.5).to(dtype)
+    bias = torch.randn(cout, generator=g, device=dev).to(dtype)
+    n0 = (conv3d_stride1_v2.LAUNCHES, conv3d_stride1.LAUNCHES)
+    out = conv3d_stride1_v2(xp, kern, bias)
+    k3 = conv3d_stride1(xp, kern, bias)
+    ref = conv3d_stride1_plain(xp, kern, bias)
+    torch.cuda.synchronize()
+    assert (conv3d_stride1_v2.LAUNCHES, conv3d_stride1.LAUNCHES) == \
+        (n0[0] + 1, n0[1] + 1)
+    assert out.dtype == dtype and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=2 * TOL,
+                               rtol=TOL)
+    torch.testing.assert_close(out.float(), k3.float(), atol=2 * TOL,
+                               rtol=TOL)
+
+
 def _sta_inputs(dev, dtype, grid, d, lt, txt_valid, seed=3):
     """Row-major STA inputs: unit-norm q/k times 4 (|s| <= 16/sqrt(d)), the
     static offset that bounds them, text keys of which `txt_valid` are
@@ -180,6 +213,74 @@ def test_sta_kernels_match_plain(dev, dtype, d, case):
                                    scale, c)
     torch.testing.assert_close(padded.float(), plain.float(), atol=TOL,
                                rtol=TOL)
+
+
+# the STA_CASES that pass the ring gate (gh >= wh, ww >= 2), and one with
+# a (1, 3, 3) window whose two w-tiles leave a column out at each edge
+RING_CASES = [c for c in STA_CASES if ring_geometry_ok(*c[:3])] + [
+    ((4, 12, 16), (2, 4, 8), (1, 3, 3), 64, 30)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", RING_CASES)
+def test_sta_ring_kernel_matches_plain_and_direct(dev, dtype, d, case):
+    """B10 on its w-major operands against sta_ring_plain, and against B4
+    (sta_direct, the same function for odd windows) on the row-major
+    inputs."""
+    from hunyuanvideo_efficiency_tpu_torch.ops import sta
+
+    grid, tile, window, lt, txt_valid = case
+    (iq, ik, iv), (_, tk, tv), tb, c = _sta_inputs(dev, dtype, grid, d, lt,
+                                                   txt_valid, seed=9)
+    b, s, h, _ = iq.shape
+    scale = d ** -0.5
+    pg = sta._padded_grid(grid, tile)
+    kp = sta._permute_tokens_cols(ik, grid, tile, pg)
+    vp = sta._permute_tokens_cols(iv, grid, tile, pg)
+    args = (iq.reshape(b, *grid, h * d), kp, vp, tk.reshape(b, lt, h * d),
+            tv.reshape(b, lt, h * d), tb.reshape(b, lt), c, grid, tile,
+            window, scale)
+    n0 = sta.sta_ring.LAUNCHES
+    out = sta.sta_ring(*args)
+    ref = sta.sta_ring_plain(*args)
+    direct = sta.sta_direct(iq, ik, iv, tk, tv, tb, c, grid, tile, window,
+                            scale).reshape(out.shape)
+    torch.cuda.synchronize()
+    assert sta.sta_ring.LAUNCHES == n0 + 1
+    assert out.dtype == dtype and out.shape == ref.shape == (b, *grid, h * d)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(out.float(), direct.float(), atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("ring_case", [True, False],
+                         ids=["ring_gate", "gate_rejects"])
+def test_sta_ring_dispatch_counts(dev, ring_case):
+    """set_sta_ring(True): a geometry inside the gate launches sta_ring and
+    not sta_direct; one outside it (gh = 2 < wh = 3) launches sta_direct;
+    the image outputs agree with the ring switched off."""
+    from hunyuanvideo_efficiency_tpu_torch.ops import sta
+
+    grid, tile, window, lt, txt_valid = (RING_CASES[0] if ring_case
+                                         else STA_CASES[1])
+    assert ring_geometry_ok(grid, tile, window) == ring_case
+    img, txt, tb, c = _sta_inputs(dev, torch.bfloat16, grid, 128, lt,
+                                  txt_valid, seed=10)
+    kw = dict(grid=grid, tile=tile, window=window, bound_mode="static",
+              score_bound=c)
+    off = sta.sta_joint_attention(*img, *txt, tb, **kw)
+    n0 = (sta.sta_ring.LAUNCHES, sta.sta_direct.LAUNCHES)
+    sta.set_sta_ring(True)
+    try:
+        on = sta.sta_joint_attention(*img, *txt, tb, **kw)
+    finally:
+        sta.set_sta_ring(False)
+    torch.cuda.synchronize()
+    assert (sta.sta_ring.LAUNCHES - n0[0], sta.sta_direct.LAUNCHES - n0[1]) \
+        == ((1, 0) if ring_case else (0, 1))
+    for x, y in zip(on, off):
+        torch.testing.assert_close(x.float(), y.float(), atol=TOL, rtol=TOL)
 
 
 @pytest.mark.parametrize("kw", [dict(direct=False), dict(fused=False)])

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from hunyuanvideo_efficiency_tpu_torch.ops import cuda_lib
-from hunyuanvideo_efficiency_tpu_torch.ops.conv3d_cuda import conv3d_stride1
+from hunyuanvideo_efficiency_tpu_torch.ops.conv3d_cuda import (
+    conv3d_stride1, conv3d_stride1_v2)
 from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
     flash_int8_running, flash_int8_static, flash_running, flash_static)
 from hunyuanvideo_efficiency_tpu_torch.ops.flash_backward import (
@@ -18,7 +19,7 @@ from hunyuanvideo_efficiency_tpu_torch.ops.flash_backward import (
 from hunyuanvideo_efficiency_tpu_torch.ops.int8_matmul import w8a8_linear
 from hunyuanvideo_efficiency_tpu_torch.ops.sta import (
     sta_direct, sta_direct_int8, sta_permuted_running, sta_permuted_static,
-    sta_permuted_static_int8)
+    sta_permuted_static_int8, sta_ring)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "hunyuanvideo_efficiency_tpu_torch"
@@ -66,6 +67,15 @@ def test_training_path_modules_are_covered():
         assert f"hunyuanvideo_efficiency_tpu_torch/{mod}" in names
 
 
+def test_probe_modules_are_covered():
+    """The entry points that run the ring and temporal-reuse kernels are
+    among the checked sources."""
+    names = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    for mod in ("probes/__init__.py", "probes/conv_probe.py",
+                "probes/sta_kernel_bench.py"):
+        assert f"hunyuanvideo_efficiency_tpu_torch/{mod}" in names
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -92,7 +102,7 @@ def test_off_cpu_tensors_never_fall_back():
                sta_permuted_static, sta_permuted_running, w8a8_linear,
                flash_int8_static, flash_int8_running, sta_direct_int8,
                sta_permuted_static_int8, flash_fwd_lse, flash_bwd_dq,
-               flash_bwd_dkv)
+               flash_bwd_dkv, sta_ring, conv3d_stride1_v2)
     counts = [fn.LAUNCHES for fn in kernels]
     do = torch.empty((1, 64, 128), dtype=torch.bfloat16, device="meta")
     stat = torch.empty((1, 2, 64), device="meta")
@@ -108,6 +118,8 @@ def test_off_cpu_tensors_never_fall_back():
         flash_running(q, q, q, None, 0.125)
     with pytest.raises(ValueError, match="CUDA"):
         conv3d_stride1(xp, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        conv3d_stride1_v2(xp, w)
     geom = ((1, 8, 8), (1, 8, 8), (3, 3, 3))
     with pytest.raises(ValueError, match="CUDA"):
         sta_direct(q, q, q, q, q, None, c, *geom, 0.125)
@@ -118,6 +130,11 @@ def test_off_cpu_tensors_never_fall_back():
         sta_permuted_running(q, q, q, kb, *geom, 0.125)
     with pytest.raises(ValueError, match="CUDA"):
         sta_direct_int8(q, q, q, q, q, None, c, *geom, 0.125)
+    q5 = torch.empty((1, 1, 8, 8, 128), dtype=torch.bfloat16, device="meta")
+    rows = torch.empty((1, 64, 128), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        sta_ring(q5, rows, rows, rows, rows, kb, c, (1, 8, 8), (1, 8, 8),
+                 (1, 1, 3), 0.125)
     with pytest.raises(ValueError, match="CUDA"):
         sta_permuted_static_int8(q, q, q, kb, c, *geom, 0.125)
     with pytest.raises(ValueError, match="CUDA"):

@@ -226,10 +226,9 @@ def test_sta_pair_count_matches_dense_mask():
 
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(qk_int8=True, bound_mode="auto"), ValueError, "int8"),
-    (dict(ring=True, bound_mode="static"), NotImplementedError, "ring"),
     (dict(lane_rotate="grouped", bound_mode="static"), NotImplementedError,
      "lane rotation"),
-], ids=["kw0-int8", "kw1-ring", "kw2-lane rotation"])
+], ids=["kw0-int8", "kw2-lane rotation"])
 def test_unported_options_raise(kw, exc, match):
     """Options not ported raise; qk_int8 without the static bound raises
     as in JAX."""
