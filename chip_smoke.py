@@ -16,7 +16,10 @@ Phases, one line each (any failure raises and exits non-zero):
      first, the probe being the path that runs it), and the STA
      kernels with their int8 arms and the ring kernel B10 at 540p (B=2, 24
      heads x 128, a 17x34x60 patch grid, 256 text keys of which 40 are
-     valid, bf16);
+     valid, bf16); K1/K2 again on their key-range split path at the STA
+     text merge's shape (256 text queries over the 34,680 image keys), and
+     one timed launch each of K1 and SDPA at the headline 720x1280x129f
+     shape (119,056 tokens; a timing, not a check);
   4. main path: HunyuanVideoSampler.from_pretrained at the full width of
      HYVideo-T/2 (bf16), Llama-3-8B + CLIP-L (fp16) and the 884-16c-hy VAE
      (fp16), random weights from fixed seeds, then predict() with CFG at
@@ -128,8 +131,8 @@ from hunyuanvideo_efficiency_tpu_torch.ops.flash_backward import (
     flash_fwd_lse, flash_fwd_lse_plain, row_delta)
 from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
     flash_attention_plain, flash_int8_plain, flash_int8_running,
-    flash_int8_static, flash_running, flash_static, int8_bound_inflation,
-    int8_key_group, pick_block)
+    flash_int8_static, flash_running, flash_splits, flash_static,
+    int8_bound_inflation, int8_key_group, pick_block)
 from hunyuanvideo_efficiency_tpu_torch.ops.int8_matmul import (
     quantize_rows, w8a8_linear, w8a8_linear_plain)
 from hunyuanvideo_efficiency_tpu_torch.ops.quantization import (
@@ -207,6 +210,18 @@ def errors(out, ref):
     return diff, diff / max(ref.float().abs().max().item(), 1e-30)
 
 
+def rms_normed(g, dev, *shape):
+    """bf16 rows of unit RMS, as after the DiT's QK-norm with unit scales."""
+    x = torch.randn(*shape, generator=g, device=dev)
+    return (x * torch.rsqrt(x.square().mean(-1, keepdim=True))).bfloat16()
+
+
+def analytic_bound(dev, b, h, d=128):
+    norm = dit_mod.RMSNorm(d, device=dev, dtype=torch.bfloat16)
+    c = dit_mod._analytic_score_bound(DiTConfig(), d, [(norm, norm)])
+    return c.expand(b, h).contiguous()
+
+
 def flash_inputs(dev, b=2):
     """The main path's attention at 256x448x33: B=2 (CFG; a train step has
     b=1), H=24, D=128, 4032 img + 256 txt tokens of which 40 are valid,
@@ -214,18 +229,11 @@ def flash_inputs(dev, b=2):
     RMSNorm scales."""
     g = torch.Generator(dev).manual_seed(0)
     s, h, d, txt_valid = 4032 + 256, 24, 128, 40
-    qk = []
-    for _ in range(2):
-        x = torch.randn(b, s, h, d, generator=g, device=dev)
-        qk.append((x * torch.rsqrt(x.square().mean(-1, keepdim=True)))
-                  .bfloat16())
-    q, k = qk
+    q, k = rms_normed(g, dev, b, s, h, d), rms_normed(g, dev, b, s, h, d)
     v = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
     kb = torch.zeros(b, s, device=dev)
     kb[:, 4032 + txt_valid:] = -1e30
-    norm = dit_mod.RMSNorm(d, device=dev, dtype=torch.bfloat16)
-    c_bound = dit_mod._analytic_score_bound(DiTConfig(), d, [(norm, norm)])
-    c = c_bound.expand(b, h).contiguous()
+    c = analytic_bound(dev, b, h, d)
     # the least work: scores and P.V over the unmasked keys only
     flops = 4 * b * h * s * (4032 + txt_valid) * d
     io_bytes = 4 * q.numel() * 2 + kb.numel() * 4
@@ -276,7 +284,110 @@ def check_flash(dev, smi):
                       "hunyuanvideo_efficiency_tpu/ops/flash_attention.py:38"),
             max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=by, library_ms=lib_ms))
+    check_flash_split(dev, smi)
+    time_flash_headline(dev, smi)
     return rows
+
+
+def check_flash_split(dev, smi):
+    """K1 and K2 on their key-range split path at the 540p STA text merge's
+    first call (ops/sta.py:txt_merge_attention): 256 text queries over the
+    34,680 image keys of the 17x34x60 grid, B=2, 24 heads x 128, bf16,
+    with the (m, l) state; the wrapper splits each query tile's keys over
+    several blocks and merges them in a second kernel (one launch counted).
+    Against the plain version, max relative error 2e-2 on out, m and l;
+    timed beside SDPA over the same keys. Bound: the larger of 4*B*H*Sq*Sk*D
+    operations and the bytes of q, k, v, out and the state."""
+    g = torch.Generator(dev).manual_seed(4)
+    b, h, d, lt = 2, 24, 128, 256
+    s = STA_GRID[0] * STA_GRID[1] * STA_GRID[2]
+    q, k = rms_normed(g, dev, b, lt, h, d), rms_normed(g, dev, b, s, h, d)
+    v = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
+    c = analytic_bound(dev, b, h, d)
+    scale = d ** -0.5
+    splits = flash_splits(
+        b, h, lt, s, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if splits < 2:
+        raise AssertionError(f"the text merge's shape should split, got "
+                             f"{splits}")
+    qt, kt_, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt_, vt), 10)
+    flops = 4 * b * h * lt * s * d
+    io_bytes = (2 * q.numel() + 2 * k.numel()) * 2 + 2 * b * lt * h * 4
+    bound_ms, by = bound(flops, io_bytes)
+    for name, running, fn in (
+            ("flash_static", False,
+             lambda st: flash_static(q, k, v, None, c, scale, st)),
+            ("flash_running", True,
+             lambda st: flash_running(q, k, v, None, scale, st))):
+        out = fn(True)
+        ref = flash_attention_plain(q, k, v, None, c, scale, running, True)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for o, r in zip(out, ref):
+            abs_err, rel_err = errors(o, r)
+            if rel_err > 2e-2:
+                raise AssertionError(f"{name} split path: max rel error "
+                                     f"{rel_err} > 2e-2")
+            worst = max(worst, abs_err)
+        del out, ref
+        ms = cuda_ms(lambda: fn(False), 20)
+        plain_ms = cuda_ms(lambda: flash_attention_plain(
+            q, k, v, None, c, scale, running), 2)
+        phase("kernel", name=name, path="key-range split", splits=splits,
+              shape=f"q[{b},{lt},{h},{d}]k[{b},{s},{h},{d}]bf16",
+              max_abs_err=worst, tol="rel 2e-2 (bf16)", kernel_ms=ms,
+              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+              bound_by=by, tflops=flops / ms / 1e9, card=smi)
+
+
+def time_flash_headline(dev, smi):
+    """One timed launch each of K1 and SDPA at the reference's headline
+    shape, 720x1280x129f: B=2 (CFG), 118,800 image + 256 text tokens of
+    which 40 are valid, 24 heads x 128, bf16, RMS-normalized q/k, C from
+    the analytic bound. A timing, not a check: the plain version's scores
+    would not fit, so K1's correctness is the 4,288-token check (here the
+    output is only checked finite). SDPA runs over the 118,840 unmasked
+    keys alone (the masked keys add nothing to the softmax), which lets it
+    take its flash backend. Bound: 4*B*H*Sq*Sk_valid*D operations."""
+    g = torch.Generator(dev).manual_seed(5)
+    b, h, d, n_img, lt, valid = 2, 24, 128, 118800, 256, 40
+    s, keys = n_img + lt, n_img + valid
+    q, k = rms_normed(g, dev, b, s, h, d), rms_normed(g, dev, b, s, h, d)
+    v = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
+    kb = torch.zeros(b, s, device=dev)
+    kb[:, keys:] = -1e30
+    c = analytic_bound(dev, b, h, d)
+
+    def once(fn):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    out, ms = once(lambda: flash_static(q, k, v, kb, c, d ** -0.5))
+    if out.shape != (b, s, h * d) or not torch.isfinite(out).all():
+        raise AssertionError("flash_static at the headline shape: output "
+                             "not finite or of the wrong shape")
+    del out
+    qt = q.transpose(1, 2)
+    kt_, vt = (x[:, :keys].transpose(1, 2).contiguous() for x in (k, v))
+    del k, v
+    _, lib_ms = once(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt_, vt))
+    flops = 4 * b * h * s * keys * d
+    bound_ms, by = bound(flops, 4 * q.numel() * 2)
+    phase("headline", name="flash_static", shape=f"[{b},{s},{h},{d}]bf16",
+          valid_keys=keys, kernel_ms=ms, library_ms=lib_ms,
+          bound_ms=bound_ms, bound_by=by, tflops=flops / ms / 1e9,
+          library_tflops=flops / lib_ms / 1e9,
+          check="timing only (finite output)", card=smi)
+    del q, qt, kt_, vt
+    torch.cuda.empty_cache()
 
 
 def check_flash_int8(dev, smi, lib_ms):
@@ -590,20 +701,13 @@ def sta_inputs(dev, seed):
     g = torch.Generator(dev).manual_seed(seed)
     b, h, d, lt = 2, 24, 128, 256
     s = STA_GRID[0] * STA_GRID[1] * STA_GRID[2]
-
-    def normed(n):
-        x = torch.randn(b, n, h, d, generator=g, device=dev)
-        return (x * torch.rsqrt(x.square().mean(-1, keepdim=True))).bfloat16()
-
-    img = (normed(s), normed(s),
+    img = (rms_normed(g, dev, b, s, h, d), rms_normed(g, dev, b, s, h, d),
            torch.randn(b, s, h, d, generator=g, device=dev).bfloat16())
-    txt = (normed(lt), normed(lt),
+    txt = (rms_normed(g, dev, b, lt, h, d), rms_normed(g, dev, b, lt, h, d),
            torch.randn(b, lt, h, d, generator=g, device=dev).bfloat16())
     tb = torch.zeros(b, 1, 1, lt, device=dev)
     tb[..., 40:] = -1e30
-    norm = dit_mod.RMSNorm(d, device=dev, dtype=torch.bfloat16)
-    c = dit_mod._analytic_score_bound(DiTConfig(), d, [(norm, norm)])
-    return img, txt, tb, c.expand(b, h).contiguous()
+    return img, txt, tb, analytic_bound(dev, b, h, d)
 
 
 def check_sta(dev, smi):

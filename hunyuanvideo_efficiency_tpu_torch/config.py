@@ -5,9 +5,11 @@ The flags of the reference `sample_video.py` that the single-GPU path reads
 are kept unchanged, with the JAX package's `--attn-mode sta|flash_int8|
 sta_int8`, `--sta-window`, `--sta-dense-blocks` and the weight tiers
 `--use-fp8`, `--use-int8`, `--use-int4-modulation` and
-`--text-encoder-quant int8`. Flags of sequence parallelism, not ported
-yet, are still parsed, and rejected with a clear error instead of being
-ignored.
+`--text-encoder-quant int8`, and `--use-cpu-offload` (sequential offload
+in diffusion/pipeline.py). `--disable-autocast` and `--reproduce` are
+parsed and stored, and change nothing, as in the JAX package. Flags of
+sequence parallelism, not ported yet, are still parsed, and rejected with
+a clear error instead of being ignored.
 """
 from __future__ import annotations
 
@@ -95,8 +97,16 @@ class InferenceArgs:
     dit_weight: Optional[str] = None
     model_resolution: str = "540p"
     load_key: str = "module"
+    # sequential offload (reference inference.py:443-446): each phase's
+    # module goes back to the host when the next phase starts
+    use_cpu_offload: bool = False
     batch_size: int = 1
     infer_steps: int = 50
+    # parsed for flag compatibility, as in the JAX package: the port computes
+    # in the modules' own precision and draws every random number from an
+    # explicit seeded torch.Generator, so neither flag changes anything
+    disable_autocast: bool = False
+    reproduce: bool = False
     save_path: str = "./results"
     save_path_suffix: str = ""
     name_suffix: str = ""
@@ -204,8 +214,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["540p", "720p"])
     g.add_argument("--load-key", type=str, default=d.load_key,
                    choices=["module", "ema"])
+    _add_bool_flag(p, "use-cpu-offload", d.use_cpu_offload)
     g.add_argument("--batch-size", type=int, default=d.batch_size)
     g.add_argument("--infer-steps", type=int, default=d.infer_steps)
+    _add_bool_flag(p, "disable-autocast", d.disable_autocast)
     g.add_argument("--save-path", type=str, default=d.save_path)
     g.add_argument("--save-path-suffix", type=str, default=d.save_path_suffix)
     g.add_argument("--name-suffix", type=str, default=d.name_suffix)
@@ -230,6 +242,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_bool_flag(p, "use-fp8", d.use_fp8)
     _add_bool_flag(p, "use-int8", d.use_int8)
     _add_bool_flag(p, "use-int4-modulation", d.use_int4_modulation)
+    _add_bool_flag(p, "reproduce", d.reproduce)
 
     g = p.add_argument_group("parallel")
     g.add_argument("--ulysses-degree", type=int, default=d.ulysses_degree)

@@ -1,5 +1,6 @@
-// The inner step shared by the flash (flash_attention.cu, flash_int8.cu)
-// and sliding-tile (sta_attention.cu) attention kernels. A block of 4 warps
+// The inner step shared by the int8 flash (flash_int8.cu) and sliding-tile
+// (sta_attention.cu) attention kernels (flash_attention.cu has its own
+// wgmma design, on hopper.cuh). A block of 4 warps
 // owns BQ = 64 query rows; each warp holds its 16 rows of Q as mma.sync A
 // fragments (bf16/fp16, or int8 codes for the int8 Q.K^T), and key chunks
 // of BK = 64 are staged in padded shared memory (K row-major, V transposed)

@@ -65,18 +65,46 @@ class HunyuanVideoPipelineOutput:
 
 class HunyuanVideoPipeline:
     """Text encoding -> denoise loop -> VAE decode. The encoders may be None
-    when prompt embeddings are passed in."""
+    when prompt embeddings are passed in.
+
+    cpu_offload: the reference's sequential offload (JAX
+    diffusion/pipeline.py:211-260, :427-438, :493-570): only the phase that
+    runs keeps its module on `device`; when the next phase starts (towers
+    -> DiT -> VAE) the others go to the host first, so the device's peak is
+    the largest phase, not the sum. The video is the same."""
 
     vae_scale_factor = 8
+    HOST = torch.device("cpu")
 
     def __init__(self, vae: AutoencoderKLCausal3D, text_encoder,
                  text_encoder_2, transformer: HYVideoDiT,
-                 scheduler: FlowMatchDiscreteScheduler):
+                 scheduler: FlowMatchDiscreteScheduler,
+                 cpu_offload: bool = False, device=None):
         self.vae = vae
         self.text_encoder = text_encoder
         self.text_encoder_2 = text_encoder_2
         self.transformer = transformer
         self.scheduler = scheduler
+        self.cpu_offload = cpu_offload
+        self.device = torch.device(
+            device if device is not None
+            else next(transformer.parameters()).device)
+
+    def _place(self, phase: str) -> None:
+        """Under cpu_offload: every other phase's modules to the host, then
+        `phase`'s ("text", "dit" or "vae") to the device."""
+        if not self.cpu_offload:
+            return
+        towers = [enc.model for enc in (self.text_encoder,
+                                        self.text_encoder_2)
+                  if enc is not None]
+        mods = {"text": towers, "dit": [self.transformer], "vae": [self.vae]}
+        for name, group in mods.items():
+            if name != phase:
+                for m in group:
+                    m.to(self.HOST)
+        for m in mods[phase]:
+            m.to(self.device)
 
     @staticmethod
     def check_inputs(height: int, width: int, video_length: int,
@@ -149,6 +177,7 @@ class HunyuanVideoPipeline:
                              f"got {output_dtype!r}")
         do_cfg = guidance_scale > 1.0
         if prompt_embeds is None:
+            self._place("text")
             pe, mask, pe2 = self.encode_prompt(prompt, negative_prompt, do_cfg,
                                                data_type,
                                                num_videos_per_prompt)
@@ -190,6 +219,7 @@ class HunyuanVideoPipeline:
 
         egs = (float(embedded_guidance_scale)
                if embedded_guidance_scale is not None else None)
+        self._place("dit")
         for i in range(len(timesteps)):
             latents = denoise_step(
                 self.transformer, latents, float(sigmas[i]),
@@ -202,6 +232,7 @@ class HunyuanVideoPipeline:
         if output_type == "latent":
             return HunyuanVideoPipelineOutput(videos=latents)
 
+        self._place("vae")
         vcfg = self.vae.cfg
         z = latents / vcfg.scaling_factor
         if vcfg.shift_factor:

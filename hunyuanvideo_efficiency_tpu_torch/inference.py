@@ -5,7 +5,10 @@ counterpart: inference.py; reference: hyvideo/inference.py:143-671).
 from an `InferenceArgs`: DiT and VAE from the reference `.pt` checkpoints
 when they exist (module names match their state-dict keys; with --use-fp8
 an fp8 checkpoint and its `_map.pt` scales), else random weights with
-`allow_random_init=True`, else FileNotFoundError. The weight tiers follow
+`allow_random_init=True`, else FileNotFoundError. The towers load as the
+JAX package loads them (`load_tower_weights`), and are random where no
+weights are found but `text_encoder/` exists or random weights are
+allowed. The weight tiers follow
 (JAX inference.py:157-164,201-204): fp8, int8 and int4 modulation on the
 DiT's block linears, one module at a time on the device, and int8 on the
 LLM tower.
@@ -35,7 +38,9 @@ from .models.vae_config import load_vae_config
 from .ops.quantization import quantize_dit
 from .ops.rope import get_nd_rotary_pos_embed
 from .utils.checkpoint import (fp8_map_path, load_fp8_dit_checkpoint,
-                               load_torch_state_dict)
+                               load_params_npz, load_torch_state_dict,
+                               load_tower_state_dict)
+from .utils.weights import clip_state_dict_from_jax, llama_state_dict_from_jax
 
 
 def align_to(value: int, alignment: int) -> int:
@@ -56,6 +61,32 @@ def get_rotary_pos_embed(cfg: DiTConfig, vae_name: str, video_length: int,
     return cos, sin, sizes
 
 
+# Files of an HF tokenizer; a tower directory without them gets the
+# HashTokenizer stand-in.
+_TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json", "vocab.json",
+                    "tokenizer.model")
+
+
+def _tokenizer_dir(d: Path) -> Optional[str]:
+    return (str(d) if any((d / f).exists() for f in _TOKENIZER_FILES)
+            else None)
+
+
+def load_tower_weights(base: Path, kind: str) -> Optional[Dict]:
+    """A text tower's weights as the port's state dict, or None for random
+    ones (JAX inference.py:209-227): the JAX package's converted
+    `text_encoder.npz` / `text_encoder_2.npz` next to the HF directories
+    first, else an HF state dict in `text_encoder/` / `text_encoder_2/`."""
+    npz_name, dir_name, convert = {
+        "llm": ("text_encoder.npz", "text_encoder",
+                llama_state_dict_from_jax),
+        "clipL": ("text_encoder_2.npz", "text_encoder_2",
+                  clip_state_dict_from_jax)}[kind]
+    if (base / npz_name).exists():
+        return convert(load_params_npz(base / npz_name))
+    return load_tower_state_dict(base / dir_name, kind)
+
+
 class Inference:
     def __init__(self, args: InferenceArgs, vae, text_encoder,
                  text_encoder_2, transformer, logger=None):
@@ -65,10 +96,9 @@ class Inference:
         self.text_encoder_2 = text_encoder_2
         self.transformer = transformer
         self.logger = logger
-
-    @property
-    def device(self) -> torch.device:
-        return self.transformer.img_in.proj.weight.device
+        # where the modules run (under --use-cpu-offload they may rest on
+        # the host between calls)
+        self.device = self.transformer.img_in.proj.weight.device
 
     @staticmethod
     def resolve_dit_weight(args: InferenceArgs) -> Optional[Path]:
@@ -136,16 +166,17 @@ class Inference:
         else:
             raise FileNotFoundError(f"No VAE checkpoint at {vae_path}")
 
-        if not allow_random_init:
-            raise FileNotFoundError(
-                "text encoder weights: only random towers "
-                "(allow_random_init=True) are supported so far")
         llm_dir, clip_dir = base / "text_encoder", base / "text_encoder_2"
+        llm_sd, clip_sd = (load_tower_weights(base, kind)
+                           for kind in ("llm", "clipL"))
+        if not (llm_dir.exists() or llm_sd is not None or allow_random_init):
+            raise FileNotFoundError(f"No text encoder under {args.model_base}")
         text_encoder, text_encoder_2 = build_text_encoders(
             llm_config=kwargs.pop("llm_config", None),
             clip_config=kwargs.pop("clip_config", None),
-            tokenizer_path=str(llm_dir) if llm_dir.exists() else None,
-            tokenizer_path_2=str(clip_dir) if clip_dir.exists() else None,
+            llm_state_dict=llm_sd, clip_state_dict=clip_sd,
+            tokenizer_path=_tokenizer_dir(llm_dir),
+            tokenizer_path_2=_tokenizer_dir(clip_dir),
             text_len=args.text_len, text_len_2=args.text_len_2,
             prompt_template=args.prompt_template,
             prompt_template_video=args.prompt_template_video,
@@ -164,7 +195,8 @@ class HunyuanVideoSampler(Inference):
         self.pipeline = HunyuanVideoPipeline(
             vae=self.vae, text_encoder=self.text_encoder,
             text_encoder_2=self.text_encoder_2, transformer=self.transformer,
-            scheduler=self._scheduler(self.args.flow_shift))
+            scheduler=self._scheduler(self.args.flow_shift),
+            cpu_offload=self.args.use_cpu_offload, device=self.device)
         self.default_negative_prompt = NEGATIVE_PROMPT
 
     def _scheduler(self, shift: float) -> FlowMatchDiscreteScheduler:

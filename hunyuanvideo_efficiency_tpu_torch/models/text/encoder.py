@@ -174,11 +174,13 @@ class TextEncoder:
         return pe, mask
 
 
-def _build(model_cls, cfg, device, dtype, generator):
+def _build(model_cls, cfg, device, dtype, generator, state_dict=None):
     with torch.device("meta"):
         model = model_cls(cfg, dtype=dtype)
     model = model.to_empty(device=device).eval().requires_grad_(False)
-    if generator is not None:
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    elif generator is not None:
         model.init_weights(generator)
     return model
 
@@ -199,20 +201,23 @@ def build_text_encoders(
     dtype=torch.float16,
     generator: Optional[torch.Generator] = None,
     llm_quant: Optional[str] = None,
+    llm_state_dict: Optional[dict] = None,
+    clip_state_dict: Optional[dict] = None,
 ) -> Tuple[TextEncoder, TextEncoder]:
     """The (llm, clipL) pair as Inference.from_pretrained builds it
     (reference: hyvideo/inference.py:210-264); the LLM max_length includes
-    the template's crop_start. Random weights from `generator` when given,
-    else uninitialized (to be filled by load_state_dict); llm_quant="int8"
-    quantizes the LLM's layer linears after they are built."""
+    the template's crop_start. A tower's weights come from its state dict
+    when given (the port's key names), else random from `generator` when
+    given, else uninitialized; llm_quant="int8" quantizes the LLM's layer
+    linears after its weights are in."""
     tpl = PROMPT_TEMPLATE.get(prompt_template)
     tpl_video = PROMPT_TEMPLATE.get(prompt_template_video)
     crop = max(tpl_video.get("crop_start", 0) if tpl_video else 0,
                tpl.get("crop_start", 0) if tpl else 0)
     llm_model = _build(LlamaModel, llm_config or LLAMA3_8B, device, dtype,
-                       generator)
+                       generator, llm_state_dict)
     clip_model = _build(CLIPTextModel, clip_config or CLIP_L, device, dtype,
-                        generator)
+                        generator, clip_state_dict)
     llm = TextEncoder(
         "llm", text_len + crop, llm_model,
         tokenizer=(load_hf_tokenizer("llm", tokenizer_path)

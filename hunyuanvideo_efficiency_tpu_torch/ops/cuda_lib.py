@@ -30,9 +30,10 @@ SIGNATURES = {
     "flash_attention": {
         "hv_flash_attention_fwd": (
             _I, [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                 _LL, _LL, _LL, _LL, _LL, _LL, _F, _P]),
+                 _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _P, _P]),
         "hv_flash_fwd_lse": (
-            _I, [_I] * 2 + [_P] * 6 + [_I] * 4 + [_LL] * 6 + [_F, _P]),
+            _I, [_I] * 2 + [_P] * 6 + [_I] * 4 + [_LL] * 6 + [_F, _I, _P,
+                                                              _P]),
     },
     "conv3d": {
         "hv_conv3d_stride1": (

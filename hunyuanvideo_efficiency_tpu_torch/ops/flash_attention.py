@@ -18,7 +18,12 @@ kernel launches.
 
 Bound on the H100: 4*B*H*Sq*Sk*D tensor-core operations (989 TFLOP/s
 bf16), far above the bytes moved at the main path's lengths, so both are
-bound by operations; see the source note in the .cu file for the design.
+bound by operations; see the source note in the .cu file for the design
+(wgmma fed by a TMA ring, 128 query rows a block). When the query tiles
+give too few blocks for the card (the STA text merge: 256 queries over
+tens of thousands of keys), `flash_splits` splits each tile's keys over
+several blocks and a second kernel of the same source merges the parts;
+the wrapper still counts one launch.
 
 int8 Q.K^T (`flash_attention_int8`, JAX :816-906; `csrc/flash_int8.cu`):
 
@@ -43,6 +48,35 @@ from . import cuda_lib
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
+BLOCK_Q, BLOCK_K = 128, 128   # the kernel's query rows a block, keys a tile
+MIN_SPLIT_TILES = 8           # key tiles a split walks at least
+
+
+def flash_splits(b: int, h: int, sq: int, sk: int, sms: int) -> int:
+    """Blocks each query tile's key range is split over, from the shapes
+    and the card's SM count alone: 1 when the query tiles already give two
+    blocks an SM, else the split from [n, 2n] (n the least that reaches two
+    blocks an SM) whose last wave is fullest, each split walking at least
+    MIN_SPLIT_TILES key tiles."""
+    blocks = -(-sq // BLOCK_Q) * h * b
+    most = -(-sk // BLOCK_K) // MIN_SPLIT_TILES
+    if blocks >= 2 * sms or most < 2:
+        return 1
+    least = -(-2 * sms // blocks)
+    cands = range(min(least, most), min(2 * least, most) + 1)
+    return max(cands, key=lambda n: (n * blocks / (-(-n * blocks // sms)
+                                                  * sms), -n))
+
+
+def split_plan(b: int, h: int, sq: int, sk: int, d: int, device):
+    """(splits, fp32 scratch of the parts' acc, m and l or None) for a
+    launch on the CUDA `device`."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splits = flash_splits(b, h, sq, sk, sms)
+    part = (None if splits == 1 else
+            torch.empty(splits * b * h * sq * (d + 2), dtype=torch.float32,
+                        device=device))
+    return splits, part
 
 
 def flash_attention_plain(q, k, v, key_bias, c, scale: float, running: bool,
@@ -108,6 +142,7 @@ def _launch(q, k, v, key_bias, c, scale, running, return_state):
     if return_state:
         m = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
+    splits, part = split_plan(b, h, sq, sk, d, q.device)
     lib = cuda_lib.library("flash_attention")
     err = lib.hv_flash_attention_fwd(
         _DTYPE_CODE[q.dtype], int(running), d, q.data_ptr(), k.data_ptr(),
@@ -117,7 +152,9 @@ def _launch(q, k, v, key_bias, c, scale, running, return_state):
         m.data_ptr() if m is not None else None,
         l.data_ptr() if l is not None else None,
         b, h, sq, sk, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), float(scale), cuda_lib.stream_ptr(q.device))
+        v.stride(0), v.stride(1), float(scale), splits,
+        part.data_ptr() if part is not None else None,
+        cuda_lib.stream_ptr(q.device))
     cuda_lib.check(err, "flash attention")
     return (out, m, l) if return_state else out
 
@@ -183,7 +220,7 @@ def flash_attention(
     return_state: also return (m, l), each [B, Sq, H] fp32 (m = C for K1),
     the partial-softmax state that `merge_flash_states` folds.
     block_q, block_k: accepted for signature parity with the JAX function;
-    the CUDA kernel's tiles are fixed at 64 x 64.
+    the CUDA kernel's tiles are fixed at BLOCK_Q x BLOCK_K.
     """
     del block_q, block_k
     if bound_mode not in ("static", "running", "auto"):

@@ -47,7 +47,8 @@ from typing import Optional
 import torch
 
 from . import cuda_lib
-from .flash_attention import _DTYPE_CODE, _as_rows, flash_attention
+from .flash_attention import (_DTYPE_CODE, _as_rows, flash_attention,
+                              split_plan)
 
 
 # --------------------------------------------------------------------------
@@ -176,12 +177,14 @@ def flash_fwd_lse(q, k, v, key_bias, scale: float):
     b, sq, h, d = q.shape
     out = torch.empty((b, sq, h * d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    splits, part = split_plan(b, h, sq, k.shape[1], d, q.device)
     with torch.cuda.device(q.device):
         err = cuda_lib.library("flash_attention").hv_flash_fwd_lse(
             _DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(),
             kb.data_ptr() if kb is not None else None, lse.data_ptr(), b, h,
-            sq, k.shape[1], *_strides(q, k, v), float(scale),
+            sq, k.shape[1], *_strides(q, k, v), float(scale), splits,
+            part.data_ptr() if part is not None else None,
             cuda_lib.stream_ptr(q.device))
     cuda_lib.check(err, "flash forward with LSE")
     flash_fwd_lse.LAUNCHES += 1

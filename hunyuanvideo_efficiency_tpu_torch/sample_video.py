@@ -18,6 +18,7 @@ logger = logging.getLogger("hyvideo")
 
 
 def main(argv=None):
+    """Runs the CLI on `argv` (default: sys.argv); returns the mp4 paths."""
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
     models_root = Path(args.model_base)
@@ -38,6 +39,7 @@ def main(argv=None):
         batch_size=args.batch_size,
         embedded_guidance_scale=args.embedded_cfg_scale)
     samples = outputs["samples"]
+    paths = []
     for i in range(samples.shape[0]):
         stamp = datetime.now().strftime("%Y-%m-%d-%H:%M:%S")
         prompt_tag = outputs["prompts"][0][:100].replace("/", "")
@@ -45,6 +47,8 @@ def main(argv=None):
                 f"{args.name_suffix}.mp4")
         save_videos_grid(samples[i:i + 1], path, fps=24)
         logger.info(f"Sample save to: {path}")
+        paths.append(path)
+    return paths
 
 
 if __name__ == "__main__":

@@ -28,45 +28,86 @@ def dev():
     return torch.device("cuda")
 
 
+# (batch, query rows, keys, head_dim, masked keys of the last batch entry,
+# v a column view of a fused [B, S, 3*H*D] projection)
+FLASH_CASES = [
+    (2, 200, 200, 128, 13, False),
+    (2, 77, 77, 64, 13, False),
+    (2, 1000, 1000, 128, 13, False),
+    (2, 4288, 4272, 128, 13, True),    # ragged against 128-row tiles
+    (2, 200, 1000, 128, 13, False),
+    (2, 256, 256, 128, 216, False),    # the text keys alone, 216 padded
+    (2, 200, 100, 64, 60, True),       # fewer keys than one tile
+    (1, 256, 34680, 128, 13, True),    # the key-range split, B = 1
+    (2, 256, 34680, 64, 13, False),    # the split, D = 64
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("s,d", [(200, 128), (77, 64), (1000, 128)])
+@pytest.mark.parametrize("b,sq,sk,d,masked,fused_v", FLASH_CASES)
 @pytest.mark.parametrize("running", [False, True])
-def test_flash_kernel_matches_plain(dev, dtype, s, d, running):
+def test_flash_kernel_matches_plain(dev, dtype, b, sq, sk, d, masked,
+                                    fused_v, running):
+    """K1/K2 with their (m, l) state, and for the running kernel B5f's
+    output and lse, against the plain versions; one launch counted a call,
+    the key-range split included."""
+    from hunyuanvideo_efficiency_tpu_torch.ops import flash_backward as fb
+
     g = torch.Generator(dev).manual_seed(0)
-    b, h = 2, 3
-    q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
-               for _ in range(3))
+    h = 3
+    q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, sk, h, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, sk, h, d, generator=g, device=dev).to(dtype)
     q = torch.nn.functional.normalize(q.float(), dim=-1).to(dtype) * 4
     k = torch.nn.functional.normalize(k.float(), dim=-1).to(dtype) * 4
-    kb = torch.zeros(b, s, device=dev)
-    kb[1, s - 13:] = -1e30
+    if fused_v:
+        fused = torch.zeros(b, sk, 3, h, d, dtype=dtype, device=dev)
+        fused[:, :, 2] = v
+        v = fused[:, :, 2]
+        assert not v.is_contiguous()
+    kb = torch.zeros(b, sk, device=dev)
+    kb[b - 1, sk - masked:] = -1e30
     c = torch.full((b, h), 16.0 * d ** -0.5 * 1.02, device=dev)
     scale = d ** -0.5
-    n0 = (flash_static.LAUNCHES, flash_running.LAUNCHES)
+    n0 = (flash_static.LAUNCHES, flash_running.LAUNCHES,
+          fb.flash_fwd_lse.LAUNCHES)
     if running:
         out = flash_running(q, k, v, kb, scale, return_state=True)
+        lse_out = fb.flash_fwd_lse(q, k, v, kb, scale)
+        lse_ref = fb.flash_fwd_lse_plain(q, k, v, kb, scale)
     else:
         out = flash_static(q, k, v, kb, c, scale, return_state=True)
     ref = flash_attention_plain(q, k, v, kb, c, scale, running, True)
     torch.cuda.synchronize()
-    assert (flash_static.LAUNCHES, flash_running.LAUNCHES) == \
-        ((n0[0], n0[1] + 1) if running else (n0[0] + 1, n0[1]))
+    assert (flash_static.LAUNCHES, flash_running.LAUNCHES,
+            fb.flash_fwd_lse.LAUNCHES) == \
+        ((n0[0], n0[1] + 1, n0[2] + 1) if running else
+         (n0[0] + 1, n0[1], n0[2]))
     for o, r in zip(out, ref):
         assert o.dtype == r.dtype and o.shape == r.shape
         torch.testing.assert_close(o.float(), r.float(), atol=TOL, rtol=TOL)
+    if running:
+        torch.testing.assert_close(lse_out[0].float(), lse_ref[0].float(),
+                                   atol=TOL, rtol=TOL)
+        torch.testing.assert_close(lse_out[1], lse_ref[1], atol=2e-3,
+                                   rtol=1e-4)
 
 
 @pytest.mark.parametrize("bound_mode", ["static", "running"])
-def test_flash_kernel_split_keys_merge(dev, bound_mode):
+@pytest.mark.parametrize("nq,nk,cut", [(100, 333, 77), (256, 34936, 34680)],
+                         ids=["short", "text-merge"])
+def test_flash_kernel_split_keys_merge(dev, bound_mode, nq, nk, cut):
     """Queries against two key sets of other lengths, no key bias, with
-    state; the merged states equal attention over all keys."""
+    state; the merged states equal attention over all keys. The second
+    case is the STA text merge's shape: 256 text queries over the image
+    keys (the kernel's key-range split) and then over 256 text keys."""
     g = torch.Generator(dev).manual_seed(2)
     q, k, v = (torch.randn(1, n, 4, 128, generator=g, device=dev)
-               .bfloat16() for n in (100, 333, 333))
+               .bfloat16() for n in (nq, nk, nk))
     halves = [flash_attention(q, k[:, sl], v[:, sl], bound_mode=bound_mode,
                               return_state=True)
-              for sl in (slice(0, 77), slice(77, None))]
-    for (o, m, l), sl in zip(halves, (slice(0, 77), slice(77, None))):
+              for sl in (slice(0, cut), slice(cut, None))]
+    for (o, m, l), sl in zip(halves, (slice(0, cut), slice(cut, None))):
         ref = flash_attention(q.cpu().float(), k[:, sl].cpu().float(),
                               v[:, sl].cpu().float(), bound_mode=bound_mode,
                               return_state=True)

@@ -98,3 +98,28 @@ def test_wrappers_use_plain_version_on_cpu():
     np.testing.assert_array_equal(
         out_s.numpy(),
         flash_attention_plain(q, k, v, kb, c, 32 ** -0.5, False).numpy())
+
+
+@pytest.mark.parametrize("shape,sms,want", [
+    ((2, 24, 4288, 4288), 132, 1),    # the main path: 1632 blocks
+    ((2, 24, 256, 34680), 132, 4),    # the 540p STA text merge: 96 blocks
+    ((2, 24, 256, 256), 132, 1),      # its text keys alone: 2 key tiles
+    ((1, 2, 256, 34680), 132, 33),    # 4 blocks: 271 key tiles / 8 a split
+    ((2, 3, 200, 1000), 132, 1),      # 8 key tiles: too few to split
+])
+def test_flash_splits_from_shapes(shape, sms, want):
+    """The key-range split of the CUDA wrappers: none once the query tiles
+    give two blocks an SM, else two blocks an SM with a full last wave
+    where the keys allow, each split at least MIN_SPLIT_TILES key tiles
+    long."""
+    from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
+        BLOCK_K, BLOCK_Q, MIN_SPLIT_TILES, flash_splits)
+
+    b, h, sq, sk = shape
+    n = flash_splits(b, h, sq, sk, sms)
+    assert n == want
+    blocks = -(-sq // BLOCK_Q) * h * b
+    most = -(-sk // BLOCK_K) // MIN_SPLIT_TILES
+    if n > 1:
+        assert blocks * n >= 2 * sms or n == most
+        assert n <= most
