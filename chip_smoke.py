@@ -11,7 +11,9 @@ Phases, one line each (any failure raises and exits non-zero):
      library call's time as a yardstick, and the card's lower bound: K1/K2
      and the int8 flash kernels at the main path's attention, the W8A8
      linear at its qkv, fc1 (fused gelu_tanh) and modulation-matvec shapes,
-     K3 and the temporal-reuse conv B11 on the same inputs, B11 again at
+     K3 and the temporal-reuse conv B11 on the same inputs, K3 and
+     F.conv3d timed once at each distinct K3 shape of the main path's
+     decode with its launch count (`[conv_decode]`), B11 again at
      the conv probe's three bf16 decoder stages (its timed entry from the
      first, the probe being the path that runs it), and the STA
      kernels with their int8 arms and the ring kernel B10 at 540p (B=2, 24
@@ -24,7 +26,9 @@ Phases, one line each (any failure raises and exits non-zero):
      HYVideo-T/2 (bf16), Llama-3-8B + CLIP-L (fp16) and the 884-16c-hy VAE
      (fp16), random weights from fixed seeds, then predict() with CFG at
      256x448, 33 frames, 4 steps, tiled decode; the kernels' launch counts
-     are set to 0 just before each path's run and read just after it;
+     are set to 0 just before each path's run and read just after it, and
+     every predict() launches K3 exactly as often as its decode's shapes
+     need (conv_probe.decode_k3_shapes: 186 at 256x448x33, 930 at 540p);
   5. running-max path: the same predict() with the DiT swapped for a
      full-width one without QK-norm (2 double + 2 single blocks) whose
      scores exceed the static kernel's bound, so that flash_attention's
@@ -103,6 +107,7 @@ result line. Needs CUDA; there is no
 CPU fallback.
 """
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -639,6 +644,42 @@ def check_conv(dev, smi):
     return [row]
 
 
+def check_conv_decode(dev, smi):
+    """K3 and F.conv3d (fp16, with a bias, on the padded input as
+    causal_conv3d gives it) at each distinct K3 shape of the dense main
+    path's decode (conv_probe.decode_k3_shapes at 256x448x33), one timed
+    call each, with that shape's launch count: where the decode's conv time
+    goes, weighted by launches. A timing, not a check."""
+    g = torch.Generator(dev).manual_seed(3)
+    shapes = conv_probe.decode_k3_shapes(HEIGHT, WIDTH, FRAMES)
+    k3_total = lib_total = bound_total = 0.0
+    for (b, t, hh, ww, cin, cout), n in shapes.items():
+        xp = torch.randn(b, t + 2, hh + 2, ww + 2, cin, generator=g,
+                         device=dev).half()
+        w = (torch.randn(3, 3, 3, cin, cout, generator=g, device=dev)
+             / math.sqrt(27 * cin)).half()
+        bias = torch.randn(cout, generator=g, device=dev).half()
+        ms = cuda_ms(lambda: conv3d_stride1(xp, w, bias), 1)
+        x_ncdhw = xp.permute(0, 4, 1, 2, 3)
+        w_oi = w.permute(4, 3, 0, 1, 2).contiguous()
+        lib_ms = cuda_ms(lambda: torch.nn.functional.conv3d(x_ncdhw, w_oi,
+                                                            bias), 1)
+        flops = 2 * 27 * cin * cout * b * t * hh * ww
+        nbytes = (xp.numel() + w.numel() + b * t * hh * ww * cout) * 2 \
+            + cout * 2
+        bound_ms, _ = bound(flops, nbytes)
+        k3_total += n * ms
+        lib_total += n * lib_ms
+        bound_total += n * bound_ms
+        phase("conv_decode", shape=f"[{b},{t},{hh},{ww},{cin}]->{cout}fp16",
+              launches=n, kernel_ms=ms, library_ms=lib_ms, bound_ms=bound_ms,
+              tflops=flops / ms / 1e9, card=smi)
+        del xp, x_ncdhw, w, w_oi
+    phase("conv_decode_total", shapes=len(shapes),
+          launches=sum(shapes.values()), kernel_ms=k3_total,
+          library_ms=lib_total, bound_ms=bound_total, card=smi)
+
+
 def check_conv_v2(dev, smi):
     """B11 at the shapes of the path that runs it, the conv probe's three
     decoder stages (conv_probe.SHAPES, bf16, no bias), on the input padded as
@@ -965,8 +1006,6 @@ def main_path(smi):
             or launches["flash_running"] != 0:
         raise AssertionError(f"attention launches {launches}, expected "
                              f"{60 * STEPS} of K1 and none of K2")
-    if launches["conv3d_stride1"] == 0:
-        raise AssertionError("K3 was not launched during decode")
     return sampler, launches
 
 
@@ -1005,6 +1044,8 @@ def running_max_path(sampler, smi):
     phase("running_max_path", blocks="2+2", qk_norm=False, steps=K2_STEPS,
           gen_s=out["gen_time"], launches=json.dumps(launches), card=smi)
     check_video(out["samples"])
+    expect("running-max path's decode", launches,
+           dict(conv3d_stride1=decode_k3_launches((FRAMES, HEIGHT, WIDTH))))
     if launches["flash_running"] != 4 * K2_STEPS \
             or launches["flash_static"] != 0:
         raise AssertionError(f"attention launches {launches}, expected "
@@ -1030,10 +1071,7 @@ def sta_main_path(smi):
     want = dict(sta_direct=58 * STA_STEPS,
                 flash_static=(2 + 2 * 58) * STA_STEPS, flash_running=0,
                 sta_permuted_static=0, sta_permuted_running=0)
-    if any(launches[k] != n for k, n in want.items()) \
-            or launches["conv3d_stride1"] == 0:
-        raise AssertionError(f"STA main path launches {launches}, expected "
-                             f"{want} and K3 in the decode")
+    expect("STA main path", launches, want)
     return sampler, launches, r["out"]["samples"]
 
 
@@ -1065,9 +1103,6 @@ def sta_ring_path(sampler, direct_video, smi):
         expect("STA ring path step", step, per_step)
     expect("STA ring path", r["launches"],
            {k: n * STA_STEPS for k, n in per_step.items()})
-    if r["launches"]["conv3d_stride1"] == 0:
-        raise AssertionError("K3 was not launched during the ring path's "
-                             "decode")
     return r["launches"]
 
 
@@ -1089,6 +1124,9 @@ def sta_running_path(sampler, model, smi):
           steps=STA_RUNNING_STEPS, gen_s=out["gen_time"],
           launches=json.dumps(launches), card=smi)
     check_video(out["samples"], (STA_FRAMES, STA_HEIGHT, STA_WIDTH))
+    expect("STA running path's decode", launches, dict(
+        conv3d_stride1=decode_k3_launches((STA_FRAMES, STA_HEIGHT,
+                                           STA_WIDTH))))
     n = 4 * STA_RUNNING_STEPS
     if launches["sta_permuted_running"] != n \
             or launches["flash_running"] != n or launches["sta_direct"] != 0:
@@ -1113,6 +1151,14 @@ def block_linear_calls(model):
     return 10 * len(model.double_blocks) + 5 * len(model.single_blocks)
 
 
+@functools.lru_cache(maxsize=None)
+def decode_k3_launches(size):
+    """K3's launches in one tiled decode of a frames x height x width video
+    (conv_probe.decode_k3_shapes: the decoder on meta tensors)."""
+    frames, height, width = size
+    return sum(conv_probe.decode_k3_shapes(height, width, frames).values())
+
+
 def timed_predict(sampler, prompt, size, steps, seed):
     """predict() with CFG, the launch counts of each denoise step (read at
     the step callback), step marks and the peak memory of the call."""
@@ -1132,6 +1178,8 @@ def timed_predict(sampler, prompt, size, steps, seed):
                           output_dtype="uint8", progress_callback=on_step)
     t_end = time.time()
     check_video(out["samples"], size)
+    expect(f"decode at {height}x{width}x{frames}", read_counts(),
+           dict(conv3d_stride1=decode_k3_launches(size)))
     steps_s = [b - a for a, b in zip(marks, marks[1:])]
     per_step = [{k: b[k] - a[k] for k in b} for a, b in zip(at_step,
                                                           at_step[1:])]
@@ -1836,6 +1884,7 @@ def main():
     rows += check_flash_backward(dev, smi)
     rows += check_flash_int8(dev, smi, rows[0]["library_ms"])
     rows += check_w8a8(dev, smi) + check_conv(dev, smi)
+    check_conv_decode(dev, smi)
     rows += check_conv_v2(dev, smi)
     sta_rows = check_sta(dev, smi)
     rows += sta_rows + check_sta_int8(dev, smi, sta_rows[0]["library_ms"])

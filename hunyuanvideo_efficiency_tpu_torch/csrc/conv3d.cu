@@ -1,4 +1,5 @@
-// Implicit-GEMM stride-1 3x3x3 convolution over a pre-padded NDHWC input.
+// Implicit-GEMM stride-1 3x3x3 convolution over a pre-padded NDHWC input,
+// for Hopper (sm_90a): one output frame a block.
 //
 // Replaces the Pallas TPU kernel ops/conv3d_pallas.py:_conv_kernel of the
 // JAX package (the VAE's CausalConv3d; the caller does the causal
@@ -10,173 +11,146 @@
 // ops/conv3d_cuda.py follows this kernel).
 //
 // Shapes: xp [B, T+2, H+2, W+2, Cin], weights transposed by the wrapper to
-// [3, 3, 3, Cout, Cin] (Cin contiguous: the mma B fragment), out
+// [3, 3, 3, Cout, Cin] (Cin contiguous: the K-major B operand), out
 // [B, T, H, W, Cout]; fp16 (the VAE's precision) or bf16.
 // Gate: Cin % 128 == 0 and Cout % 128 == 0, as the TPU gate. Its H % 8 and
-// the W 8-alignment over-pad are dropped: this kernel masks the H and W
-// edges of its tiles itself.
+// the W 8-alignment over-pad are dropped: TMA zero-fills boxes past the
+// padded H and W, and the epilogue masks the stores.
 //
 // Bound on the H100: 2*27*Cin*Cout*B*T*H*W operations on the tensor cores
 // against one read of xp and one write of out; at the decoder's 128- to
 // 512-channel stages that is hundreds of operations per byte, so the kernel
-// is bound by operations (989 TFLOP/s fp16 dense). This first design: a
-// block of 8 warps owns an output tile of 8 x 16 pixels of one (b, t) and
-// 128 output channels (the GEMM's M = 128, N = 128). For each temporal tap
-// and 32-channel slice of Cin it stages the (8+2) x (16+2) x 32 halo slab
-// and the 9 spatial taps' weights in shared memory, then accumulates
-// 9 taps x 32 channels with mma.sync m16n8k16 (fp32 accumulators in
-// registers); the halo slab is read 9 times from shared memory, never
-// again from device memory. Not yet done: wgmma, TMA, a double-buffered
-// ring so the next slice loads while this one computes.
-#include "mma.cuh"
+// is bound by operations (989 TFLOP/s fp16 dense).
+//
+// Design (the main loop is conv3d_tile.cuh's, shared with B11): a block of
+// a producer and two consumer warpgroups owns 256 output pixels (a 256/BW x
+// BW tile) of one (b, t) and BN output channels, BW and BN from the host
+// (ops/conv3d_cuda.py: conv_tile, conv_block_n): BN = 128, or 64 where the
+// grid is a wave or two and half-width blocks fill the last one better (the
+// decoder's 512-channel stages at 9 frames of 32 x 32 and less).
+// For each temporal tap dt, 64-channel slice and column tap dw the producer
+// brings one input box by TMA, then the three row taps' weight tiles; the
+// consumers run m64nBNk16 wgmma products on them as they arrive, with BN
+// fp32 accumulators a thread. What held the mma.sync design (10.03 ms at
+// [1, 33, 256, 256, 128] -> 128 fp16, 19% of the card's rate) and what this
+// one does about it:
+//   1. mma.sync fed by 32-bit shared-memory reads in every warp: wgmma
+//      reads both operands from shared memory once a warpgroup product;
+//   2. all the weights re-read by every 128-pixel block: 256 pixels a
+//      block halve the weight bytes an operation (the arithmetic is in
+//      conv3d_tile.cuh);
+//   3. no copy overlapping compute: TMA rings of 3 input boxes and 96 KB
+//      of weight tiles keep the next loads in flight under the products.
+// Grid: (Cout / BN, tiles, B * T), the output-channel blocks of a tile
+// adjacent so that they meet its input boxes in L2. The instruction's N
+// does not change the sums: at BN = 64 and 128 the outputs are equal bit
+// for bit, and equal to B11's (BN = 64).
+#include "conv3d_tile.cuh"
 
 namespace {
 
-constexpr int BH = 8, BW = 16;  // output pixels per block: 8 rows x 16 cols
-constexpr int BN = 128;         // output channels per block
-constexpr int BC = 32;          // input channels per staged slice
-constexpr int SH = BH + 2, SW = BW + 2;
-constexpr int SP = BC + 8;      // padded channel stride in shared memory
-constexpr int THREADS = 256;
+using namespace hv::sm90;
+using namespace hv::conv;
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-conv3d_s1_kernel(const T* __restrict__ xp, const T* __restrict__ wt,
+template <typename T, int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+conv3d_s1_kernel(const __grid_constant__ CUtensorMap tm_x,
+                 const __grid_constant__ CUtensorMap tm_w,
                  const float* __restrict__ bias, T* __restrict__ out,
-                 int T_out, int H, int W, int Cin, int Cout, int tiles_w) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* slab = reinterpret_cast<T*>(smem_raw);  // [SH * SW][SP]
-  T* ws = slab + SH * SW * SP;               // [9][BN][SP]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;  // warp tile: 32 pixels x 64 ch
-  const int h0 = (blockIdx.x / tiles_w) * BH, w0 = (blockIdx.x % tiles_w) * BW;
-  const int n0 = blockIdx.y * BN;
+                 int T_out, int H, int W, int Cin, int Cout, int bw_log2,
+                 int tiles_w) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  Rings<BN> ring(raw + ((1024 - (raw & 1023)) & 1023));
+  const int bw = 1 << bw_log2, bh = M / bw;
+  const int n0 = blockIdx.x * BN;
+  const int h0 = (blockIdx.y / tiles_w) * bh, w0 = (blockIdx.y % tiles_w) * bw;
   const int b = blockIdx.z / T_out, to = blockIdx.z % T_out;
-  const int Hp = H + 2, Wp = W + 2, Tp = T_out + 2;
-  const uint4 zero4 = make_uint4(0, 0, 0, 0);
+  const int slices = Cin / BC;
 
-  int pos[2][2];  // slab position of this thread's A rows (tap 0, 0)
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int m = wm * 32 + mi * 16 + g + 8 * hf;
-      pos[mi][hf] = (m / BW) * SW + m % BW;
-    }
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
 
-  float acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-      acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
-
-  for (int dt = 0; dt < 3; ++dt) {
-    const T* xf = xp + ((long long)b * Tp + to + dt) * Hp * Wp * Cin;
-    const T* wf = wt + (long long)dt * 9 * Cout * Cin;
-    for (int c0 = 0; c0 < Cin; c0 += BC) {
-      __syncthreads();  // every warp is done with the previous slice
-      for (int i = tid; i < SH * SW * (BC / 8); i += THREADS) {
-        const int p = i / (BC / 8), ch = (i % (BC / 8)) * 8;
-        const int hh = h0 + p / SW, ww = w0 + p % SW;
-        uint4 val = zero4;
-        if (hh < Hp && ww < Wp)
-          val = *reinterpret_cast<const uint4*>(
-              xf + ((long long)hh * Wp + ww) * Cin + c0 + ch);
-        *reinterpret_cast<uint4*>(slab + p * SP + ch) = val;
-      }
-      for (int i = tid; i < 9 * BN * (BC / 8); i += THREADS) {
-        const int row = i / (BC / 8), ch = (i % (BC / 8)) * 8;
-        const int tap = row / BN, n = row % BN;
-        *reinterpret_cast<uint4*>(ws + row * SP + ch) =
-            *reinterpret_cast<const uint4*>(
-                wf + ((long long)tap * Cout + n0 + n) * Cin + c0 + ch);
-      }
-      __syncthreads();
-
-#pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap) {
-        const int off = (tap / 3) * SW + tap % 3;
-        const T* wtap = ws + tap * BN * SP;
-#pragma unroll
-        for (int kk = 0; kk < BC / 16; ++kk) {
-          const int kc = kk * 16 + 2 * t;
-          uint32_t a[2][4];
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            const T* p0 = slab + (pos[mi][0] + off) * SP + kc;
-            const T* p1 = slab + (pos[mi][1] + off) * SP + kc;
-            a[mi][0] = hv::ld32(p0);
-            a[mi][1] = hv::ld32(p1);
-            a[mi][2] = hv::ld32(p0 + 8);
-            a[mi][3] = hv::ld32(p1 + 8);
+  if (threadIdx.x < 128) {
+    // ---------------------------------------------------------- producer
+    reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      const uint32_t a_bytes = a_box_bytes(bw);
+      for (int dt = 0; dt < 3; ++dt)
+        for (int c = 0; c < slices; ++c)
+          for (int dw = 0; dw < 3; ++dw) {
+            ring.load_box(&tm_x, b * (T_out + 2) + to + dt, c, dw, h0, w0,
+                          a_bytes);
+            for (int dh = 0; dh < 3; ++dh)
+              ring.load_weights(&tm_w, 9 * dt + 3 * dh + dw, c, n0);
           }
-#pragma unroll
-          for (int ni = 0; ni < 8; ++ni) {
-            const T* wrow = wtap + (wn * 64 + ni * 8 + g) * SP + kc;
-            uint32_t bf[2] = {hv::ld32(wrow), hv::ld32(wrow + 8)};
-            hv::mma16816(acc[0][ni], a[0], bf, T());
-            hv::mma16816(acc[1][ni], a[1], bf, T());
-          }
-        }
-      }
     }
+  } else {
+    // ---------------------------------------------------------- consumers
+    reg_alloc<232>();
+    const int wgc = (threadIdx.x - 128) >> 7;
+    float acc[1][2][BN / 2];
+    init_set<BN>(acc[0], bias, n0);
+    consume<T, BN, 1>(acc, ring, 9 * slices, wgc * 128 * 128, bw * 128,
+                      (threadIdx.x & 31) == 0);
+    store_tile<T, BN>(acc[0], out, (long long)b * T_out + to, h0, w0, n0, H,
+                      W, Cout, bw_log2, wgc * 128);
   }
-
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int m = wm * 32 + mi * 16 + g + 8 * hf;
-      const int hh = h0 + m / BW, ww = w0 + m % BW;
-      if (hh >= H || ww >= W) continue;
-      T* orow = out + (((long long)b * T_out + to) * H * W +
-                       (long long)hh * W + ww) * Cout + n0;
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int n = wn * 64 + ni * 8 + 2 * t;
-        const float b0 = bias ? bias[n0 + n] : 0.f;
-        const float b1 = bias ? bias[n0 + n + 1] : 0.f;
-        *reinterpret_cast<uint32_t*>(orow + n) =
-            hv::pack2(acc[mi][ni][2 * hf] + b0, acc[mi][ni][2 * hf + 1] + b1,
-                      T());
-      }
-    }
 }
 
-template <typename T>
+template <typename T, int BN>
 cudaError_t launch(const void* xp, const void* wt, const float* bias,
                    void* out, int B, int T_out, int H, int W, int Cin,
-                   int Cout, cudaStream_t stream) {
-  auto kern = conv3d_s1_kernel<T>;
-  const int smem = (SH * SW * SP + 9 * BN * SP) * sizeof(T);
+                   int Cout, int bw, cudaStream_t stream) {
+  CUtensorMap tm_x, tm_w;
+  if (!encode_maps<T>(&tm_x, &tm_w, xp, wt, B, T_out, H, W, Cin, Cout, bw,
+                      BN))
+    return cudaErrorInvalidValue;
+  auto kern = conv3d_s1_kernel<T, BN>;
+  const int smem = Smem<BN>::ALLOC;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int tiles_w = (W + BW - 1) / BW, tiles_h = (H + BH - 1) / BH;
-  dim3 grid(tiles_h * tiles_w, Cout / BN, B * T_out);
+  const int bh = M / bw;
+  const int tiles_w = (W + bw - 1) / bw, tiles_h = (H + bh - 1) / bh;
+  dim3 grid(Cout / BN, tiles_h * tiles_w, B * T_out);
   kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(xp), static_cast<const T*>(wt), bias,
-      static_cast<T*>(out), T_out, H, W, Cin, Cout, tiles_w);
+      tm_x, tm_w, bias, static_cast<T*>(out), T_out, H, W, Cin, Cout,
+      log2_bw(bw), tiles_w);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bn(const void* xp, const void* wt, const float* bias,
+                      void* out, int B, int T_out, int H, int W, int Cin,
+                      int Cout, int bw, int bn, cudaStream_t stream) {
+  if (bn == 128)
+    return launch<T, 128>(xp, wt, bias, out, B, T_out, H, W, Cin, Cout, bw,
+                          stream);
+  return launch<T, 64>(xp, wt, bias, out, B, T_out, H, W, Cin, Cout, bw,
+                       stream);
 }
 
 }  // namespace
 
-// dtype: 0 = bf16, 1 = fp16. bias (fp32, [Cout]) may be null. Requires
-// Cin % 32 == 0 and Cout % 128 == 0. Returns the cudaError_t of the launch.
+// dtype: 0 = bf16, 1 = fp16. bias (fp32, [Cout]) may be null. bw: the
+// pixel tile's width, 8, 16 or 32 (its height is 256 / bw); bn: the output
+// channels a block, 128 or 64. Requires Cin % 64 == 0 and Cout % bn == 0.
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for a
+// refused shape or tensor map).
 extern "C" int hv_conv3d_stride1(int dtype, const void* xp, const void* wt,
                                  const float* bias, void* out, int B,
                                  int T_out, int H, int W, int Cin, int Cout,
-                                 void* stream) {
-  if (Cin % BC != 0 || Cout % BN != 0) return cudaErrorInvalidValue;
+                                 int bw, int bn, void* stream) {
+  if (Cin % BC != 0 || (bn != 128 && bn != 64) || Cout % bn != 0 ||
+      T_out < 1 || log2_bw(bw) < 0)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<__nv_bfloat16>(xp, wt, bias, out, B, T_out, H, W, Cin,
-                                 Cout, st);
+    return launch_bn<__nv_bfloat16>(xp, wt, bias, out, B, T_out, H, W, Cin,
+                                    Cout, bw, bn, st);
   if (dtype == 1)
-    return launch<__half>(xp, wt, bias, out, B, T_out, H, W, Cin, Cout, st);
+    return launch_bn<__half>(xp, wt, bias, out, B, T_out, H, W, Cin, Cout,
+                             bw, bn, st);
   return cudaErrorInvalidValue;
 }

@@ -58,32 +58,43 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
+// A map over a 16-bit operand of `rank` dimensions (innermost first):
+// `dims` elements each, `byte_strides` between consecutive entries of dims
+// 1..rank-1, boxes of `box` elements (box[0] = 64 columns: 128-byte rows
+// with the 128-byte swizzle). Entries past a dimension's end read as zero.
+// Strides and the base must be 16-byte aligned. Returns false if
+// cuTensorMapEncodeTiled refuses the map.
+template <typename T>
+bool encode_box(CUtensorMap* map, const void* base, int rank,
+                const cuuint64_t* dims, const cuuint64_t* byte_strides,
+                const cuuint32_t* box) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr || rank < 1 || rank > 5) return false;
+  const CUtensorMapDataType dt = std::is_same<T, __half>::value
+                                     ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return fn(map, dt, rank, const_cast<void*>(base), dims, byte_strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // A 3-D map over a 16-bit operand addressed as (column, row, batch): `cols`
 // contiguous elements a row, `rows` rows `row_stride` elements apart, and
 // `batch` batches `batch_stride` elements apart. Boxes are 64 columns x
-// `box_rows` rows with the 128-byte swizzle; rows past `rows` read as zero.
-// Strides and the base must be 16-byte aligned. Returns false if the driver
-// refuses the map.
+// `box_rows` rows; rows past `rows` read as zero.
 template <typename T>
 bool encode_rows(CUtensorMap* map, const void* base, int cols, int rows,
                  int batch, long long row_stride, long long batch_stride,
                  int box_rows) {
-  const EncodeTiledFn fn = encode_tiled_fn();
-  if (fn == nullptr) return false;
   if (batch == 1) batch_stride = row_stride * rows;  // unused, but valid
-  const CUtensorMapDataType dt = std::is_same<T, __half>::value
-                                     ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)batch};
   const cuuint64_t strides[2] = {(cuuint64_t)row_stride * sizeof(T),
                                  (cuuint64_t)batch_stride * sizeof(T)};
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, dt, 3, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_box<T>(map, base, 3, dims, strides, box);
 }
 
 // -------------------------------------------------------------- device side
@@ -92,9 +103,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+// The barrier and copy helpers take shared-memory addresses (32 bits, as
+// smem_u32 gives them); each has a pointer form that converts.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+               :: "r"(bar), "r"(count) : "memory");
 }
 
 // Makes the initialized barriers visible to the async proxy (TMA).
@@ -102,42 +115,74 @@ __device__ __forceinline__ void fence_barrier_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
+               :: "r"(bar) : "memory");
 }
 
 // Arrive and add `bytes` to the transaction count the phase waits for.
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
                                                       uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+               :: "r"(bar), "r"(bytes) : "memory");
 }
 
 // Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
   do {
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         "selp.b32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   } while (!done);
 }
 
 // One TMA box of a 3-D map into shared memory; completion is counted in
 // bytes on `bar`.
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
                                             int c2) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2)
       : "memory");
+}
+
+// One TMA box of a 4-D map into shared memory, as tma_load_3d.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  mbar_init(smem_u32(bar), count);
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  mbar_arrive(smem_u32(bar));
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  mbar_arrive_expect_tx(smem_u32(bar), bytes);
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  mbar_wait(smem_u32(bar), parity);
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  tma_load_3d(smem_u32(dst), map, smem_u32(bar), c0, c1, c2);
 }
 
 template <int R>
@@ -223,8 +268,22 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));      \
   }
 
+// d += A.B, m64n64k16, both operands K-major in shared memory.
+#define HV_WGMMA_SS_N64(TY, T)                                               \
+  __device__ __forceinline__ void wgmma_m64n64k16_ss(                       \
+      float(&d)[32], uint64_t da, uint64_t db, T) {                         \
+    asm volatile(                                                            \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                         \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "         \
+        "{" HV_REGS32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                     \
+        : HV_ACC32(d)                                                        \
+        : "l"(da), "l"(db), "r"(1));                                         \
+  }
+
 HV_WGMMA_SS_N128("bf16", __nv_bfloat16)
 HV_WGMMA_SS_N128("f16", __half)
+HV_WGMMA_SS_N64("bf16", __nv_bfloat16)
+HV_WGMMA_SS_N64("f16", __half)
 HV_WGMMA_RS_TB(128, 64, HV_REGS64, HV_ACC64, "%64, %65, %66, %67", "%68",
                "%69", "bf16", __nv_bfloat16)
 HV_WGMMA_RS_TB(128, 64, HV_REGS64, HV_ACC64, "%64, %65, %66, %67", "%68",
@@ -235,6 +294,7 @@ HV_WGMMA_RS_TB(64, 32, HV_REGS32, HV_ACC32, "%32, %33, %34, %35", "%36",
                "%37", "f16", __half)
 
 #undef HV_WGMMA_SS_N128
+#undef HV_WGMMA_SS_N64
 #undef HV_WGMMA_RS_TB
 
 // d += A.B over one k16 step with N = D columns (128 or 64).
@@ -246,6 +306,17 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[D / 2],
     wgmma_m64n128k16_rs_tb(d, a, db, T());
   else
     wgmma_m64n64k16_rs_tb(d, a, db, T());
+}
+
+// d += A.B over one k16 step with N columns (128 or 64), both operands
+// K-major in shared memory.
+template <int N, typename T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (N == 128)
+    wgmma_m64n128k16_ss(d, da, db, 1, T());
+  else
+    wgmma_m64n64k16_ss(d, da, db, T());
 }
 
 }  // namespace sm90

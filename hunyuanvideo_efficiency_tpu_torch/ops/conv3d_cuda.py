@@ -11,7 +11,10 @@ wrapper's `LAUNCHES` counts its kernel's launches.
 
 Bound on the H100: 2*27*Cin*Cout*B*T*H*W tensor-core operations (989
 TFLOP/s fp16) against one read of the input and one write of the output,
-so the kernel is bound by operations; see the .cu source note.
+so the kernel is bound by operations; see the .cu source notes and
+`csrc/conv3d_tile.cuh`, the wgmma + TMA main loop both kernels share. Both
+take a tile of 256 output pixels whose width `conv_tile` picks from the
+frame's H and W; `conv_block_n` picks K3's output channels a block.
 """
 from __future__ import annotations
 
@@ -32,6 +35,38 @@ def conv_applicable(kernel_shape, stride) -> bool:
     kt, kh, kw, cin, cout = kernel_shape
     return (tuple(stride) == (1, 1, 1) and (kt, kh, kw) == (3, 3, 3)
             and cin % 128 == 0 and cout % 128 == 0)
+
+
+TILE_WIDTHS = (8, 16, 32)    # the kernels' pixel tiles: 256 / bw rows x bw
+
+
+def conv_tile(h: int, w: int) -> int:
+    """Width bw of the kernels' 256-pixel tile (256 / bw rows x bw columns)
+    for an H x W output frame: the one whose tiles cover the fewest pixels
+    past the frame's edges (a ragged tile's loads are zero-filled and its
+    products wasted); on a tie 16, then the narrower."""
+    def covered(bw):
+        bh = 256 // bw
+        return -(-h // bh) * bh * -(-w // bw) * bw
+
+    return min(TILE_WIDTHS, key=lambda bw: (covered(bw), bw != 16, bw))
+
+
+def conv_block_n(b: int, t: int, h: int, w: int, cout: int,
+                 sms: int = 132) -> int:
+    """Output channels a K3 block takes, 128 or 64, for a [b, t, h, w] x
+    cout output on a card of `sms` multiprocessors (one block each): 64
+    where halving the blocks' width cuts the time of the last, partly filled
+    wave by a fifth or more (short stages, e.g. the decoder's 512-channel
+    ones at 32 x 32 x 9: 144 blocks of 128 channels on 132 SMs); else 128,
+    which reads half the input bytes an operation."""
+    bh = 256 // conv_tile(h, w)
+    blocks = b * t * -(-h // bh) * -(-w // (256 // bh))
+
+    def waves(bn):
+        return -(-blocks * (cout // bn) // sms) * bn
+
+    return 64 if waves(64) <= 0.8 * waves(128) else 128
 
 
 def conv3d_stride1_plain(xp: torch.Tensor, kernel: torch.Tensor,
@@ -70,16 +105,20 @@ def _launch(xp, kernel, bias, v2=False):
     cout = kernel.shape[4]
     t, h, w = tp - 2, hp - 2, wp - 2
     xp = xp.contiguous()
-    # [3, 3, 3, Cout, Cin]: Cin contiguous, the layout of the mma B operand
+    # [3, 3, 3, Cout, Cin]: Cin contiguous, the K-major wgmma B operand
     wt = kernel.to(xp.dtype).permute(0, 1, 2, 4, 3).contiguous()
     bf = bias.to(torch.float32).contiguous() if bias is not None else None
     out = torch.empty((b, t, h, w, cout), dtype=xp.dtype, device=xp.device)
     name = "conv3d_v2" if v2 else "conv3d"
     lib = cuda_lib.library(name)
     fn = lib.hv_conv3d_stride1_v2 if v2 else lib.hv_conv3d_stride1
+    args = [b, t, h, w, cin, cout, conv_tile(h, w)]
+    if not v2:
+        sms = torch.cuda.get_device_properties(xp.device).multi_processor_count
+        args.append(conv_block_n(b, t, h, w, cout, sms))
     err = fn(_DTYPE_CODE[xp.dtype], xp.data_ptr(), wt.data_ptr(),
              bf.data_ptr() if bf is not None else None, out.data_ptr(),
-             b, t, h, w, cin, cout, cuda_lib.stream_ptr(xp.device))
+             *args, cuda_lib.stream_ptr(xp.device))
     cuda_lib.check(err, name)
     return out
 

@@ -37,11 +37,11 @@ SIGNATURES = {
     },
     "conv3d": {
         "hv_conv3d_stride1": (
-            _I, [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+            _I, [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     },
     "conv3d_v2": {
         "hv_conv3d_stride1_v2": (
-            _I, [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+            _I, [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     },
     "sta_attention": {
         "hv_sta_attention_fwd": (

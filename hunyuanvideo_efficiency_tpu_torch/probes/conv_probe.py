@@ -9,18 +9,53 @@ relative error 2e-2. Then, at the decoder tile's three heavy stages (B = 1,
 bf16), the milliseconds and TFLOP/s of each, the replicate pad included as
 in causal_conv3d: the minimum over N timed calls after one warm-up, CUDA
 events. JAX's h_block sweep is a TPU tiling knob and is not carried over.
-Needs a CUDA device.
+Needs a CUDA device. `decode_k3_shapes` lists the K3 launches of one
+tiled decode by shape, from the decoder run on meta tensors (no device).
 """
 import argparse
+import collections
 
 import torch
 
+from ..models.vae import AutoencoderKLCausal3D
+from ..models.vae_config import load_vae_config
+from ..ops import conv3d as conv3d_mod
 from ..ops.conv3d import causal_conv3d, replicate_pad
 from ..ops.conv3d_cuda import conv3d_stride1_v2
 
 # (T, H, W, Cin, Cout): the decoder tile's heavy stride-1 stages, B = 1
 SHAPES = ((61, 256, 256, 128, 128), (31, 128, 128, 256, 256),
           (16, 64, 64, 512, 512))
+
+
+def decode_k3_shapes(height, width, frames, vae="884-16c-hy"):
+    """{(B, T, H, W, Cin, Cout): launches} of K3 in one tiled VAE decode of
+    a height x width x frames video (B = 1), as the sampler decodes it.
+    The decoder runs on meta tensors (shapes only: no data, no device) with
+    causal_conv3d's K3 call replaced by a recorder for the duration."""
+    seen = collections.Counter()
+
+    def record(xp, kernel, bias=None):
+        b, tp, hp, wp, cin = xp.shape
+        shape = (b, tp - 2, hp - 2, wp - 2, cin, kernel.shape[4])
+        seen[shape] += 1
+        return xp.new_empty(shape[:4] + shape[5:])
+
+    cfg = load_vae_config(vae)
+    model = AutoencoderKLCausal3D(cfg, device="meta", dtype=torch.float16)
+    model.enable_tiling(True)
+    z = torch.empty(1, cfg.latent_channels,
+                    (frames - 1) // cfg.time_compression_ratio + 1,
+                    height // cfg.spatial_compression_ratio,
+                    width // cfg.spatial_compression_ratio, device="meta",
+                    dtype=torch.float16)
+    real = conv3d_mod.conv3d_stride1
+    conv3d_mod.conv3d_stride1 = record
+    try:
+        model.decode(z)
+    finally:
+        conv3d_mod.conv3d_stride1 = real
+    return dict(sorted(seen.items()))
 
 
 def min_ms(fn, reps):

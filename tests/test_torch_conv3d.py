@@ -16,7 +16,9 @@ from hunyuanvideo_efficiency_tpu.ops import conv3d_pallas
 from hunyuanvideo_efficiency_tpu.ops import conv3d as jconv
 from hunyuanvideo_efficiency_tpu_torch.ops import conv3d as tconv
 from hunyuanvideo_efficiency_tpu_torch.ops.conv3d_cuda import (
-    conv3d_stride1, conv3d_stride1_v2, conv_applicable)
+    TILE_WIDTHS, conv3d_stride1, conv3d_stride1_v2, conv_applicable,
+    conv_block_n, conv_tile)
+from hunyuanvideo_efficiency_tpu_torch.probes import conv_probe
 
 TOL = 2e-4
 
@@ -152,3 +154,82 @@ def test_gate():
     assert not conv_applicable((3, 3, 3, 512, 3), (1, 1, 1))
     assert not conv_applicable((3, 3, 3, 128, 128), (2, 2, 2))
     assert not conv_applicable((1, 1, 1, 128, 128), (1, 1, 1))
+
+
+# (H, W) of an output frame -> the width of the kernels' 256-pixel tile:
+# the conv probe's stages, chip_smoke's check_conv stages, every frame size
+# of the 256x448x33 decode, and ragged frames of the CUDA tests.
+CONV_TILES = {
+    (256, 256): 16, (128, 128): 16, (64, 64): 16, (32, 32): 16,
+    (8, 8): 16, (8, 32): 32, (32, 8): 8, (16, 16): 16, (16, 64): 16,
+    (64, 16): 16, (32, 128): 16, (128, 32): 16, (64, 256): 16,
+    (256, 64): 16, (17, 33): 8, (20, 6): 8, (5, 7): 16, (13, 21): 16,
+    (17, 9): 16, (9, 9): 16, (8, 16): 16,
+}
+
+
+@pytest.mark.parametrize("hw,bw", sorted(CONV_TILES.items()))
+def test_conv_tile_pins(hw, bw):
+    """The host's tile pick at the decoder's and the tests' frame sizes: the
+    width whose 256-pixel tiles cover the fewest pixels past the edges, 16
+    on a tie."""
+    assert conv_tile(*hw) == bw
+    h, w = hw
+    covered = {b: -(-h // (256 // b)) * (256 // b) * -(-w // b) * b
+               for b in TILE_WIDTHS}
+    assert covered[bw] == min(covered.values())
+
+
+def test_conv_tile_covers_probe_and_decode_shapes():
+    """Every frame size the conv probe and the 256x448x33 decode give K3
+    is pinned above."""
+    sizes = {(h, w) for _, h, w, _, _ in conv_probe.SHAPES}
+    sizes |= {(h, w) for _, _, h, w, _, _ in
+              conv_probe.decode_k3_shapes(256, 448, 33)}
+    assert sizes <= set(CONV_TILES)
+
+
+@pytest.mark.parametrize("size,launches,distinct,largest", [
+    ((256, 448, 33), 186, 32, ((1, 33, 256, 256, 128, 128), 10)),
+    ((544, 960, 65), 930, 64, ((1, 65, 256, 256, 128, 128), 40)),
+])
+def test_decode_k3_shapes(size, launches, distinct, largest):
+    """K3's launches in one tiled decode, by shape (the decoder on meta
+    tensors): the counts the smoke's main paths check exactly."""
+    shapes = conv_probe.decode_k3_shapes(*size)
+    assert sum(shapes.values()) == launches
+    assert len(shapes) == distinct
+    shape, n = largest
+    assert shapes[shape] == n
+    assert all(conv_applicable((3, 3, 3, cin, cout), (1, 1, 1))
+               for _, _, _, _, cin, cout in shapes)
+    assert tconv.conv3d_stride1 is conv3d_stride1   # the recorder is gone
+
+
+# [B, T, H, W] x Cout -> K3's output channels a block on a 132-SM H100:
+# 64 where the grid is 144 blocks of 128 channels or fewer (the decoder's
+# short stages, chip_smoke's check_conv stages at 9 frames), 128 elsewhere
+# (the conv probe's stages and the decode's large ones).
+CONV_BLOCK_N = {
+    (1, 9, 8, 8, 512): 64, (1, 9, 8, 32, 512): 64, (1, 9, 16, 16, 512): 64,
+    (1, 9, 32, 32, 512): 64, (1, 9, 16, 64, 512): 64,
+    (1, 17, 32, 32, 256): 64, (1, 17, 32, 32, 512): 128,
+    (1, 9, 64, 64, 512): 128, (1, 9, 64, 64, 128): 64,
+    (1, 17, 128, 128, 512): 128, (1, 33, 64, 64, 128): 128,
+    (1, 33, 256, 256, 128): 128, (1, 33, 256, 256, 256): 128,
+    (1, 61, 256, 256, 128): 128, (1, 31, 128, 128, 256): 128,
+    (1, 16, 64, 64, 512): 128,
+}
+
+
+@pytest.mark.parametrize("shape,bn", sorted(CONV_BLOCK_N.items()))
+def test_conv_block_n_pins(shape, bn):
+    """The host's block-width pick: 64 only where the last wave's fill
+    gains a fifth, 128 on a tie."""
+    assert conv_block_n(*shape) == bn
+    assert conv_block_n(*shape, sms=132) == bn
+
+
+def test_conv_block_n_on_a_larger_card():
+    """More SMs leave the 32 x 32 x 9 stage's 144 blocks in one wave."""
+    assert conv_block_n(1, 9, 32, 32, 512, sms=144) == 128

@@ -121,10 +121,22 @@ def test_flash_kernel_split_keys_merge(dev, bound_mode, nq, nk, cut):
                                rtol=TOL)
 
 
+# Shapes at the edges of the kernels' 256-pixel tiles (conv_tile picks its
+# width): H and W not multiples of the tile, W under one tile (6 < 8), a
+# frame smaller than one tile, the decoder's 512 -> 512 stage at 32x32x9,
+# and T = 1.
+CONV_EDGE_SHAPES = [(1, 2, 17, 33, 128, 128),
+                    (1, 2, 20, 6, 128, 128),
+                    (1, 3, 5, 7, 128, 128),
+                    (1, 9, 32, 32, 512, 512),
+                    (1, 1, 16, 16, 128, 256)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 3, 8, 16, 128, 128),
                                    (2, 2, 13, 21, 256, 128),
-                                   (1, 2, 9, 9, 128, 256)])
+                                   (1, 2, 9, 9, 128, 256)]
+                         + CONV_EDGE_SHAPES)
 def test_conv3d_kernel_matches_plain(dev, dtype, shape):
     b, t, h, w, cin, cout = shape
     g = torch.Generator(dev).manual_seed(1)
@@ -148,11 +160,13 @@ def test_conv3d_kernel_matches_plain(dev, dtype, shape):
                                    (1, 2, 9, 9, 128, 256),
                                    (1, 1, 8, 16, 128, 128),
                                    (2, 3, 10, 20, 128, 128),
-                                   (1, 7, 17, 9, 256, 256)])
+                                   (1, 7, 17, 9, 256, 256)]
+                         + CONV_EDGE_SHAPES)
 def test_conv3d_v2_kernel_matches_plain_and_k3(dev, dtype, shape):
     """B11 against the plain version and against K3 on the same input: K3's
-    test shapes, T = 1, 2 and 3 (a sweep shorter than the three taps) and a
-    longer one with ragged H and W tiles."""
+    test shapes, T = 1, 2 and 3 (a sweep shorter than the three taps), a
+    longer one with ragged H and W tiles and the tile-edge shapes. Both sum
+    each output's terms in the same order, so B11 equals K3 bit for bit."""
     b, t, h, w, cin, cout = shape
     g = torch.Generator(dev).manual_seed(11)
     xp = torch.randn(b, t + 2, h + 2, w + 2, cin, generator=g,
@@ -172,6 +186,27 @@ def test_conv3d_v2_kernel_matches_plain_and_k3(dev, dtype, shape):
                                rtol=TOL)
     torch.testing.assert_close(out.float(), k3.float(), atol=2 * TOL,
                                rtol=TOL)
+    assert torch.equal(out, k3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 3, 8, 16, 128, 128),
+                                   (1, 2, 17, 33, 128, 128)])
+def test_conv3d_kernels_without_bias(dev, dtype, shape):
+    """K3 and B11 with no bias against the plain version, B11 equal to K3."""
+    b, t, h, w, cin, cout = shape
+    g = torch.Generator(dev).manual_seed(12)
+    xp = torch.randn(b, t + 2, h + 2, w + 2, cin, generator=g,
+                     device=dev).to(dtype)
+    kern = (torch.randn(3, 3, 3, cin, cout, generator=g, device=dev)
+            / (27 * cin) ** 0.5).to(dtype)
+    out = conv3d_stride1(xp, kern)
+    v2 = conv3d_stride1_v2(xp, kern)
+    ref = conv3d_stride1_plain(xp, kern)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2 * TOL,
+                               rtol=TOL)
+    assert torch.equal(v2, out)
 
 
 def _sta_inputs(dev, dtype, grid, d, lt, txt_valid, seed=3):
