@@ -20,8 +20,10 @@ Phases, one line each (any failure raises and exits non-zero):
      heads x 128, a 17x34x60 patch grid, 256 text keys of which 40 are
      valid, bf16); K1/K2 again on their key-range split path at the STA
      text merge's shape (256 text queries over the 34,680 image keys), and
-     one timed launch each of K1 and SDPA at the headline 720x1280x129f
-     shape (119,056 tokens; a timing, not a check);
+     one timed launch each of K1, the static int8 kernel B8a and SDPA at
+     the headline 720x1280x129f shape (119,056 tokens; a timing, not a
+     check); B8a/B8b also show their quantization pre-pass alone and K1 on
+     the same inputs;
   4. main path: HunyuanVideoSampler.from_pretrained at the full width of
      HYVideo-T/2 (bf16), Llama-3-8B + CLIP-L (fp16) and the 884-16c-hy VAE
      (fp16), random weights from fixed seeds, then predict() with CFG at
@@ -137,7 +139,7 @@ from hunyuanvideo_efficiency_tpu_torch.ops.flash_backward import (
 from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
     flash_attention_plain, flash_int8_plain, flash_int8_running,
     flash_int8_static, flash_running, flash_splits, flash_static,
-    int8_bound_inflation, int8_key_group, pick_block)
+    int8_bound_inflation, int8_key_group, pick_block, quantize_groups)
 from hunyuanvideo_efficiency_tpu_torch.ops.int8_matmul import (
     quantize_rows, w8a8_linear, w8a8_linear_plain)
 from hunyuanvideo_efficiency_tpu_torch.ops.quantization import (
@@ -379,6 +381,7 @@ def time_flash_headline(dev, smi):
         raise AssertionError("flash_static at the headline shape: output "
                              "not finite or of the wrong shape")
     del out
+    time_int8_headline(q, k, v, kb, c, keys, smi, once)
     qt = q.transpose(1, 2)
     kt_, vt = (x[:, :keys].transpose(1, 2).contiguous() for x in (k, v))
     del k, v
@@ -395,13 +398,39 @@ def time_flash_headline(dev, smi):
     torch.cuda.empty_cache()
 
 
+def time_int8_headline(q, k, v, kb, c, keys, smi, once):
+    """One timed B8a launch at the headline shape, on time_flash_headline's
+    inputs (k as the caller gives it; C inflated for int8 rounding) with
+    the groups the wrapper picks at that length: a timing, the output only
+    checked finite. Bound: Q.K^T at the int8 rate plus P.V at the bf16
+    rate over the valid keys, against the bytes of q, k, v and out."""
+    b, s, h, d = q.shape
+    qg = pick_block(1024, s)
+    kg = int8_key_group(pick_block(2048, s), True)
+    c8 = c * int8_bound_inflation(d)
+    out, ms = once(lambda: flash_int8_static(q, k, v, kb, c8, d ** -0.5, qg,
+                                             kg))
+    if out.shape != (b, s, h * d) or not torch.isfinite(out).all():
+        raise AssertionError("flash_int8_static at the headline shape: "
+                             "output not finite or of the wrong shape")
+    del out
+    flops = 4 * b * h * s * keys * d
+    bound_ms, by = bound(flops / 2, 4 * q.numel() * 2, int8_ops=flops / 2)
+    phase("headline", name="flash_int8_static", shape=f"[{b},{s},{h},{d}]"
+          "bf16", groups=f"q{qg}/k{kg}", valid_keys=keys, kernel_ms=ms,
+          bound_ms=bound_ms, bound_by=by, tops=flops / ms / 1e9,
+          check="timing only (finite output)", card=smi)
+
+
 def check_flash_int8(dev, smi, lib_ms):
     """B8a and B8b at the inputs of flash_inputs, k smoothed as
     flash_attention_int8 does, the quantization groups its wrapper picks at
     4,288 tokens (query groups of 1024; key groups of 512 static, 1024
     running), C inflated for int8 rounding; against flash_int8_plain, max
     relative error 2e-2. Yardstick: the bf16 SDPA of check_flash. Bound:
-    Q.K^T at the int8 rate plus P.V at the bf16 rate."""
+    Q.K^T at the int8 rate plus P.V at the bf16 rate. Beside each: the
+    quantization pre-pass alone (quant_ms, part of the kernel's time) and
+    K1 on the same inputs (k1_ms; K2 for the running kernel, k2_ms)."""
     q, k, v, kb, c, flops, io_bytes = flash_inputs(dev)
     b, s, h, d = q.shape
     scale = d ** -0.5
@@ -423,12 +452,17 @@ def check_flash_int8(dev, smi, lib_ms):
         if rel_err > 2e-2:
             raise AssertionError(f"{name}: max rel error {rel_err} > 2e-2")
         ms = cuda_ms(lambda: fn(*args), 20)
+        quant_ms = cuda_ms(lambda: quantize_groups(q, k, qg, kg), 20)
+        k1_ms = cuda_ms(lambda: flash_static(q, k, v, kb, c, scale), 20)
+        bf16 = ({"k2_ms": cuda_ms(lambda: flash_running(q, k, v, kb, scale),
+                                  20)} if running else {})
         plain_ms = cuda_ms(lambda: flash_int8_plain(
             q, k, v, kb, c, scale, running, qg, kg), 2)
         phase("kernel", name=name, shape=f"[{b},{s},{h},{d}]bf16",
               groups=f"q{qg}/k{kg}", max_abs_err=abs_err,
-              tol="rel 2e-2 (bf16)", kernel_ms=ms, plain_ms=plain_ms,
-              library_ms=lib_ms, bound_ms=bound_ms, card=smi)
+              tol="rel 2e-2 (bf16)", kernel_ms=ms, quant_ms=quant_ms,
+              k1_ms=k1_ms, **bf16, plain_ms=plain_ms, library_ms=lib_ms,
+              bound_ms=bound_ms, bound_share=bound_ms / ms, card=smi)
         rows.append(dict(
             name=name, route="cuda", source=SRC + "flash_int8.cu",
             replaces=f"{JAX}flash_attention.py:{line}", max_abs_err=abs_err,

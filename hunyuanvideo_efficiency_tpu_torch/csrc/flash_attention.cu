@@ -56,27 +56,11 @@
 //      (acc, m, l) to fp32 scratch and flash_combine_kernel merges them with
 //      the algebra of merge_flash_states (all parts share m = C in the
 //      static kernel, so its weights are 1), including the state and lse.
-#include "hopper.cuh"
-#include "mma.cuh"
+#include "flash_wg.cuh"
 
 namespace {
 
-using namespace hv::sm90;
-
-constexpr int BM = 128;      // query rows per block: two consumer warpgroups
-constexpr int BN = 128;      // keys per tile
-constexpr int STAGES = 3;    // K/V ring slots
-constexpr int THREADS = 384; // producer warpgroup + two consumer warpgroups
-constexpr int CONSUMER_WARPS = 8;
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-
-// A row sum from the four threads of a quad that share the row.
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
+using namespace hv::flash;
 
 // S = Q.K^T for one key tile: 64 query rows (A, K-major at q_addr) x 128
 // keys (B, K-major at k_addr), D/16 k16 steps, one commit group.
@@ -94,109 +78,21 @@ __device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_addr,
 }
 
 // Scores -> probabilities in place, in log2 units: sc*scale*log2(e) plus
-// the tile's bias bs (log2 units, less the static offset). RUNNING: the
-// online softmax; m_r and l_r are updated, corr is the factor the running
-// output must take (l_r already has it). Static: corr stays 1.
+// the tile's bias bs (log2 units, less the static offset).
 template <bool RUNNING>
-__device__ __forceinline__ void softmax_scores(
+__device__ __forceinline__ void softmax_tile(
     float (&sc)[64], const float* bs, float sl2, int t, float (&m_r)[2],
     float (&l_r)[2], float (&corr)[2]) {
   float2 bb[16];
 #pragma unroll
   for (int j = 0; j < 16; ++j)
     bb[j] = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t);
-  corr[0] = corr[1] = 1.f;
-  if (RUNNING) {
-    float mx[2] = {m_r[0], m_r[1]};
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      sc[4 * j + 0] = fmaf(sc[4 * j + 0], sl2, bb[j].x);
-      sc[4 * j + 1] = fmaf(sc[4 * j + 1], sl2, bb[j].y);
-      sc[4 * j + 2] = fmaf(sc[4 * j + 2], sl2, bb[j].x);
-      sc[4 * j + 3] = fmaf(sc[4 * j + 3], sl2, bb[j].y);
-      mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j + 0], sc[4 * j + 1]));
-      mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      corr[i] = exp2f(m_r[i] - mx[i]);
-      m_r[i] = mx[i];
-      l_r[i] *= corr[i];
-    }
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      sc[4 * j + 0] = exp2f(sc[4 * j + 0] - m_r[0]);
-      sc[4 * j + 1] = exp2f(sc[4 * j + 1] - m_r[0]);
-      sc[4 * j + 2] = exp2f(sc[4 * j + 2] - m_r[1]);
-      sc[4 * j + 3] = exp2f(sc[4 * j + 3] - m_r[1]);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      sc[4 * j + 0] = exp2f(fmaf(sc[4 * j + 0], sl2, bb[j].x));
-      sc[4 * j + 1] = exp2f(fmaf(sc[4 * j + 1], sl2, bb[j].y));
-      sc[4 * j + 2] = exp2f(fmaf(sc[4 * j + 2], sl2, bb[j].x));
-      sc[4 * j + 3] = exp2f(fmaf(sc[4 * j + 3], sl2, bb[j].y));
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    l_r[0] += sc[4 * j + 0] + sc[4 * j + 1];
-    l_r[1] += sc[4 * j + 2] + sc[4 * j + 3];
-  }
-}
-
-// P rounded to T, the accumulator layout packed into the A fragments of
-// the k16 steps over the tile's 128 keys.
-template <typename T>
-__device__ __forceinline__ void pack_p(const float (&sc)[64],
-                                       uint32_t (&pa)[BN / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-    pa[kk][0] = hv::pack2(sc[8 * kk + 0], sc[8 * kk + 1], T());
-    pa[kk][1] = hv::pack2(sc[8 * kk + 2], sc[8 * kk + 3], T());
-    pa[kk][2] = hv::pack2(sc[8 * kk + 4], sc[8 * kk + 5], T());
-    pa[kk][3] = hv::pack2(sc[8 * kk + 6], sc[8 * kk + 7], T());
-  }
-}
-
-// O *= corr for the running max's moves (rows r0 and r0 + 8); skipped,
-// exactly, when no row of the warp moved its max.
-template <int D>
-__device__ __forceinline__ void rescale(float (&acc)[D / 2],
-                                        const float (&corr)[2]) {
-  if (!__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) return;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    acc[4 * j + 0] *= corr[0];
-    acc[4 * j + 1] *= corr[0];
-    acc[4 * j + 2] *= corr[1];
-    acc[4 * j + 3] *= corr[1];
-  }
-}
-
-// O += P.V of one tile: P in registers (A fragments of T), V MN-major at
-// v_addr, 16 keys = 16 rows = 2048 bytes a k16 step. One commit group.
-template <typename T, int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
-                                         const uint32_t (&pa)[BN / 16][4],
-                                         uint32_t v_addr) {
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_rs_tb<D, T>(acc, pa[kk],
-                      desc_sw128(v_addr + kk * 2048, BN * 128, 1024));
-  wgmma_commit();
-}
-
-// Keeps P's registers live until an asynchronous product that reads them
-// has been waited for.
-__device__ __forceinline__ void fence_pa(uint32_t (&pa)[BN / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(pa[kk][i]) :: "memory");
+  softmax_scores<RUNNING>(
+      sc,
+      [&](int i) {
+        return fmaf(sc[i], sl2, (i & 1) ? bb[i >> 2].y : bb[i >> 2].x);
+      },
+      m_r, l_r, corr);
 }
 
 // Shared memory, byte offsets from a 1024-aligned base. A tile of R rows is
@@ -321,7 +217,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       issue_qk<T, D>(sc, q_addr, k_base);
       wgmma_wait<0>();
       fence_regs(sc);
-      softmax_scores<RUNNING>(sc, bias_s, sl2, t, m_r, l_r, corr);
+      softmax_tile<RUNNING>(sc, bias_s, sl2, t, m_r, l_r, corr);
       pack_p<T>(sc, pa);
     }
     for (int it = 1; it < n_it; ++it) {
@@ -335,7 +231,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       issue_pv<T, D>(acc, pa, v_base + s_prev * L::KV_BYTES);
       wgmma_wait<1>();  // S is done; the previous P.V may still run
       fence_regs(sc);
-      softmax_scores<RUNNING>(sc, bias_s + s * BN, sl2, t, m_r, l_r, corr);
+      softmax_tile<RUNNING>(sc, bias_s + s * BN, sl2, t, m_r, l_r, corr);
       wgmma_wait<0>();  // the previous tile's P.V is done
       fence_regs(acc);
       fence_pa(pa);

@@ -1,6 +1,7 @@
-// The inner step shared by the int8 flash (flash_int8.cu) and sliding-tile
-// (sta_attention.cu) attention kernels (flash_attention.cu has its own
-// wgmma design, on hopper.cuh). A block of 4 warps
+// The mma.sync inner step of the sliding-tile attention kernels
+// (sta_attention.cu, with their int8 arms) and of the training backward
+// (flash_backward.cu); flash_attention.cu and flash_int8.cu have their own
+// wgmma design (flash_wg.cuh on hopper.cuh). A block of 4 warps
 // owns BQ = 64 query rows; each warp holds its 16 rows of Q as mma.sync A
 // fragments (bf16/fp16, or int8 codes for the int8 Q.K^T), and key chunks
 // of BK = 64 are staged in padded shared memory (K row-major, V transposed)

@@ -1,12 +1,15 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: TMA tensor
-// maps built on the host, TMA tile loads into shared memory, mbarriers for a
-// producer/consumer ring, warpgroup register rebalancing, and the
-// asynchronous warpgroup products (wgmma) with their shared-memory matrix
+// maps built on the host (16-bit operands and int8 codes), TMA tile loads
+// into shared memory, mbarriers for a producer/consumer ring, named
+// barriers, warpgroup register rebalancing, and the asynchronous warpgroup
+// products (wgmma: bf16/fp16 and s8) with their shared-memory matrix
 // descriptors.
 //
 // Shared-memory operands use the 128-byte swizzle that a TMA box of 64
 // 16-bit columns (128 bytes a row) writes: rows of 128 bytes, 8-row atoms of
-// 1024 bytes, the atom base 1024-byte aligned. A wgmma descriptor
+// 1024 bytes, the atom base 1024-byte aligned (int8 code tiles of 128
+// columns are the same rows; those of 64 columns use the 64-byte swizzle:
+// 64-byte rows, 8-row atoms of 512 bytes, layout 2). A wgmma descriptor
 // (sm_90 GMMA descriptor: start address, leading and stride byte offsets,
 // all >> 4; layout 1 = 128-byte swizzle in bits 62-63) reads such a tile
 //   K-major (the contracted index runs along the 128-byte row): SBO = 1024
@@ -58,6 +61,22 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
+// A tiled map of element type `dt` and swizzle `swizzle` (rank, dims,
+// strides and box as cuTensorMapEncodeTiled takes them; elements past a
+// dimension's end read as zero). Returns false if the driver refuses it.
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType dt,
+                       CUtensorMapSwizzle swizzle, const void* base, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* byte_strides,
+                       const cuuint32_t* box) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr || rank < 1 || rank > 5) return false;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return fn(map, dt, rank, const_cast<void*>(base), dims, byte_strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // A map over a 16-bit operand of `rank` dimensions (innermost first):
 // `dims` elements each, `byte_strides` between consecutive entries of dims
 // 1..rank-1, boxes of `box` elements (box[0] = 64 columns: 128-byte rows
@@ -68,16 +87,11 @@ template <typename T>
 bool encode_box(CUtensorMap* map, const void* base, int rank,
                 const cuuint64_t* dims, const cuuint64_t* byte_strides,
                 const cuuint32_t* box) {
-  const EncodeTiledFn fn = encode_tiled_fn();
-  if (fn == nullptr || rank < 1 || rank > 5) return false;
   const CUtensorMapDataType dt = std::is_same<T, __half>::value
                                      ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  return fn(map, dt, rank, const_cast<void*>(base), dims, byte_strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_map(map, dt, CU_TENSOR_MAP_SWIZZLE_128B, base, rank, dims,
+                    byte_strides, box);
 }
 
 // A 3-D map over a 16-bit operand addressed as (column, row, batch): `cols`
@@ -95,6 +109,26 @@ bool encode_rows(CUtensorMap* map, const void* base, int cols, int rows,
                                  (cuuint64_t)batch_stride * sizeof(T)};
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
   return encode_box<T>(map, base, 3, dims, strides, box);
+}
+
+// A 3-D map over int8 codes addressed as (column, row, batch), strides in
+// bytes; boxes of `box_cols` (128 or 64: one 128- or 64-byte swizzle row)
+// x `box_rows`. Rows past `rows` read as zero.
+inline bool encode_rows_s8(CUtensorMap* map, const void* base, int cols,
+                           int rows, int batch, long long row_stride,
+                           long long batch_stride, int box_cols,
+                           int box_rows) {
+  if (box_cols != 128 && box_cols != 64) return false;
+  if (batch == 1) batch_stride = row_stride * rows;  // unused, but valid
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)row_stride,
+                                 (cuuint64_t)batch_stride};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                    box_cols == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : CU_TENSOR_MAP_SWIZZLE_64B,
+                    base, 3, dims, strides, box);
 }
 
 // -------------------------------------------------------------- device side
@@ -185,6 +219,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
   tma_load_3d(smem_u32(dst), map, smem_u32(bar), c0, c1, c2);
 }
 
+// Named barrier `id` (1..15; 0 is __syncthreads') over `threads` threads,
+// a multiple of 32: wait for the rest, or arrive without waiting.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
 template <int R>
 __device__ __forceinline__ void reg_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
@@ -202,6 +245,15 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t smem_addr,
   return (uint64_t)((smem_addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// Descriptor of a 64-byte-swizzled operand (layout 2): K-major, SBO = 512
+// (the next 8 rows of 64 bytes), LBO unused.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t smem_addr,
+                                              uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (2ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -225,6 +277,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
 #define HV_REGS32                                                            \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -241,6 +299,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   HV_ACC16(d, 0), HV_ACC16(d, 16)
 #define HV_ACC64(d) \
   HV_ACC16(d, 0), HV_ACC16(d, 16), HV_ACC16(d, 32), HV_ACC16(d, 48)
+#define HV_IACC4(d, i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define HV_IACC16(d, i) \
+  HV_IACC4(d, i), HV_IACC4(d, i + 4), HV_IACC4(d, i + 8), HV_IACC4(d, i + 12)
+#define HV_IACC64(d) \
+  HV_IACC16(d, 0), HV_IACC16(d, 16), HV_IACC16(d, 32), HV_IACC16(d, 48)
 
 // d (+)= A.B, m64n128k16, both operands K-major in shared memory; scale_d =
 // 0 overwrites d.
@@ -296,6 +359,21 @@ HV_WGMMA_RS_TB(64, 32, HV_REGS32, HV_ACC32, "%32, %33, %34, %35", "%36",
 #undef HV_WGMMA_SS_N128
 #undef HV_WGMMA_SS_N64
 #undef HV_WGMMA_RS_TB
+
+// d (+)= A.B, m64n128k32, s8 x s8 -> s32, both operands K-major in shared
+// memory (the only layout 8-bit wgmma takes); scale_d = 0 overwrites d.
+// Integer products take no scale or transpose immediates.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int (&d)[64],
+                                                       uint64_t da,
+                                                       uint64_t db,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{" HV_REGS64 "}, %64, %65, p;\n}\n"
+      : HV_IACC64(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
 // d += A.B over one k16 step with N = D columns (128 or 64).
 template <int D, typename T>

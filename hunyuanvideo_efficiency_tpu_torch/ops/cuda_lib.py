@@ -50,8 +50,11 @@ SIGNATURES = {
             _I, [_I] * 2 + [_P] * 8 + [_I] * 12 + [_LL] * 12 + [_F, _P]),
     },
     "flash_int8": {
+        "hv_quantize_groups": (
+            _I, [_I, _I, _P, _LL, _LL, _I, _I, _P, _LL, _LL, _I, _I, _I, _I,
+                 _P, _P, _P, _P, _P, _P]),
         "hv_flash_int8_fwd": (
-            _I, [_I] * 3 + [_P] * 8 + [_I] * 6 + [_LL] * 6 + [_F, _P]),
+            _I, [_I] * 3 + [_P] * 8 + [_I] * 5 + [_LL] * 2 + [_F, _P]),
     },
     "w8a8_linear": {
         "hv_w8a8_linear": (

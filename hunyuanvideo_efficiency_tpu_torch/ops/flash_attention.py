@@ -35,8 +35,11 @@ int8 Q.K^T (`flash_attention_int8`, JAX :816-906; `csrc/flash_int8.cu`):
 
 Both quantize q and k symmetrically per (batch, head, block): one scale per
 `q_group` query rows and per `k_group` key rows, the blocks the JAX
-wrapper picks (`pick_block`, `int8_key_group`); their plain version is
-`flash_int8_plain`.
+wrapper picks (`pick_block`, `int8_key_group`). A pre-pass kernel
+(`quantize_groups`, plain version `quantize_groups_plain`) writes the int8
+codes and scales; the attention kernel reads the codes by TMA into s8
+wgmma products (the design note is in the .cu file). Their plain version
+is `flash_int8_plain`, on the plain pre-pass.
 """
 from __future__ import annotations
 
@@ -46,7 +49,6 @@ import torch
 
 from . import cuda_lib
 
-NEG_INF = -1e30
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
 BLOCK_Q, BLOCK_K = 128, 128   # the kernel's query rows a block, keys a tile
 MIN_SPLIT_TILES = 8           # key tiles a split walks at least
@@ -302,57 +304,39 @@ def int8_bound_inflation(d: int) -> float:
     return (1.0 + d ** 0.5 / 254.0) ** 2
 
 
-def group_codes(x: torch.Tensor, group: int):
+def quantize_groups_plain(x: torch.Tensor, group: int):
     """Symmetric int8 codes of x [B, S, H, D] per (batch, head, group of
-    `group` rows), zero rows padding S to a whole group: codes as fp32
-    [B, H, S_pad, D] and scales [B, H, S_pad // group] with
-    scale = max(max|x|, 1e-6) * (1/127), codes round(x * (1/scale))."""
+    `group` rows), the last group padded with zero rows: codes int8 [B, S,
+    H*D] and scales fp32 [B, H, ceil(S/group)], scale = max(max|x|, 1e-6) *
+    (1/127), codes round(x * (1/scale)) with ties to even (the TPU
+    kernels' rounding; the clamp to +-127 only guards it)."""
     b, s, h, d = x.shape
-    s_pad = _round_up(s, group)
-    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, s_pad - s))
-    xf = xf.permute(0, 2, 1, 3).reshape(b, h, s_pad // group, group, d)
-    sc = xf.abs().amax(dim=(3, 4)).clamp_min(1e-6) * (1.0 / 127.0)
-    codes = torch.round(xf * (1.0 / sc)[..., None, None])
-    return codes.reshape(b, h, s_pad, d), sc
+    n = -(-s // group)
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, n * group - s))
+    xf = xf.reshape(b, n, group, h, d)
+    sc = xf.abs().amax(dim=(2, 4)).clamp_min(1e-6) * (1.0 / 127.0)
+    codes = torch.round(xf * (1.0 / sc)[:, :, None, :, None])
+    codes = codes.clamp_(-127, 127).reshape(b, n * group, h * d)[:, :s]
+    return codes.to(torch.int8), sc.transpose(1, 2).contiguous()
 
 
-def flash_int8_plain(q, k, v, key_bias, c, scale: float, running: bool,
-                     q_group: int, k_group: int) -> torch.Tensor:
-    """Both int8 kernels in plain PyTorch. q/k/v [B, S, H, D]; key_bias
-    [B, Sk] fp32 or None; c [B, H] fp32 static offset (unused when
-    running). s = s32(q8.k8^T) * (sq*sk*scale) (the codes' product is exact
-    in fp32 for D <= 1040), then the static p = exp(s + (kb - c)) or the
-    exact softmax, p rounded to v's type before P.V. One head at a time.
-    Returns [B, Sq, H*D]."""
-    b, sq_len, h, d = q.shape
-    sk_len = k.shape[1]
-    q8, sq = group_codes(q, q_group)
-    k8, sk = group_codes(k, k_group)
-    kb = (key_bias.reshape(b, sk_len).float() if key_bias is not None
-          else torch.zeros((b, sk_len), device=q.device))
-    kb = torch.nn.functional.pad(kb, (0, k8.shape[2] - sk_len),
-                                 value=NEG_INF)[:, None, :]
-    vf = torch.nn.functional.pad(
-        v, (0, 0, 0, 0, 0, k8.shape[2] - sk_len)).transpose(1, 2)
-    out = torch.empty((b, sq_len, h, d), dtype=q.dtype, device=q.device)
-    for hi in range(h):
-        s32 = torch.matmul(q8[:, hi], k8[:, hi].transpose(-1, -2))
-        fac = (sq[:, hi, :, None] * sk[:, hi, None, :]) * scale
-        fac = fac.repeat_interleave(q_group, 1).repeat_interleave(k_group, 2)
-        s = s32 * fac
-        if running:
-            x = s + kb
-            p = torch.exp(x - x.amax(dim=-1, keepdim=True))
-        else:
-            p = torch.exp(s + (kb - c.float()[:, hi, None, None]))
-        pv = torch.matmul(p.to(v.dtype).float(), vf[:, hi].float())
-        o = pv / p.sum(dim=-1).clamp_min(1e-37)[..., None]
-        out[:, :, hi] = o[:, :sq_len].to(q.dtype)
-    return out.reshape(b, sq_len, h * d)
-
-
-def _launch_int8(q, k, v, key_bias, c, scale, running, q_group, k_group):
+def _check_int8_launch(q, k, v, q_group, k_group):
+    """What the int8 kernels take, checked before anything is launched."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if d not in (64, 128):
+        raise ValueError(f"flash int8 kernel takes head_dim 64 or 128, got "
+                         f"{d}")
+    if k.shape != (b, sk, h, d) or (v is not None and v.shape != k.shape):
+        raise ValueError(f"flash int8 kernel: bad shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} "
+                         f"v {None if v is None else tuple(v.shape)}")
+    if q_group % 64 or k_group % 64 or q_group <= 0 or k_group <= 0:
+        raise ValueError(f"flash int8 kernel: groups {q_group}/{k_group} "
+                         f"are not multiples of 64")
     for name, x in (("q", q), ("k", k), ("v", v)):
+        if x is None:
+            continue
         if not x.is_cuda:
             raise ValueError(f"flash int8 kernel: {name} is on {x.device}, "
                              f"not a CUDA device")
@@ -361,34 +345,90 @@ def _launch_int8(q, k, v, key_bias, c, scale, running, q_group, k_group):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash int8 kernel takes bf16 or fp16, got "
                         f"{q.dtype}")
+
+
+def _quantize_launch(q, k, q_group, k_group):
+    """The pre-pass kernel: ((q8, sq), (k8, sk)) and the key scales once
+    per 64 keys [B, H, ceil(Sk/64)], which the attention kernel reads."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    if d not in (64, 128):
-        raise ValueError(f"flash int8 kernel takes head_dim 64 or 128, got "
-                         f"{d}")
-    if k.shape != (b, sk, h, d) or v.shape != (b, sk, h, d):
-        raise ValueError(f"flash int8 kernel: bad shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if q_group % 64 or k_group % 64:
-        raise ValueError(f"flash int8 kernel: groups {q_group}/{k_group} "
-                         f"are not multiples of 64")
-    q, k, v = _as_rows(q), _as_rows(k), _as_rows(v)
+    q, k = _as_rows(q), _as_rows(k)
+    q8 = torch.empty((b, sq, h * d), dtype=torch.int8, device=q.device)
+    k8 = torch.empty((b, sk, h * d), dtype=torch.int8, device=q.device)
+    sq_s, sk_s, sk64 = (
+        torch.empty((b, h, -(-n // g)), dtype=torch.float32, device=q.device)
+        for n, g in ((sq, q_group), (sk, k_group), (sk, 64)))
+    err = cuda_lib.library("flash_int8").hv_quantize_groups(
+        _DTYPE_CODE[q.dtype], d, q.data_ptr(), q.stride(0), q.stride(1), sq,
+        q_group, k.data_ptr(), k.stride(0), k.stride(1), sk, k_group, b, h,
+        q8.data_ptr(), k8.data_ptr(), sq_s.data_ptr(), sk_s.data_ptr(),
+        sk64.data_ptr(), cuda_lib.stream_ptr(q.device))
+    cuda_lib.check(err, "int8 quantization pre-pass")
+    return (q8, sq_s), (k8, sk_s), sk64
+
+
+def quantize_groups(q, k, q_group: int, k_group: int):
+    """The int8 kernels' pre-pass: ((q8, sq), (k8, sk)) as
+    `quantize_groups_plain` gives them for q and k. One kernel launch for
+    both on CUDA tensors (csrc/flash_int8.cu; B8a/B8b launch it themselves,
+    this entry is for checking and timing it alone), the plain version on
+    CPU tensors."""
+    if q.device.type == "cpu":
+        return (quantize_groups_plain(q, q_group),
+                quantize_groups_plain(k, k_group))
+    _check_int8_launch(q, k, None, q_group, k_group)
+    return _quantize_launch(q, k, q_group, k_group)[:2]
+
+
+def flash_int8_plain(q, k, v, key_bias, c, scale: float, running: bool,
+                     q_group: int, k_group: int) -> torch.Tensor:
+    """Both int8 kernels in plain PyTorch, on `quantize_groups_plain`'s
+    codes and scales. q/k/v [B, S, H, D]; key_bias [B, Sk] fp32 or None; c
+    [B, H] fp32 static offset (unused when running). s = s32(q8.k8^T) *
+    (sq*sk*scale) (the codes' product is exact in fp32 for D <= 1040), then
+    the static p = exp(s + (kb - c)) or the exact softmax, p rounded to v's
+    type before P.V. One head at a time. Returns [B, Sq, H*D]."""
+    b, sq_len, h, d = q.shape
+    sk_len = k.shape[1]
+    q8, sq = quantize_groups_plain(q, q_group)
+    k8, sk = quantize_groups_plain(k, k_group)
+    q8 = q8.reshape(b, sq_len, h, d).float()
+    k8 = k8.reshape(b, sk_len, h, d).float()
+    sq = sq.repeat_interleave(q_group, 2)[..., :sq_len]     # [B, H, Sq]
+    sk = sk.repeat_interleave(k_group, 2)[..., :sk_len]     # [B, H, Sk]
+    kb = (key_bias.reshape(b, sk_len).float() if key_bias is not None
+          else torch.zeros((b, sk_len), device=q.device))[:, None, :]
+    out = torch.empty((b, sq_len, h, d), dtype=q.dtype, device=q.device)
+    for hi in range(h):
+        s32 = torch.matmul(q8[:, :, hi], k8[:, :, hi].transpose(-1, -2))
+        s = s32 * ((sq[:, hi, :, None] * sk[:, hi, None, :]) * scale)
+        if running:
+            x = s + kb
+            p = torch.exp(x - x.amax(dim=-1, keepdim=True))
+        else:
+            p = torch.exp(s + (kb - c.float()[:, hi, None, None]))
+        pv = torch.matmul(p.to(v.dtype).float(), v[:, :, hi].float())
+        o = pv / p.sum(dim=-1).clamp_min(1e-37)[..., None]
+        out[:, :, hi] = o.to(q.dtype)
+    return out.reshape(b, sq_len, h * d)
+
+
+def _launch_int8(q, k, v, key_bias, c, scale, running, q_group, k_group):
+    _check_int8_launch(q, k, v, q_group, k_group)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    (q8, sq_s), (k8, _), sk64 = _quantize_launch(q, k, q_group, k_group)
+    v = _as_rows(v)
     kb = (key_bias.reshape(b, sk).to(torch.float32).contiguous()
           if key_bias is not None else None)
     cc = None if running else c.to(torch.float32).expand(b, h).contiguous()
     out = torch.empty((b, sq, h * d), dtype=q.dtype, device=q.device)
-    sq_s = torch.empty((b, h, -(-sq // q_group)), dtype=torch.float32,
-                       device=q.device)
-    sk_s = torch.empty((b, h, -(-sk // k_group)), dtype=torch.float32,
-                       device=q.device)
-    lib = cuda_lib.library("flash_int8")
-    err = lib.hv_flash_int8_fwd(
-        _DTYPE_CODE[q.dtype], int(running), d, q.data_ptr(), k.data_ptr(),
+    err = cuda_lib.library("flash_int8").hv_flash_int8_fwd(
+        _DTYPE_CODE[q.dtype], int(running), d, q8.data_ptr(), k8.data_ptr(),
         v.data_ptr(), out.data_ptr(),
         kb.data_ptr() if kb is not None else None,
         cc.data_ptr() if cc is not None else None, sq_s.data_ptr(),
-        sk_s.data_ptr(), b, h, sq, sk, q_group, k_group, q.stride(0),
-        q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        sk64.data_ptr(), b, h, sq, sk, q_group, v.stride(0), v.stride(1),
         float(scale), cuda_lib.stream_ptr(q.device))
     cuda_lib.check(err, "flash int8 attention")
     return out

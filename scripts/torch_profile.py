@@ -71,7 +71,7 @@ def category(name: str) -> str:
         return "flash backward dK/dV (B5kv)"
     if "flash_fwd_kernel" in low or "flash_combine_kernel" in low:
         return "flash attention (K1/K2)"   # with its key-range split merge
-    if "flash_int8_kernel" in low or "group_scales_kernel" in low:
+    if "flash_int8_kernel" in low or "quantize_groups_kernel" in low:
         return "int8 flash attention (B8a/B8b)"
     if "w8a8" in low or "quant_rows_kernel" in low:
         return "W8A8 linear (B9)"

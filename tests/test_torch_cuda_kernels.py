@@ -470,6 +470,101 @@ def test_flash_int8_kernels_match_plain(dev, dtype, d, s, running):
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=TOL)
 
 
+# (query rows, keys, query group, key group or None for the wrapper's pick,
+# head_dim, v a column view of a fused [B, S, 3*H*D] projection)
+INT8_CASES = [
+    (4288, 4288, None, None, 128, False),  # the main path's length, groups
+    (4288, 4288, None, None, 128, True),
+    (4288, 4288, 64, 64, 128, False),      # two groups a 128-row/-key tile
+    (1000, 1000, 64, 64, 64, True),
+    (4288, 4288, 64, 64, 64, False),
+    (200, 200, 64, 128, 128, True),        # keys under two tiles, ragged
+    # more work items than SMs, fewer key tiles than ring slots: the
+    # persistent CTAs' ring runs on across items
+    (4288, 200, 1024, 128, 128, False),
+    (4288, 100, 64, 64, 64, True),
+]
+
+
+def _int8_inputs(dev, dtype, s, d, fused_v, seed=8, sk=None):
+    g = torch.Generator(dev).manual_seed(seed)
+    b, h = 2, 3
+    sk = s if sk is None else sk
+    q = torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(b, sk, h, d, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    q = (torch.nn.functional.normalize(q.float(), dim=-1) * 4).to(dtype)
+    k = (torch.nn.functional.normalize(k.float(), dim=-1) * 4).to(dtype)
+    if fused_v:
+        fused = torch.zeros(b, sk, 3, h, d, dtype=dtype, device=dev)
+        fused[:, :, 2] = v
+        v = fused[:, :, 2]
+        assert not v.is_contiguous()
+    kb = torch.zeros(b, sk, device=dev)
+    kb[1, 64:min(128, sk - 13)] = -1e30
+    kb[1, sk - 13:] = -1e30
+    return q, k, v, kb
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("s,qg,kg,d", [(4288, 1024, 512, 128),
+                                       (4288, 1024, 1024, 64),
+                                       (300, 64, 64, 128), (200, 256, 128,
+                                                            64)])
+def test_int8_prepass_equals_plain(dev, dtype, s, qg, kg, d):
+    """The quantization pre-pass kernel against quantize_groups_plain: the
+    same int8 codes and the same scales, bit for bit; q a column view of a
+    fused projection."""
+    from hunyuanvideo_efficiency_tpu_torch.ops import flash_attention as fa
+
+    q, k, _, _ = _int8_inputs(dev, dtype, s, d, False)
+    fused = torch.zeros(q.shape[0], s, 3, *q.shape[2:], dtype=dtype,
+                        device=dev)
+    fused[:, :, 0] = q
+    q = fused[:, :, 0]
+    (q8, sq), (k8, sk) = fa.quantize_groups(q, k, qg, kg)
+    torch.cuda.synchronize()
+    for got, want in (((q8, sq), fa.quantize_groups_plain(q, qg)),
+                      ((k8, sk), fa.quantize_groups_plain(k, kg))):
+        assert got[0].dtype == torch.int8 and got[0].shape == want[0].shape
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("s,sk,qg,kg,d,fused_v", INT8_CASES)
+@pytest.mark.parametrize("running", [False, True])
+def test_flash_int8_kernels_at_length(dev, dtype, s, sk, qg, kg, d, fused_v,
+                                      running):
+    """B8a/B8b at the main path's 4,288 tokens with the wrapper's groups and
+    with groups of 64 passed directly, v as a column view, and queries over
+    fewer keys, against flash_int8_plain; a second run equals the first bit
+    for bit."""
+    from hunyuanvideo_efficiency_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, kb = _int8_inputs(dev, dtype, s, d, fused_v, sk=sk)
+    scale = d ** -0.5
+    c = torch.full((2, 3), 16.0 * scale * fa.int8_bound_inflation(d),
+                   device=dev)
+    qg = qg or fa.pick_block(1024, s)
+    kg = kg or fa.int8_key_group(fa.pick_block(2048, sk), not running)
+    counter = fa.flash_int8_running if running else fa.flash_int8_static
+
+    def run():
+        if running:
+            return fa.flash_int8_running(q, k, v, kb, scale, qg, kg)
+        return fa.flash_int8_static(q, k, v, kb, c, scale, qg, kg)
+
+    n0 = counter.LAUNCHES
+    out, again = run(), run()
+    ref = fa.flash_int8_plain(q, k, v, kb, c, scale, running, qg, kg)
+    torch.cuda.synchronize()
+    assert counter.LAUNCHES == n0 + 2
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=TOL)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("case", STA_CASES)

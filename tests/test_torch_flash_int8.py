@@ -107,3 +107,85 @@ def test_wrappers_on_cpu_and_dispatch():
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert n0 == (fa.flash_int8_static.LAUNCHES,
                   fa.flash_int8_running.LAUNCHES)
+
+
+@pytest.mark.parametrize("s,group", [(200, 256), (1280, 256), (1280, 640),
+                                     (300, 64)])
+def test_quantize_groups_plain_layout_and_codes(s, group):
+    """The pre-pass's plain version: int8 codes [B, S, H*D] and fp32 scales
+    [B, H, ceil(S/group)], equal to the JAX kernels' own quantization of
+    each (batch, head, block) (jnp.round(x * (1/scale)), scale =
+    max(max|x|, 1e-6) * (1/127)); a ragged last group sees only its rows."""
+    q, _, _, _ = _inputs(3, s, h=3)
+    codes, scales = fa.quantize_groups_plain(torch.from_numpy(q), group)
+    b, _, h, d = q.shape
+    n = -(-s // group)
+    assert codes.dtype == torch.int8 and codes.shape == (b, s, h * d)
+    assert scales.dtype == torch.float32 and scales.shape == (b, h, n)
+    assert codes.is_contiguous() and scales.is_contiguous()
+    c4 = codes.reshape(b, s, h, d).numpy()
+    for bi in range(b):
+        for hi in range(h):
+            for gi in range(n):
+                blk = jnp.asarray(q[bi, gi * group:(gi + 1) * group, hi])
+                sc = jnp.maximum(jnp.max(jnp.abs(blk)), 1e-6) * (1.0 / 127.0)
+                q8 = jnp.round(blk * (1.0 / sc)).astype(jnp.int8)
+                assert scales[bi, hi, gi].item() == float(sc)
+                np.testing.assert_array_equal(
+                    c4[bi, gi * group:(gi + 1) * group, hi], np.asarray(q8))
+    assert np.abs(c4).max() == 127
+
+
+def test_quantize_groups_on_cpu_is_the_plain_version():
+    """quantize_groups (the pre-pass's entry) on CPU tensors: the plain
+    version for q and k with their own groups; the 64-row groups give one
+    scale every 64 rows, so a 128-row tile holds two."""
+    q, k, _, _ = (torch.from_numpy(a) for a in _inputs(4, 256))
+    (q8, sq), (k8, sk) = fa.quantize_groups(q, k, 64, 128)
+    for got, want in (((q8, sq), fa.quantize_groups_plain(q, 64)),
+                      ((k8, sk), fa.quantize_groups_plain(k, 128))):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert sq.shape == (2, 2, 4) and sk.shape == (2, 2, 2)
+
+
+@pytest.mark.parametrize("running", [False, True])
+def test_flash_int8_plain_with_64_row_groups(running):
+    """flash_int8_plain with groups of 64 passed directly (two query and
+    two key groups in one 128-row tile) against the same attention written
+    out from the dequantized codes."""
+    q, k, v, kb = (torch.from_numpy(a) for a in _inputs(5, 200))
+    kb = kb.reshape(2, 200)
+    c = torch.full((2, 2), 9.0)
+    scale = 0.125
+    out = fa.flash_int8_plain(q, k, v, kb, c, scale, running, 64, 64)
+    (q8, sq), (k8, sk) = fa.quantize_groups(q, k, 64, 64)
+    qd = (q8.reshape(2, 200, 2, 64).float()
+          * sq.repeat_interleave(64, 2)[..., :200].transpose(1, 2)[..., None])
+    kd = (k8.reshape(2, 200, 2, 64).float()
+          * sk.repeat_interleave(64, 2)[..., :200].transpose(1, 2)[..., None])
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale + kb[:, None, None]
+    if running:
+        p = torch.softmax(s, dim=-1)
+    else:
+        p = torch.exp(s - c[:, :, None, None])
+        p = p / p.sum(-1, keepdim=True)
+    want = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(2, 200, 128)
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("d,q_group,k_group,what", [
+    (64, 96, 128, "groups 96/128 are not multiples of 64"),
+    (64, 128, 32, "groups 128/32 are not multiples of 64"),
+    (64, 0, 64, "groups 0/64 are not multiples of 64"),
+    (32, 128, 128, "head_dim 64 or 128, got 32"),
+    (96, 128, 128, "head_dim 64 or 128, got 96"),
+])
+def test_int8_kernel_launch_rejects(d, q_group, k_group, what):
+    """The kernels' launch path checks groups and head dims before it
+    looks at the device: what the card would refuse fails here too."""
+    x = torch.zeros(1, 128, 2, d, dtype=torch.bfloat16)
+    c = torch.zeros(1, 2)
+    with pytest.raises(ValueError, match=what):
+        fa._launch_int8(x, x, x, None, c, 0.1, False, q_group, k_group)
+    with pytest.raises(ValueError, match=what):
+        fa._launch_int8(x, x, x, None, None, 0.1, True, q_group, k_group)
