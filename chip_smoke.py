@@ -10,7 +10,8 @@ Phases, one line each (any failure raises and exits non-zero):
      main-path shapes, with its time, the plain version's time, one PyTorch
      library call's time as a yardstick, and the card's lower bound: K1/K2
      and the int8 flash kernels at the main path's attention, the W8A8
-     linear at its qkv, fc1 (fused gelu_tanh) and modulation-matvec shapes,
+     linear at its qkv, fc1 (fused gelu_tanh), modulation-matvec, text-qkv
+     and linear2-MLP-rows (a K slice) shapes, each with its pre-pass alone,
      K3 and the temporal-reuse conv B11 on the same inputs, K3 and
      F.conv3d timed once at each distinct K3 shape of the main path's
      decode with its launch count (`[conv_decode]`), B11 again at
@@ -141,7 +142,7 @@ from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
     flash_int8_static, flash_running, flash_splits, flash_static,
     int8_bound_inflation, int8_key_group, pick_block, quantize_groups)
 from hunyuanvideo_efficiency_tpu_torch.ops.int8_matmul import (
-    quantize_rows, w8a8_linear, w8a8_linear_plain)
+    plan_w8a8, quantize_rows, w8a8_linear, w8a8_linear_plain, w8a8_prepass)
 from hunyuanvideo_efficiency_tpu_torch.ops.quantization import (
     quantize_dit, quantize_tensor_int8)
 from hunyuanvideo_efficiency_tpu_torch.ops.rope import get_nd_rotary_pos_embed
@@ -152,6 +153,7 @@ from hunyuanvideo_efficiency_tpu_torch.ops.sta import (
     sta_permuted_running, sta_permuted_static, sta_permuted_static_int8,
     sta_reference_mask, sta_ring, sta_ring_plain)
 from hunyuanvideo_efficiency_tpu_torch.probes import conv_probe
+from hunyuanvideo_efficiency_tpu_torch.probes.w8a8_bench import graph_ms
 from hunyuanvideo_efficiency_tpu_torch.training import (
     flow_match_loss, make_train_step, make_train_step_adamw)
 
@@ -570,20 +572,33 @@ def check_flash_backward(dev, smi):
 def check_w8a8(dev, smi):
     """B9 at the main path's shapes: the image qkv projection [2*4032,
     3072] -> 9216 (the timed entry), fc1 -> 12288 with the fused gelu_tanh,
-    and the double block's modulation matvec [2, 3072] -> 18432; bias on,
-    random int8 weights. Against w8a8_linear_plain: equal without an
-    activation (the same arithmetic), max relative error 1e-2 with one.
+    the double block's modulation matvec [2, 3072] -> 18432 (the split-K
+    schedule), the text stream's qkv [512, 3072] -> 9216 (middle M) and the
+    single block's linear2 MLP rows [8576, 12288] -> 3072, a K slice of a
+    [3072, 15360] weight; bias on, random int8 weights. Against
+    w8a8_linear_plain: equal without an activation (the same arithmetic),
+    max relative error 1e-2 with one. Times: the device time of a call
+    (w8a8_bench.graph_ms: 20 calls in one CUDA graph, replayed; the host's
+    launch cost of a call exceeds a matvec's device time) and, as
+    eager_ms, back-to-back calls with the host's cost. Each shape also
+    shows its pre-pass alone (quant_ms, part of kernel_ms) and the
+    schedule plan_w8a8 took.
     Yardstick: torch._int_mm on the same s8 operands (rows padded to 32
-    for the matvec, which it does not take). Bound: 2*M*N*K at the int8
-    rate against x, W, y, scales and bias once each."""
+    for the matvec, which it does not take; codes only, no quantization or
+    epilogue), timed the same way. Bound: 2*M*N*K at the int8 rate against
+    x, W, y, scales and bias once each."""
     g = torch.Generator(dev).manual_seed(2)
     row = None
-    for m, k, n, act in ((2 * 4032, 3072, 9216, None),
-                         (2 * 4032, 3072, 12288, "gelu_tanh"),
-                         (2, 3072, 18432, None)):
+    for m, k, n, act, k_slice in ((2 * 4032, 3072, 9216, None, None),
+                                  (2 * 4032, 3072, 12288, "gelu_tanh", None),
+                                  (2, 3072, 18432, None, None),
+                                  (512, 3072, 9216, None, None),
+                                  (2 * 4288, 12288, 3072, None, 3072)):
         x = torch.randn(m, k, generator=g, device=dev).bfloat16()
-        w8, so = quantize_tensor_int8(torch.randn(n, k, generator=g,
-                                                  device=dev))
+        w8, so = quantize_tensor_int8(torch.randn(
+            n, k + (k_slice or 0), generator=g, device=dev))
+        if k_slice:
+            w8 = w8[:, k_slice:]     # linear2's MLP rows: stride 15360
         bias = torch.randn(n, generator=g, device=dev).bfloat16()
         out = w8a8_linear(x, w8, so, bias, act)
         ref = w8a8_linear_plain(x, w8, so, bias, act)
@@ -593,20 +608,29 @@ def check_w8a8(dev, smi):
         if (act is None and abs_err != 0.0) or rel_err > 1e-2:
             raise AssertionError(f"w8a8 [{m},{k}]->{n} act={act}: max abs "
                                  f"error {abs_err}, rel {rel_err}")
-        ms = cuda_ms(lambda: w8a8_linear(x, w8, so, bias, act), 20)
+        ms = graph_ms(lambda: w8a8_linear(x, w8, so, bias, act), 20)
+        eager_ms = cuda_ms(lambda: w8a8_linear(x, w8, so, bias, act), 20)
+        quant_ms = graph_ms(lambda: w8a8_prepass(x), 20)
         plain_ms = cuda_ms(lambda: w8a8_linear_plain(x, w8, so, bias, act), 3)
         xq = quantize_rows(x)[0]
         if m < 32:
             xq = torch.nn.functional.pad(xq, (0, 0, 0, 32 - m))
-        wt = w8.t()
-        lib_ms = cuda_ms(lambda: torch._int_mm(xq, wt), 20)
+        wt = w8.contiguous().t()
+        lib_ms = graph_ms(lambda: torch._int_mm(xq, wt), 20)
         ops = 2 * m * n * k
         nbytes = m * k * 2 + n * k + m * n * 2 + n * 4 + n * 2
         bound_ms, by = bound(0, nbytes, int8_ops=ops)
+        plan = plan_w8a8(m, n, k,
+                         torch.cuda.get_device_properties(dev)
+                         .multi_processor_count)
         phase("kernel", name="w8a8_linear", shape=f"[{m},{k}]->{n}bf16",
-              act=act, max_abs_err=abs_err, tol="exact (no act), rel 1e-2",
-              kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-              bound_ms=bound_ms, tops=ops / ms / 1e9, card=smi)
+              act=act, w_row_stride=w8.stride(0),
+              plan=f"{plan.bm}x{plan.bn}/split{plan.split}/grid{plan.grid}",
+              max_abs_err=abs_err, tol="exact (no act), rel 1e-2",
+              kernel_ms=ms, eager_ms=eager_ms, quant_ms=quant_ms,
+              plain_ms=plain_ms,
+              library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
+              tops=ops / ms / 1e9, card=smi)
         if row is None:
             row = dict(name="w8a8_linear", route="cuda",
                        source=SRC + "w8a8_linear.cu",

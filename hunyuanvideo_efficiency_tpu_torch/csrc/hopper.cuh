@@ -375,6 +375,32 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int (&d)[64],
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+#define HV_REGS128                                                           \
+  HV_REGS64 ", "                                                             \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "  \
+  "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "  \
+  "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "  \
+  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "      \
+  "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+#define HV_IACC128(d)                                                        \
+  HV_IACC16(d, 0), HV_IACC16(d, 16), HV_IACC16(d, 32), HV_IACC16(d, 48),    \
+      HV_IACC16(d, 64), HV_IACC16(d, 80), HV_IACC16(d, 96),                 \
+      HV_IACC16(d, 112)
+
+// d (+)= A.B, m64n256k32, s8 x s8 -> s32, both operands K-major in shared
+// memory, as the n128 product above (128 accumulators a thread).
+__device__ __forceinline__ void wgmma_m64n256k32_s8_ss(int (&d)[128],
+                                                       uint64_t da,
+                                                       uint64_t db,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{" HV_REGS128 "}, %128, %129, p;\n}\n"
+      : HV_IACC128(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d += A.B over one k16 step with N = D columns (128 or 64).
 template <int D, typename T>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[D / 2],

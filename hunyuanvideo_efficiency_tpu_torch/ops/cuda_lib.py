@@ -57,9 +57,11 @@ SIGNATURES = {
             _I, [_I] * 3 + [_P] * 8 + [_I] * 5 + [_LL] * 2 + [_F, _P]),
     },
     "w8a8_linear": {
+        "hv_w8a8_quantize": (
+            _I, [_I, _P, _LL, _P, _P, _P, _I, _I, _I, _P]),
         "hv_w8a8_linear": (
-            _I, [_I, _I, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _I, _I, _I,
-                 _P]),
+            _I, [_I, _I, _P, _LL, _P, _LL, _P, _P, _I] + [_P] * 4
+            + [_I] * 7 + [_P]),
     },
     "flash_backward": {
         "hv_flash_bwd_dq": (

@@ -7,13 +7,20 @@ models/dit.py:_int8_linear_body).
   xq = round(x_f32 / sx) (ties to even), acc = xq . W8^T in s32,
   y  = act(acc * sx * scale_out + bias) in fp32, stored in x's type.
 
-`w8a8_linear` launches the hand-written kernel (`csrc/w8a8_linear.cu`) on
+`w8a8_linear` launches the hand-written kernels (`csrc/w8a8_linear.cu`:
+a quantizing pre-pass, then a persistent s8 wgmma GEMM on a TMA ring) on
 CUDA tensors and runs `w8a8_linear_plain` on CPU tensors; any other device
 raises. Every int8 linear of the port goes through it on the card, the
 [B, 3072] modulation matvecs included (the JAX package sends rows < 1024
-to its XLA body). `LAUNCHES` counts kernel launches. The weight is the
-nn.Linear layout [N, K] (K contiguous), scale_out [N] fp32; a column slice
-of the input (a row slice of a JAX kernel) is a strided view, not a copy.
+to its XLA body). `LAUNCHES` counts calls (one each, however many kernels
+a call launches). The weight is the nn.Linear layout [N, K] (K
+contiguous), scale_out [N] fp32; a column slice of the input (a row slice
+of a JAX kernel) is a strided view, not a copy.
+
+`plan_w8a8` picks the GEMM's schedule on the host from (M, N, K, SM
+count): the tile, the split of K and the persistent grid; `plan_segments`
+lists each CTA's work in the kernel's order (the CPU tests check that it
+covers the output once).
 
 Not ported: the JAX package's column-chunked XLA body and its temp budget
 (`_int8_linear_colchunked`, `INT8_TEMP_BUDGET`, `set_int8_impl`,
@@ -25,7 +32,9 @@ of x, W and y (3.35 TB/s); see the source note in the .cu file.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import functools
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +51,11 @@ EPILOGUE_ACTS = {
 }
 _ACT_CODE = {None: 0, "gelu": 1, "gelu_tanh": 2, "relu": 3, "silu": 4}
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
+
+BK = 128        # the GEMM's K step (bytes); N and K are multiples of 128
+GROUP = 8       # row tiles per raster group (csrc/w8a8_linear.cu: GROUP)
+SHORT_M = 64    # rows up to which the short schedule streams the weight
+TILES = ((128, 256), (128, 128), (64, 128))   # (BM, BN) the kernel takes
 
 
 def quantize_rows(x: torch.Tensor):
@@ -65,6 +79,134 @@ def w8a8_linear_plain(x, weight, scale_out, bias=None,
     return EPILOGUE_ACTS[act](y).to(x.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class W8A8Plan:
+    """The GEMM's schedule: tiles of bm x bn, K in `split` parts of whole
+    128-byte steps, `grid` persistent CTAs walking the units."""
+    bm: int
+    bn: int
+    split: int
+    grid: int
+    m_tiles: int
+    n_tiles: int
+    k_steps: int
+
+    @property
+    def units(self) -> int:
+        return self.m_tiles * self.n_tiles * self.split
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_w8a8(m: int, n: int, k: int, sms: int) -> W8A8Plan:
+    """The schedule of an [m, k] x [n, k]^T call on a card of `sms` SMs.
+
+    m <= 64 (the modulation matvecs): 64 x 128 tiles and K split in its
+    single 128-byte steps; each CTA takes an equal contiguous range of the
+    (tile, step) units (stream-K), so that the weight read, which is the
+    bound, is spread evenly over every SM, and a CTA flushes partial sums
+    about twice. Otherwise no split, and the tile of the least modeled
+    time: rounds of tiles over the SMs times a tile's cost, its products
+    (bm * bn) plus its operand bytes (64 * (bm + bn), what makes a narrow
+    tile dearer a product); ties go to the wider tile."""
+    steps = k // BK
+    if m <= SHORT_M:
+        n_tiles = _cdiv(n, 128)
+        return W8A8Plan(64, 128, steps, min(n_tiles * steps, sms), 1,
+                        n_tiles, steps)
+
+    def cost(tile):
+        bm, bn = tile
+        rounds = _cdiv(_cdiv(m, bm) * _cdiv(n, bn), sms)
+        return rounds * (bm * bn + 64 * (bm + bn))
+
+    bm, bn = min(TILES, key=cost)
+    m_tiles, n_tiles = _cdiv(m, bm), _cdiv(n, bn)
+    return W8A8Plan(bm, bn, 1, min(m_tiles * n_tiles, sms), m_tiles,
+                    n_tiles, steps)
+
+
+def plan_segments(plan: W8A8Plan) -> Iterator[Tuple[int, int, int, int, int]]:
+    """The plan's work in the kernel's order (csrc/w8a8_linear.cu:
+    units_begin, segment_of): (CTA, first row, first column, first K byte,
+    end K byte) per segment. Unit u is tile u // split (row tiles fastest
+    within groups of GROUP) and part u % split of its K steps; with split
+    1 CTA c takes units c, c + grid, ...; with split > 1 the contiguous
+    units [c * units // grid, (c + 1) * units // grid), the parts of one
+    tile among them as one segment."""
+    for c in range(plan.grid):
+        if plan.split == 1:
+            u, end = c, plan.units
+        else:
+            u = c * plan.units // plan.grid
+            end = (c + 1) * plan.units // plan.grid
+        while u < end:
+            tile, part = divmod(u, plan.split)
+            last = part if plan.split == 1 else \
+                min(end - tile * plan.split, plan.split) - 1
+            grp, r = divmod(tile, GROUP * plan.n_tiles)
+            rows = min(plan.m_tiles - grp * GROUP, GROUP)
+            mi, ni = grp * GROUP + r % rows, r // rows
+            k0 = part * plan.k_steps // plan.split
+            k1 = (last + 1) * plan.k_steps // plan.split
+            yield c, mi * plan.bm, ni * plan.bn, k0 * BK, k1 * BK
+            u = u + plan.grid if plan.split == 1 \
+                else tile * plan.split + last + 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _prepass_launch(x2: torch.Tensor):
+    """The pre-pass kernel alone on x2 [M, K]: (xq int8 [M, K], sx fp32
+    [M])."""
+    m, k = x2.shape
+    xq = torch.empty((m, k), dtype=torch.int8, device=x2.device)
+    sx = torch.empty((m,), dtype=torch.float32, device=x2.device)
+    err = cuda_lib.library("w8a8_linear").hv_w8a8_quantize(
+        _DTYPE_CODE[x2.dtype], x2.data_ptr(), x2.stride(0), xq.data_ptr(),
+        sx.data_ptr(), None, 0, m, k, cuda_lib.stream_ptr(x2.device))
+    cuda_lib.check(err, "w8a8 quantization pre-pass")
+    return xq, sx
+
+
+def _rows(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x [..., K] as [M, K] rows the pre-pass takes (unit K stride,
+    16-byte aligned rows)."""
+    x2 = x.reshape(-1, k)
+    if x2.stride(1) != 1 or x2.stride(0) % 8 or x2.data_ptr() % 16:
+        x2 = x2.contiguous()
+    return x2
+
+
+def _aligned(v: torch.Tensor) -> torch.Tensor:
+    """v, or a copy of it if it is not 8-byte aligned (the epilogue reads
+    scale_out and bias in pairs of columns)."""
+    return v.clone() if v.data_ptr() % 8 else v
+
+
+def w8a8_prepass(x: torch.Tensor):
+    """B9's quantization pre-pass alone, for checking and timing it:
+    (codes int8 [..., K], scales fp32 [...]) as `quantize_rows` gives them
+    (its scales without the last axis). The kernel on CUDA tensors (bf16 or
+    fp16, K a multiple of 8), `quantize_rows` on CPU tensors."""
+    if x.device.type == "cpu":
+        xq, sx = quantize_rows(x)
+        return xq, sx[..., 0]
+    if not x.is_cuda or x.dtype not in _DTYPE_CODE or x.shape[-1] % 8:
+        raise ValueError(f"w8a8 pre-pass takes bf16/fp16 CUDA rows of a "
+                         f"multiple of 8, got {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
+    k = x.shape[-1]
+    xq, sx = _prepass_launch(_rows(x, k))
+    return xq.reshape(x.shape), sx.reshape(x.shape[:-1])
+
+
 def w8a8_linear(x, weight, scale_out, bias=None,
                 act: Optional[str] = None) -> torch.Tensor:
     """B9: y = act(dequant(quant(x) . weight^T) + bias), see the module
@@ -73,9 +215,6 @@ def w8a8_linear(x, weight, scale_out, bias=None,
         raise ValueError(f"w8a8_linear: unsupported activation {act!r}")
     if x.device.type == "cpu":
         return w8a8_linear_plain(x, weight, scale_out, bias, act)
-    if not x.is_cuda or not weight.is_cuda:
-        raise ValueError(f"w8a8 kernel: x is on {x.device}, weight on "
-                         f"{weight.device}, not a CUDA device")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"w8a8 kernel takes bf16 or fp16 x, got {x.dtype}")
     if weight.dtype != torch.int8:
@@ -86,25 +225,39 @@ def w8a8_linear(x, weight, scale_out, bias=None,
         raise ValueError(f"w8a8 kernel: x {tuple(x.shape)} against weight "
                          f"{tuple(weight.shape)}; N and K must be multiples "
                          f"of 128")
+    if not x.is_cuda or not weight.is_cuda:
+        raise ValueError(f"w8a8 kernel: x is on {x.device}, weight on "
+                         f"{weight.device}, not a CUDA device")
     if weight.stride(1) != 1 or weight.stride(0) % 16 \
             or weight.data_ptr() % 16:
         weight = weight.contiguous()
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, k)
-    if x2.stride(1) != 1 or x2.stride(0) % 8 or x2.data_ptr() % 16:
-        x2 = x2.contiguous()
+    x2 = _rows(x, k)
     m = x2.shape[0]
+    plan = plan_w8a8(m, n, k, _sm_count(x.device))
+    so = _aligned(scale_out.float().contiguous())
+    bias_type = 0
+    if bias is not None:   # fp32 or x's type go as they are
+        bias_type = 2 if bias.dtype == x.dtype else 1
+        bias = _aligned((bias if bias_type == 2 else bias.float())
+                        .contiguous())
+    # one scratch buffer: the codes [m, k], the row scales [m] and, with
+    # split-K, the s32 sums [m, n] and the tile counters
+    sx_at = _cdiv(m * k, 16) * 16
+    ws_at = sx_at + _cdiv(4 * m, 16) * 16
+    ws_bytes = 4 * (m * n + plan.m_tiles * plan.n_tiles + 3) \
+        if plan.split > 1 else 0
+    scratch = torch.empty(ws_at + ws_bytes, dtype=torch.uint8,
+                          device=x.device)
+    base = scratch.data_ptr()
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    so = scale_out.float().contiguous()
-    b = bias.float().contiguous() if bias is not None else None
-    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    sx = torch.empty((m,), dtype=torch.float32, device=x.device)
-    lib = cuda_lib.library("w8a8_linear")
-    err = lib.hv_w8a8_linear(
+    err = cuda_lib.library("w8a8_linear").hv_w8a8_linear(
         _DTYPE_CODE[x.dtype], _ACT_CODE[act], x2.data_ptr(), x2.stride(0),
         weight.data_ptr(), weight.stride(0), so.data_ptr(),
-        b.data_ptr() if b is not None else None, out.data_ptr(),
-        xq.data_ptr(), sx.data_ptr(), m, n, k, cuda_lib.stream_ptr(x.device))
+        bias.data_ptr() if bias is not None else None, bias_type,
+        out.data_ptr(), base, base + sx_at,
+        base + ws_at if ws_bytes else None, m, n, k, plan.bm, plan.bn,
+        plan.split, plan.grid, cuda_lib.stream_ptr(x.device))
     cuda_lib.check(err, "w8a8 linear")
     w8a8_linear.LAUNCHES += 1
     return out.reshape(*lead, n)

@@ -377,15 +377,25 @@ def test_sta_direct_matches_permuted(dev, kw):
         torch.testing.assert_close(x.float(), y.float(), atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("m,k,n,bias,act", [
-    (2, 512, 384, True, None),          # the modulation matvec shape class
+# (rows, K, N, bias, activation): every schedule of plan_w8a8 on a
+# 132-SM card (tests/test_torch_int8_linear.py checks which each takes)
+W8A8_CASES = [
+    (1, 384, 256, False, "silu"),       # short M, split-K
+    (2, 512, 384, True, None),          # the modulation matvec class
+    (63, 256, 256, True, "gelu"),
+    (64, 256, 256, True, "relu"),       # the last short-M row count
+    (65, 256, 256, False, None),        # the first above it: 64 x 128
     (77, 256, 256, False, None),        # ragged rows
-    (300, 512, 640, True, "gelu_tanh"),  # fc1 with the fused activation
     (129, 256, 128, True, "gelu"),
-    (64, 256, 256, True, "relu"),
-    (1, 384, 256, False, "silu"),
-])
+    (300, 512, 640, True, "gelu_tanh"),  # fc1 with the fused activation
+    (512, 256, 9216, True, None),       # middle M: 128 x 128 tiles
+    (6000, 256, 384, True, None),       # 128 x 256, ragged rows and N
+    (8064, 256, 2304, False, "gelu_tanh"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m,k,n,bias,act", W8A8_CASES)
 def test_w8a8_kernel_matches_plain(dev, dtype, m, k, n, bias, act):
     """B9 against its plain version: without an activation the two are the
     same arithmetic (exact s32, the same fp32 epilogue), so equal; with
@@ -412,25 +422,70 @@ def test_w8a8_kernel_matches_plain(dev, dtype, m, k, n, bias, act):
                                    rtol=TOL)
 
 
-def test_w8a8_kernel_strided_slices(dev):
-    """Column and row slices of one weight (the single block's linear1 /
-    linear2 slices) reach the kernel as strided views, [B, L, K] inputs."""
+@pytest.mark.parametrize("rows", [2, 90])
+@pytest.mark.parametrize("shape,out_sl,in_sl", [
+    ((768, 512), slice(128, 512), slice(0, 256)),    # linear1's columns
+    ((768, 512), slice(0, 768), slice(256, 512)),
+    ((256, 1280), slice(0, 256), slice(256, 1280)),  # linear2's MLP rows
+])
+def test_w8a8_kernel_strided_slices(dev, rows, shape, out_sl, in_sl):
+    """Column and K slices of one weight (the single block's linear1 /
+    linear2 slices) reach the kernel as strided views, [B, L, K] inputs;
+    the short (split-K) and the token-sized schedules."""
     from hunyuanvideo_efficiency_tpu_torch.ops.int8_matmul import (
         w8a8_linear, w8a8_linear_plain)
     from hunyuanvideo_efficiency_tpu_torch.ops.quantization import (
         quantize_tensor_int8)
 
     g = torch.Generator(dev).manual_seed(6)
-    w8, so = quantize_tensor_int8(torch.randn(768, 512, generator=g,
+    w8, so = quantize_tensor_int8(torch.randn(*shape, generator=g,
                                               device=dev))
-    x = torch.randn(2, 45, 256, generator=g, device=dev).bfloat16()
-    for out_sl, in_sl in ((slice(128, 512), slice(0, 256)),
-                          (slice(0, 768), slice(256, 512))):
-        wv = w8[out_sl, in_sl]
-        out = w8a8_linear(x, wv, so[out_sl])
-        ref = w8a8_linear_plain(x, wv, so[out_sl])
-        torch.cuda.synchronize()
-        assert torch.equal(out, ref)
+    wv = w8[out_sl, in_sl]
+    assert wv.stride(0) == shape[1]
+    x = torch.randn(2, rows // 2, wv.shape[1], generator=g,
+                    device=dev).bfloat16()
+    out = w8a8_linear(x, wv, so[out_sl])
+    ref = w8a8_linear_plain(x, wv, so[out_sl])
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+def test_w8a8_split_k_repeatable(dev):
+    """The double block's modulation matvec [2, 3072] -> 18432 takes the
+    split-K schedule; two runs equal each other and the plain version bit
+    for bit (s32 partial sums, added as integers)."""
+    from hunyuanvideo_efficiency_tpu_torch.ops.int8_matmul import (
+        _sm_count, plan_w8a8, w8a8_linear, w8a8_linear_plain)
+    from hunyuanvideo_efficiency_tpu_torch.ops.quantization import (
+        quantize_tensor_int8)
+
+    g = torch.Generator(dev).manual_seed(9)
+    w8, so = quantize_tensor_int8(torch.randn(18432, 3072, generator=g,
+                                              device=dev))
+    x = torch.randn(2, 3072, generator=g, device=dev).bfloat16()
+    assert plan_w8a8(2, 18432, 3072, _sm_count(x.device)).split > 1
+    first = w8a8_linear(x, w8, so)
+    second = w8a8_linear(x, w8, so)
+    ref = w8a8_linear_plain(x, w8, so)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, ref)
+
+
+def test_w8a8_prepass_equals_plain(dev):
+    """The pre-pass alone: codes and scales equal quantize_rows bit for
+    bit (a division and round-to-nearest-even, as the plain version), fp16
+    rows with a column-view stride."""
+    from hunyuanvideo_efficiency_tpu_torch.ops.int8_matmul import (
+        quantize_rows, w8a8_prepass)
+
+    g = torch.Generator(dev).manual_seed(10)
+    x = (torch.randn(300, 2 * 1024, generator=g, device=dev) * 5).half()
+    x[7, 3] = 60000.0
+    x = x[:, 1024:]
+    xq, sx = w8a8_prepass(x)
+    rq, rs = quantize_rows(x)
+    torch.cuda.synchronize()
+    assert torch.equal(xq, rq) and torch.equal(sx, rs[:, 0])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
