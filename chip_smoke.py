@@ -485,7 +485,9 @@ def check_flash_backward(dev, smi):
     forward's). Yardsticks: SDPA's forward for B5f and SDPA's backward
     through autograd, which computes dQ, dK and dV in one pass, for B5q and
     B5kv alike. Bounds: 2, 3 and 4 products of 2*B*H*Sq*Sk_valid*D
-    operations against each tensor once."""
+    operations against each tensor once. Each kernel's line gives its share
+    of the bound, and a `[kernel_pair]` line B5q + B5kv against SDPA's
+    backward."""
     q, k, v, kb, _, flops, _ = flash_inputs(dev, b=1)
     b, s, h, d = q.shape
     fused = torch.zeros(b, s, 3, h, d, dtype=v.dtype, device=dev)
@@ -560,12 +562,17 @@ def check_flash_backward(dev, smi):
               v="column view of fused qkv", max_abs_err=worst,
               tol="rel 2e-2 (bf16), lse abs 2e-3", kernel_ms=ms,
               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-              tflops=ops / ms / 1e9, card=smi)
+              bound_share=bound_ms / ms, tflops=ops / ms / 1e9, card=smi)
         rows.append(dict(
             name=name, route="cuda", source=SRC + source,
             replaces=f"{JAX}flash_backward.py:{line}", max_abs_err=worst,
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
             library_ms=lib_ms))
+    pair_ms = rows[1]["ms"] + rows[2]["ms"]
+    phase("kernel_pair", names="flash_bwd_dq+flash_bwd_dkv", ms=pair_ms,
+          bound_ms=rows[1]["bound_ms"] + rows[2]["bound_ms"],
+          sdpa_backward_ms=bwd_lib_ms, over_sdpa=pair_ms / bwd_lib_ms,
+          card=smi)
     return rows
 
 

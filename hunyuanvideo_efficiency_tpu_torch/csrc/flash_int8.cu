@@ -126,14 +126,6 @@ quantize_groups_kernel(QuantOperand qa, QuantOperand ka, int H) {
   }
 }
 
-// The two consumer warpgroups take turns to issue their products (named
-// barriers 1 and 2, 256 threads each: one warpgroup waits, the other
-// arrives), so that one's softmax runs under the other's products.
-__device__ __forceinline__ void turn_wait(int wgc) { bar_sync(1 + wgc, 256); }
-__device__ __forceinline__ void turn_pass(int wgc) {
-  bar_arrive(2 - wgc, 256);
-}
-
 // s32 -> fp32, exact for |s| < 2^22, on the integer and FADD pipes.
 __device__ __forceinline__ float s32_to_f32(int s) {
   return __int_as_float(s + 0x4B400000) - 12582912.f;

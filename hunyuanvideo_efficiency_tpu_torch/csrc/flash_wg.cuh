@@ -1,5 +1,6 @@
 // The warpgroup flash-attention pieces shared by flash_attention.cu (K1, K2,
-// B5f) and flash_int8.cu (B8a, B8b): the block's tile sizes, the static or
+// B5f), flash_int8.cu (B8a, B8b) and flash_backward.cu (B5q, B5kv): the
+// block's tile sizes, the consumer warpgroups' turns, the static or
 // online softmax of one 64 x 128 score tile in log2 units (each kernel
 // gives its own score of an element), P packed from the
 // accumulator layout into wgmma A fragments, the rescale of O, and the P.V
@@ -32,6 +33,15 @@ constexpr float LN2 = 0.6931471805599453f;
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The two consumer warpgroups take turns to issue their products (named
+// barriers 1 and 2, 256 threads each: one warpgroup waits, the other
+// arrives), so that one's softmax runs under the other's products
+// (flash_int8.cu, flash_backward.cu).
+__device__ __forceinline__ void turn_wait(int wgc) { bar_sync(1 + wgc, 256); }
+__device__ __forceinline__ void turn_pass(int wgc) {
+  bar_arrive(2 - wgc, 256);
 }
 
 // Scores -> probabilities, x[i] = score(i) in log2 units (scale, bias and

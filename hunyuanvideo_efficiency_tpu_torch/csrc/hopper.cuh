@@ -331,16 +331,17 @@ __device__ __forceinline__ void fence_regs(int (&d)[N]) {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));      \
   }
 
-// d += A.B, m64n64k16, both operands K-major in shared memory.
+// d (+)= A.B, m64n64k16, both operands K-major in shared memory; scale_d =
+// 0 overwrites d.
 #define HV_WGMMA_SS_N64(TY, T)                                               \
   __device__ __forceinline__ void wgmma_m64n64k16_ss(                       \
-      float(&d)[32], uint64_t da, uint64_t db, T) {                         \
+      float(&d)[32], uint64_t da, uint64_t db, int scale_d, T) {            \
     asm volatile(                                                            \
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                         \
         "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "         \
         "{" HV_REGS32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                     \
         : HV_ACC32(d)                                                        \
-        : "l"(da), "l"(db), "r"(1));                                         \
+        : "l"(da), "l"(db), "r"(scale_d));                                   \
   }
 
 HV_WGMMA_SS_N128("bf16", __nv_bfloat16)
@@ -420,7 +421,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
   if constexpr (N == 128)
     wgmma_m64n128k16_ss(d, da, db, 1, T());
   else
-    wgmma_m64n64k16_ss(d, da, db, T());
+    wgmma_m64n64k16_ss(d, da, db, 1, T());
 }
 
 }  // namespace sm90

@@ -65,22 +65,6 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Two B fragments (k16 x n8 each, for the column blocks n0 and n0 + 8) of a
-// 16-bit tile stored ROW-major as X[k][n] in shared memory, through
-// ldmatrix.trans: lane l passes the address of row k0 + (l & 15) at column
-// n0 + 8 * (l >> 4) (16-byte aligned); r[0..1] is the fragment of n0 and
-// r[2..3] of n0 + 8. This is how an operand contracted over its row index
-// (V in P.V, K in dS.K, dO and Q in the transposed backward) reaches
-// mma.sync without a transposed copy.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
 // One 32-bit word (two 16-bit or four 8-bit values) from shared memory.
 template <typename T>
 __device__ __forceinline__ uint32_t ld32(const T* p) {

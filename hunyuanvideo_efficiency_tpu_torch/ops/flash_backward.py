@@ -14,10 +14,15 @@ as three kernels:
   also writes lse = m + log(max(l, 1e-37)); it is the `LSE` instantiation of
   the forward template in `csrc/flash_attention.cu`. The two backward
   kernels are `csrc/flash_backward.cu`.
-* `flash_bwd_dq` (B5q) replaces `_bwd_dq_kernel`: one block per 64-query
-  tile, summing over key chunks.
-* `flash_bwd_dkv` (B5kv) replaces `_bwd_dkv_kernel`: the transposed form,
-  one block per 64-key tile, summing over query chunks.
+* `flash_bwd_dq` (B5q) replaces `_bwd_dq_kernel`: a block owns 128 query
+  rows and walks the key tiles.
+* `flash_bwd_dkv` (B5kv) replaces `_bwd_dkv_kernel`: the transposed form, a
+  block owns 128 keys and walks the query tiles.
+
+Both are wgmma kernels fed by a TMA ring (the design note is in the .cu
+file); `plan_flash_bwd` gives a call's blocks, ring turns and shared
+memory, and `tma_view_error` says why TMA could not read an operand view,
+which the wrappers raise rather than launch.
 
 Each wrapper runs its kernel on CUDA tensors and its plain PyTorch version
 (`flash_fwd_lse_plain`, `flash_bwd_dq_plain`, `flash_bwd_dkv_plain`: fp32
@@ -34,15 +39,17 @@ and in the backward one B5q and one B5kv.
 
 Not carried over from the TPU version (tiling only, the same math): the
 8-sublane [B, H*8, Sq] layout of lse and delta (here [B, H, Sq]), the
-[B, 8, Sk] bias broadcast, padding S to block multiples (the kernels mask
-ragged edges), and the block-size arguments, accepted for signature parity.
+[B, 8, Sk] bias broadcast, padding S to block multiples (TMA reads rows
+past the end as zero and the kernels give them P = 0), and the block-size
+arguments, accepted for signature parity.
 
 Bound on the H100: 4, 6 and 8 times B*H*Sq*Sk*D tensor-core operations for
 B5f, B5q and B5kv, far above their bytes at the main path's lengths.
 """
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -149,6 +156,67 @@ def _prepare(name, q, k, v, key_bias):
     return _as_rows(q), _as_rows(k), _as_rows(v), kb
 
 
+# csrc/flash_backward.cu: ROWS, TILE, RING
+BWD_ROWS, BWD_TILE, BWD_RING = 128, 64, 3
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """One backward launch: a block owns `rows` rows of its side (queries
+    for dQ, keys for dK/dV) and walks `turns` tiles of `tile` rows of the
+    other side through a ring of `ring` slots."""
+    rows: int
+    tile: int
+    ring: int
+    grid: Tuple[int, int, int]
+    turns: int
+    smem: int          # dynamic shared memory, bytes
+
+
+def plan_flash_bwd(kernel: str, b: int, h: int, sq: int, sk: int,
+                   d: int) -> BwdPlan:
+    """The launch of `kernel` ("dq" or "dkv") on [b, sq|sk, h, d] operands,
+    as csrc/flash_backward.cu lays it out: the block's two operands ([rows,
+    d] each), two operands a ring slot, per slot the tile's fp32 scalars
+    (dQ: the key bias; dK/dV: lse and delta), the barriers, and 1024 bytes
+    to align the base."""
+    if kernel not in ("dq", "dkv"):
+        raise ValueError(f"kernel is 'dq' or 'dkv', got {kernel!r}")
+    own, other = (sq, sk) if kernel == "dq" else (sk, sq)
+    scalars = BWD_TILE * (1 if kernel == "dq" else 2)
+    smem = (2 * BWD_ROWS * d * 2 + BWD_RING * 2 * BWD_TILE * d * 2
+            + BWD_RING * scalars * 4 + (1 + 2 * BWD_RING) * 8 + 1024)
+    return BwdPlan(BWD_ROWS, BWD_TILE, BWD_RING,
+                   (-(-own // BWD_ROWS), h, b), -(-other // BWD_TILE), smem)
+
+
+def tma_view_error(name: str, shape: Sequence[int], strides: Sequence[int],
+                   data_ptr: int, itemsize: int) -> Optional[str]:
+    """Why TMA cannot read the [B, S, H, D] view as boxes of 64 columns of
+    its [B, S, H*D] rows (unit element stride, heads packed in a row,
+    16-byte aligned base and row and batch strides), or None."""
+    b, _, h, d = shape
+    sb, ss, sh, sd = strides
+    if sd != 1 or (h > 1 and sh != d):
+        return f"{name}: heads are not packed in a row (strides {strides})"
+    if (ss * itemsize) % 16 or (b > 1 and (sb * itemsize) % 16):
+        return (f"{name}: row or batch stride of {ss} / {sb} elements is "
+                f"not 16-byte aligned")
+    if data_ptr % 16:
+        return f"{name}: base address is not 16-byte aligned"
+    return None
+
+
+def _tma_operands(name, *views):
+    """Raise if TMA cannot read one of the (what, [B, S, H, D] tensor)
+    views."""
+    for what, x in views:
+        err = tma_view_error(what, x.shape, x.stride(), x.data_ptr(),
+                             x.element_size())
+        if err:
+            raise ValueError(f"{name}: {err}")
+
+
 def _strides(q, k, v):
     return (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
             v.stride(1))
@@ -204,6 +272,8 @@ def flash_bwd_dq(q, k, v, key_bias, do, lse, delta, scale: float):
     q, k, v, kb = _prepare("flash_bwd_dq", q, k, v, key_bias)
     do, lse, delta = _backward_operands("flash_bwd_dq", q, do, lse, delta)
     b, sq, h, d = q.shape
+    _tma_operands("flash_bwd_dq", ("q", q), ("k", k), ("v", v),
+                  ("dO", do.view(b, sq, h, d)))
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         err = cuda_lib.library("flash_backward").hv_flash_bwd_dq(
@@ -229,6 +299,8 @@ def flash_bwd_dkv(q, k, v, key_bias, do, lse, delta, scale: float):
     q, k, v, kb = _prepare("flash_bwd_dkv", q, k, v, key_bias)
     do, lse, delta = _backward_operands("flash_bwd_dkv", q, do, lse, delta)
     b, sq, h, d = q.shape
+    _tma_operands("flash_bwd_dkv", ("q", q), ("k", k), ("v", v),
+                  ("dO", do.view(b, sq, h, d)))
     sk = k.shape[1]
     dk = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)

@@ -683,7 +683,12 @@ def _backward_inputs(dev, dtype, sq, sk, d, masked, seed=21):
     return q, k, v, kb, do
 
 
-BACKWARD_CASES = [(200, 200, 13), (77, 333, 0), (333, 77, 20), (1000, 1000, 5)]
+# (query rows, keys, masked keys of the last batch entry): the kernels own
+# 128 rows a block and walk tiles of 64; one past and one short of both, and
+# keys under one tile
+BACKWARD_CASES = [(200, 200, 13), (77, 333, 0), (333, 77, 20), (1000, 1000, 5),
+                  (129, 129, 7), (63, 191, 0), (127, 65, 3), (191, 63, 0),
+                  (300, 40, 9)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -727,6 +732,43 @@ def test_flash_backward_kernels_match_plain(dev, dtype, d, sq, sk, masked):
         assert torch.count_nonzero(dk[1, sk - masked:]) == 0
         assert torch.count_nonzero(dv[1, sk - masked:]) == 0
         assert torch.count_nonzero(dv[1, :sk - masked]) > 0
+
+
+def test_flash_backward_at_the_train_shape(dev):
+    """B5q and B5kv at the train step's [1, 4288, 24, 128] bf16, v a column
+    view of a fused [1, S, 3*H*D] projection, 216 masked text keys: against
+    their plain versions at max relative error 2e-2 (bf16 outputs), two runs
+    equal bit for bit, masked keys' dK and dV exactly zero."""
+    from hunyuanvideo_efficiency_tpu_torch.ops import flash_backward as fb
+
+    g = torch.Generator(dev).manual_seed(4)
+    b, s, h, d = 1, 4288, 24, 128
+    fused = torch.randn(b, s, 3, h, d, generator=g, device=dev)
+    fused[:, :, :2] = torch.nn.functional.normalize(fused[:, :, :2],
+                                                    dim=-1) * 4
+    fused = fused.bfloat16()
+    q, k = fused[:, :, 0].contiguous(), fused[:, :, 1].contiguous()
+    v = fused[:, :, 2]
+    assert not v.is_contiguous()
+    do = torch.randn(b, s, h * d, generator=g, device=dev).bfloat16()
+    kb = torch.zeros(b, s, device=dev)
+    kb[:, -216:] = -1e30
+    scale = d ** -0.5
+    out, lse = fb.flash_fwd_lse_plain(q, k, v, kb, scale)
+    delta = fb.row_delta(do, out, h)
+    args = (q, k, v, kb, do, lse, delta, scale)
+    got = (fb.flash_bwd_dq(*args), *fb.flash_bwd_dkv(*args))
+    again = (fb.flash_bwd_dq(*args), *fb.flash_bwd_dkv(*args))
+    want = (fb.flash_bwd_dq_plain(*args), *fb.flash_bwd_dkv_plain(*args))
+    torch.cuda.synchronize()
+    for name, x, x2, ref in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(x, x2), name
+        err = ((x.float() - ref.float()).abs().max()
+               / ref.float().abs().max()).item()
+        assert err <= 2e-2, (name, err)
+    assert torch.count_nonzero(got[1][:, -216:]) == 0
+    assert torch.count_nonzero(got[2][:, -216:]) == 0
+    assert torch.count_nonzero(got[2][:, :-216]) > 0
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])

@@ -149,6 +149,129 @@ def test_plain_backward_matches_autograd_of_sdpa(sq, sk, d, txt):
         assert torch.count_nonzero(got[2][1, sk - txt:]) == 0
 
 
+# (kernel, b, h, sq, sk, d): the train step's shape, ragged edges on both
+# sides, keys under one tile, D = 64
+PLAN_CASES = [("dq", 1, 24, 4288, 4288, 128), ("dkv", 1, 24, 4288, 4288, 128),
+              ("dq", 2, 3, 129, 129, 64), ("dkv", 2, 3, 63, 191, 128),
+              ("dkv", 2, 3, 200, 50, 64)]
+
+
+@pytest.mark.parametrize("kernel,b,h,sq,sk,d", PLAN_CASES)
+def test_flash_bwd_plan(kernel, b, h, sq, sk, d):
+    """plan_flash_bwd: a block per 128 rows of its own side and (b, h), one
+    ring turn per 64 rows of the other, shared memory within the H100's
+    227 KB a block; the tile sizes are the CUDA source's."""
+    plan = fb.plan_flash_bwd(kernel, b, h, sq, sk, d)
+    own, other = (sq, sk) if kernel == "dq" else (sk, sq)
+    assert plan.grid == (-(-own // 128), h, b)
+    assert plan.turns == -(-other // 64)
+    assert plan.grid[0] * plan.rows >= own > (plan.grid[0] - 1) * plan.rows
+    assert plan.smem <= 232448
+    src = (fb.cuda_lib.CSRC / "flash_backward.cu").read_text()
+    for name, value in (("ROWS", plan.rows), ("TILE", plan.tile),
+                        ("RING", plan.ring)):
+        assert f"constexpr int {name} = {value};" in src, name
+    if (kernel, sq) == ("dq", 4288):  # 34 x 24 blocks: 6.2 waves on 132 SMs
+        assert plan.grid == (34, 24, 1) and plan.turns == 67
+    with pytest.raises(ValueError):
+        fb.plan_flash_bwd("dv", b, h, sq, sk, d)
+
+
+def _view(kind):
+    """(shape, strides, data_ptr) of a [2, 100, 3, 64] bf16 view."""
+    b, s, h, d = 2, 100, 3, 64
+    if kind == "contiguous":
+        return (b, s, h, d), (s * h * d, h * d, d, 1), 1024
+    if kind == "fused column":      # v of a [B, S, 3, H, D] projection
+        return ((b, s, h, d), (3 * s * h * d, 3 * h * d, d, 1),
+                1024 + 2 * h * d * 2)
+    if kind == "heads apart":       # [B, H, S, D] transposed to [B, S, H, D]
+        return (b, s, h, d), (s * h * d, d, s * d, 1), 1024
+    if kind == "odd row stride":
+        return (b, s, h, d), (s * (h * d + 4), h * d + 4, d, 1), 1024
+    return (b, s, h, d), (s * h * d, h * d, d, 1), 1026  # misaligned base
+
+
+@pytest.mark.parametrize("kind,ok", [
+    ("contiguous", True), ("fused column", True), ("heads apart", False),
+    ("odd row stride", False), ("misaligned base", False)])
+def test_tma_view_error(kind, ok):
+    """The views the backward wrappers hand to TMA: contiguous and column
+    views of a fused projection pass; heads not packed in a row, a row
+    stride or a base off 16 bytes are refused with a reason."""
+    shape, strides, ptr = _view(kind)
+    err = fb.tma_view_error("v", shape, strides, ptr, 2)
+    assert (err is None) == ok, err
+    if not ok:
+        assert err.startswith("v: ")
+
+
+def _kernel_arithmetic(q, k, v, kb, do, lse, delta, scale):
+    """dQ, dK, dV as csrc/flash_backward.cu computes them, in fp32: every
+    operand padded with zero rows to whole tiles (TMA's zero fill), padded
+    keys given the bias -1e30 and padded query rows the lse +1e30 (dK/dV)
+    or 0 (dQ) and delta 0, exponentials in log2 units."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    pq, pk = -(-sq // 128) * 128, -(-sk // 128) * 128
+
+    def rows(x, n):
+        return torch.nn.functional.pad(x.float(),
+                                       (0, 0, 0, 0, 0, n - x.shape[1]))
+
+    qf, dof = rows(q, pq), rows(do.reshape(b, sq, h, d), pq)
+    kf, vf = rows(k, pk), rows(v, pk)
+    bias = torch.full((b, pk), NEG_INF)
+    bias[:, :sk] = kb
+    log2e = 1.4426950408889634
+    s2 = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (scale * log2e) \
+        + bias[:, None, None, :] * log2e
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+
+    def pad_rows(x, fill):          # [B, H, Sq] -> [B, H, pq]
+        return torch.nn.functional.pad(x, (0, pq - sq), value=fill)
+
+    out = []
+    for lse_fill in (0.0, 1e30):    # dQ's padded rows, then dK/dV's
+        p = torch.exp2(s2 - pad_rows(lse * log2e, lse_fill)[..., None])
+        ds = p * (dp - pad_rows(delta, 0.0)[..., None])
+        out.append((p, ds))
+    (_, ds_q), (p_kv, ds_kv) = out
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds_q.to(q.dtype).float(), kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds_kv.to(q.dtype).float(), qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_kv.to(q.dtype).float(), dof)
+    return dq[:, :sq], dk[:, :sk], dv[:, :sk]
+
+
+@pytest.mark.parametrize("sq,sk,masked", [(129, 129, 7), (63, 191, 0),
+                                          (200, 50, 10)])
+def test_zero_filled_tiles_add_nothing(sq, sk, masked):
+    """The kernels' handling of ragged edges (zero rows past Sq and Sk, no
+    masks) gives the plain version's dQ, dK and dV, and exactly zero dK and
+    dV on masked keys: the padded rows' terms are exactly zero."""
+    rng = np.random.default_rng(5)
+    d, h = 64, 2
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, n, h, d)).astype(
+        np.float32) * 0.5) for n in (sq, sk, sk))
+    do = torch.from_numpy(rng.standard_normal((2, sq, h * d)).astype(
+        np.float32))
+    kb = torch.zeros(2, sk)
+    if masked:
+        kb[1, sk - masked:] = NEG_INF
+    scale = d ** -0.5
+    out, lse = fb.flash_fwd_lse_plain(q, k, v, kb, scale)
+    delta = fb.row_delta(do, out, h)
+    args = (q, k, v, kb, do, lse, delta, scale)
+    got = _kernel_arithmetic(*args)
+    want = fb.flash_bwd_plain(*args)
+    for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b_, rtol=1e-4, atol=1e-5, msg=name)
+    if masked:
+        assert torch.count_nonzero(got[1][1, sk - masked:]) == 0
+        assert torch.count_nonzero(got[2][1, sk - masked:]) == 0
+
+
 def test_no_grad_call_takes_the_lse_free_kernel(monkeypatch):
     """Without a gradient to compute, attention(mode="flash") is the
     LSE-free dispatch (K1 under a static bound); with one, the VJP."""
