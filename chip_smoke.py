@@ -19,11 +19,13 @@ Phases, one line each (any failure raises and exits non-zero):
      first, the probe being the path that runs it), and the STA
      kernels with their int8 arms and the ring kernel B10 at 540p (B=2, 24
      heads x 128, a 17x34x60 patch grid, 256 text keys of which 40 are
-     valid, bf16); K1/K2 again on their key-range split path at the STA
-     text merge's shape (256 text queries over the 34,680 image keys), and
-     one timed launch each of K1, the static int8 kernel B8a and SDPA at
-     the headline 720x1280x129f shape (119,056 tokens; a timing, not a
-     check); B8a/B8b also show their quantization pre-pass alone and K1 on
+     valid, bf16; B4 and its int8 arm are csrc/sta_direct.cu, the others
+     csrc/sta_attention.cu); K1/K2 again on their key-range split path at
+     the STA text merge's shape (256 text queries over the 34,680 image
+     keys), and one timed launch each of K1, the static int8 kernel B8a and
+     SDPA at the headline 720x1280x129f shape (119,056 tokens) and of B4 at
+     its image queries (118,800 on the 33x45x80 grid; timings, not
+     checks); B8a/B8b also show their quantization pre-pass alone and K1 on
      the same inputs;
   4. main path: HunyuanVideoSampler.from_pretrained at the full width of
      HYVideo-T/2 (bf16), Llama-3-8B + CLIP-L (fp16) and the 884-16c-hy VAE
@@ -893,11 +895,56 @@ def check_sta(dev, smi):
               library_ms=lib_ms, library_rel_err=lib_err, bound_ms=bound_ms,
               tflops=flops / ms / 1e9, card=smi)
         rows.append(dict(
-            name=name, route="cuda", source=SRC + "sta_attention.cu",
+            name=name, route="cuda",
+            source=SRC + ("sta_direct.cu" if name == "sta_direct"
+                          else "sta_attention.cu"),
             replaces=f"hunyuanvideo_efficiency_tpu/ops/sta.py:{line}",
             max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=by, library_ms=lib_ms))
+    time_sta_headline(dev, smi)
     return rows
+
+
+def time_sta_headline(dev, smi):
+    """One timed sta_direct launch at the reference's headline shape,
+    720x1280x129f: [2, 118800, 24, 128] bf16 on the 33x45x80 patch grid,
+    tile (4, 8, 8), window (3, 3, 3), 256 text keys of which 40 are valid,
+    RMS-normalized q/k, C from the analytic bound. A timing, not a check:
+    no plain version runs at that size (the output is only checked finite;
+    B4's correctness is check_sta's 540p check). Bound: 4*D operations per
+    valid query-key pair (sta_pair_count)."""
+    g = torch.Generator(dev).manual_seed(7)
+    b, h, d, lt, valid = 2, 24, 128, 256, 40
+    grid = (33, 45, 80)
+    s = grid[0] * grid[1] * grid[2]
+    q, k, tk = (rms_normed(g, dev, b, n, h, d) for n in (s, s, lt))
+    v, tv = (torch.randn(b, n, h, d, generator=g, device=dev).bfloat16()
+             for n in (s, lt))
+    tb = torch.zeros(b, 1, 1, lt, device=dev)
+    tb[..., valid:] = -1e30
+    c = analytic_bound(dev, b, h, d)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = sta_direct(q, k, v, tk, tv, tb, c, grid, STA_TILE, STA_WINDOW,
+                     d ** -0.5)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    if out.shape != (b, s, h * d) or not torch.isfinite(out).all():
+        raise AssertionError("sta_direct at the headline shape: output not "
+                             "finite or of the wrong shape")
+    pairs = sta_pair_count(grid, STA_TILE, STA_WINDOW, valid)
+    flops = 4 * d * h * b * pairs
+    bound_ms, by = bound(flops, 4 * q.numel() * 2 + 2 * tk.numel() * 2)
+    phase("headline", name="sta_direct", shape=f"[{b},{s},{h},{d}]bf16",
+          grid=json.dumps(grid), tile=json.dumps(STA_TILE),
+          window=json.dumps(STA_WINDOW), text_keys=f"{lt}({valid} valid)",
+          pairs_per_head=pairs, kernel_ms=ms, bound_ms=bound_ms,
+          bound_by=by, tflops=flops / ms / 1e9,
+          check="timing only (finite output)", card=smi)
+    del q, k, v, out
+    torch.cuda.empty_cache()
 
 
 def check_sta_int8(dev, smi, lib_ms):
@@ -947,7 +994,9 @@ def check_sta_int8(dev, smi, lib_ms):
               tol="rel 2e-2 (bf16)", kernel_ms=ms, plain_ms=plain_ms,
               library_ms=lib_ms, bound_ms=bound_ms, card=smi)
         rows.append(dict(
-            name=name, route="cuda", source=SRC + "sta_attention.cu",
+            name=name, route="cuda",
+            source=SRC + ("sta_direct.cu" if name == "sta_direct_int8"
+                          else "sta_attention.cu"),
             replaces=f"{JAX}sta.py:{line}", max_abs_err=abs_err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
             library_ms=lib_ms))

@@ -62,39 +62,6 @@ namespace {
 
 using namespace hv::flash;
 
-// S = Q.K^T for one key tile: 64 query rows (A, K-major at q_addr) x 128
-// keys (B, K-major at k_addr), D/16 k16 steps, one commit group.
-template <typename T, int D>
-__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_addr,
-                                         uint32_t k_addr) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t qoff = (kk >> 2) * (BM * 128) + (kk & 3) * 32;
-    const uint32_t koff = (kk >> 2) * (BN * 128) + (kk & 3) * 32;
-    wgmma_m64n128k16_ss(sc, desc_sw128(q_addr + qoff, 16, 1024),
-                        desc_sw128(k_addr + koff, 16, 1024), kk > 0, T());
-  }
-  wgmma_commit();
-}
-
-// Scores -> probabilities in place, in log2 units: sc*scale*log2(e) plus
-// the tile's bias bs (log2 units, less the static offset).
-template <bool RUNNING>
-__device__ __forceinline__ void softmax_tile(
-    float (&sc)[64], const float* bs, float sl2, int t, float (&m_r)[2],
-    float (&l_r)[2], float (&corr)[2]) {
-  float2 bb[16];
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-    bb[j] = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t);
-  softmax_scores<RUNNING>(
-      sc,
-      [&](int i) {
-        return fmaf(sc[i], sl2, (i & 1) ? bb[i >> 2].y : bb[i >> 2].x);
-      },
-      m_r, l_r, corr);
-}
-
 // Shared memory, byte offsets from a 1024-aligned base. A tile of R rows is
 // D/64 TMA boxes of [R][64] (128-byte rows, swizzled), one after another.
 template <int D>

@@ -126,51 +126,6 @@ quantize_groups_kernel(QuantOperand qa, QuantOperand ka, int H) {
   }
 }
 
-// s32 -> fp32, exact for |s| < 2^22, on the integer and FADD pipes.
-__device__ __forceinline__ float s32_to_f32(int s) {
-  return __int_as_float(s + 0x4B400000) - 12582912.f;
-}
-
-// The descriptor of an int8 code tile of D-byte rows, K-major: D = 128
-// the 128-byte swizzle (8-row atoms of 1024 bytes), D = 64 the 64-byte one
-// (atoms of 512 bytes).
-template <int D>
-__device__ __forceinline__ uint64_t desc_s8(uint32_t addr) {
-  if constexpr (D == 128)
-    return desc_sw128(addr, 16, 1024);
-  else
-    return desc_sw64(addr, 16, 512);
-}
-
-// S = Q8.K8^T for one key tile: 64 query rows (A at q_addr) x 128 keys (B
-// at k_addr), D/32 k32 steps of 32 bytes, one commit group.
-template <int D>
-__device__ __forceinline__ void issue_qk_s8(int (&sc)[64], uint32_t q_addr,
-                                            uint32_t k_addr) {
-#pragma unroll
-  for (int kk = 0; kk < D / 32; ++kk)
-    wgmma_m64n128k32_s8_ss(sc, desc_s8<D>(q_addr + kk * 32),
-                           desc_s8<D>(k_addr + kk * 32), kk > 0);
-  wgmma_commit();
-}
-
-// Scores -> probabilities in x, in log2 units: s * factor + bias, with
-// fb[p] = {factor(2p), factor(2p+1), bias(2p), bias(2p+1)} for the key
-// pair p = 4j + t that this thread's columns 8j + 2t, 8j + 2t + 1 hold.
-template <bool RUNNING>
-__device__ __forceinline__ void softmax_tile(
-    const int (&sc)[64], float (&x)[64], const float4* fb, int t,
-    float (&m_r)[2], float (&l_r)[2], float (&corr)[2]) {
-  softmax_scores<RUNNING>(
-      x,
-      [&](int i) {
-        const float4 w = fb[4 * (i >> 2) + t];
-        return (i & 1) ? fmaf(s32_to_f32(sc[i]), w.y, w.w)
-                       : fmaf(s32_to_f32(sc[i]), w.x, w.z);
-      },
-      m_r, l_r, corr);
-}
-
 // Row r0 + 8 * i of this thread (i = 0, 1) of O * inv, as T, to orow.
 template <typename T, int D>
 __device__ __forceinline__ void store_row(T* orow, const float (&acc)[D / 2],
@@ -381,8 +336,8 @@ flash_int8_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_wait<0>();
         fence_regs(sc);
         float x[64];
-        softmax_tile<RUNNING>(sc, x, fb_base + s * FB_STRIDE, t, m_r, l_r,
-                              corr);
+        softmax_tile_s8<RUNNING>(sc, x, fb_base + s * FB_STRIDE, t, m_r,
+                                 l_r, corr);
         pack_p<T>(x, pa);
       }
       for (int it = 1; it < n_it; ++it) {
@@ -399,8 +354,8 @@ flash_int8_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_wait<1>();  // S is done; the previous P.V may still run
         fence_regs(sc);
         float x[64];
-        softmax_tile<RUNNING>(sc, x, fb_base + s * FB_STRIDE, t, m_r, l_r,
-                              corr);
+        softmax_tile_s8<RUNNING>(sc, x, fb_base + s * FB_STRIDE, t, m_r,
+                                 l_r, corr);
         wgmma_wait<0>();  // the previous tile's P.V is done
         fence_regs(acc);
         fence_pa(pa);

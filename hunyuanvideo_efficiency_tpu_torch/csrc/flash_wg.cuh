@@ -1,8 +1,9 @@
 // The warpgroup flash-attention pieces shared by flash_attention.cu (K1, K2,
-// B5f), flash_int8.cu (B8a, B8b) and flash_backward.cu (B5q, B5kv): the
-// block's tile sizes, the consumer warpgroups' turns, the static or
-// online softmax of one 64 x 128 score tile in log2 units (each kernel
-// gives its own score of an element), P packed from the
+// B5f), flash_int8.cu (B8a, B8b), flash_backward.cu (B5q, B5kv) and
+// sta_direct.cu (B4, B4q): the block's tile sizes, the consumer warpgroups'
+// turns, the static or online softmax of one 64 x 128 score tile in log2
+// units (each kernel gives its own score of an element; the bf16 and s8
+// score products S = Q.K^T with their softmax), P packed from the
 // accumulator layout into wgmma A fragments, the rescale of O, and the P.V
 // product with V MN-major in shared memory.
 //
@@ -95,6 +96,84 @@ __device__ __forceinline__ void softmax_scores(float (&x)[64], Score score,
     l_r[0] += x[4 * j + 0] + x[4 * j + 1];
     l_r[1] += x[4 * j + 2] + x[4 * j + 3];
   }
+}
+
+// S = Q.K^T for one key tile: 64 query rows (A, K-major at q_addr) x 128
+// keys (B, K-major at k_addr), D/16 k16 steps, one commit group.
+template <typename T, int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_addr,
+                                         uint32_t k_addr) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t qoff = (kk >> 2) * (BM * 128) + (kk & 3) * 32;
+    const uint32_t koff = (kk >> 2) * (BN * 128) + (kk & 3) * 32;
+    wgmma_m64n128k16_ss(sc, desc_sw128(q_addr + qoff, 16, 1024),
+                        desc_sw128(k_addr + koff, 16, 1024), kk > 0, T());
+  }
+  wgmma_commit();
+}
+
+// Scores -> probabilities in place, in log2 units: sc*scale*log2(e) plus
+// the tile's bias bs (log2 units, less the static offset).
+template <bool RUNNING>
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[64], const float* bs, float sl2, int t, float (&m_r)[2],
+    float (&l_r)[2], float (&corr)[2]) {
+  float2 bb[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    bb[j] = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t);
+  softmax_scores<RUNNING>(
+      sc,
+      [&](int i) {
+        return fmaf(sc[i], sl2, (i & 1) ? bb[i >> 2].y : bb[i >> 2].x);
+      },
+      m_r, l_r, corr);
+}
+
+// s32 -> fp32, exact for |s| < 2^22, on the integer and FADD pipes.
+__device__ __forceinline__ float s32_to_f32(int s) {
+  return __int_as_float(s + 0x4B400000) - 12582912.f;
+}
+
+// The descriptor of an int8 code tile of D-byte rows, K-major: D = 128
+// the 128-byte swizzle (8-row atoms of 1024 bytes), D = 64 the 64-byte one
+// (atoms of 512 bytes).
+template <int D>
+__device__ __forceinline__ uint64_t desc_s8(uint32_t addr) {
+  if constexpr (D == 128)
+    return desc_sw128(addr, 16, 1024);
+  else
+    return desc_sw64(addr, 16, 512);
+}
+
+// S = Q8.K8^T for one key tile: 64 query rows (A at q_addr) x 128 keys (B
+// at k_addr), D/32 k32 steps of 32 bytes, one commit group.
+template <int D>
+__device__ __forceinline__ void issue_qk_s8(int (&sc)[64], uint32_t q_addr,
+                                            uint32_t k_addr) {
+#pragma unroll
+  for (int kk = 0; kk < D / 32; ++kk)
+    wgmma_m64n128k32_s8_ss(sc, desc_s8<D>(q_addr + kk * 32),
+                           desc_s8<D>(k_addr + kk * 32), kk > 0);
+  wgmma_commit();
+}
+
+// Scores -> probabilities in x, in log2 units: s * factor + bias, with
+// fb[p] = {factor(2p), factor(2p+1), bias(2p), bias(2p+1)} for the key
+// pair p = 4j + t that this thread's columns 8j + 2t, 8j + 2t + 1 hold.
+template <bool RUNNING>
+__device__ __forceinline__ void softmax_tile_s8(
+    const int (&sc)[64], float (&x)[64], const float4* fb, int t,
+    float (&m_r)[2], float (&l_r)[2], float (&corr)[2]) {
+  softmax_scores<RUNNING>(
+      x,
+      [&](int i) {
+        const float4 w = fb[4 * (i >> 2) + t];
+        return (i & 1) ? fmaf(s32_to_f32(sc[i]), w.y, w.w)
+                       : fmaf(s32_to_f32(sc[i]), w.x, w.z);
+      },
+      m_r, l_r, corr);
 }
 
 // P rounded to T, the accumulator layout packed into the A fragments of

@@ -1,13 +1,9 @@
 // Sliding-tile attention (STA) forward for the image queries of the MM-DiT
-// joint [img | txt] sequence.
+// joint [img | txt] sequence: the permuted kernels and the ring kernel.
+// (The direct kernel B4 and its int8 arm are sta_direct.cu.)
 //
 // Replaces four Pallas TPU kernels of the JAX package's ops/sta.py, as one
-// source with four template flags:
-//   DIRECT = true,  RUNNING = false: _sta_nomax_direct_kernel. q/k/v are
-//     the row-major [B, S_img, H*D] token grid of a (T, Hg, Wg) patch grid;
-//     a tile's tokens are addressed through their (t, h, w) coordinates.
-//     The text keys [B, Lt, H*D] (bias tb [B, Lt]) are folded after the
-//     image slots. The optional image key bias kb is row-major [B, S_img].
+// source with template flags:
 //   DIRECT = false, RUNNING = false: _sta_nomax_fused_kernel and
 //     _sta_nomax_kernel (the same function; the TPU masked or skipped the
 //     border slots, this kernel skips them). q is tile-major [B, S_pad,
@@ -16,33 +12,33 @@
 //     kb [B, S_pad + txt_pad] carries the padding mask and the text bias.
 //   DIRECT = false, RUNNING = true: _sta_kernel, the same with a running
 //     row max instead of the static offset C.
-//   QUANT = true (with RUNNING = false): the `quant=True` arm of the first
-//     two, int8 Q.K^T on mma.sync m16n8k32. One symmetric scale per
+//   QUANT = true (with DIRECT = RUNNING = false): the `quant=True` arm of
+//     the first, int8 Q.K^T on mma.sync m16n8k32. One symmetric scale per
 //     (b, head, query tile) and per (b, head, key tile), scale =
 //     max(max|x|, 1e-6) / 127, codes round(x * (1/scale)) with ties to even;
-//     rows beyond the grid count as zero (the TPU's row_valid zeroing). A key
+//     the text blocks are key tiles like any other and are quantized. A key
 //     tile's scale does not depend on the query tile, so tile_scales_kernel
 //     computes every scale once per launch and the attention kernel reads
-//     them. s = s32 * (sq * sk * scale). The direct kernel's text keys stay
-//     bf16/fp16 (the TPU's resident text fold); in the permuted layout the
-//     text blocks are key tiles like any other and are quantized.
-//   RING = true (with DIRECT = true, RUNNING = QUANT = false):
-//     _sta_ring_kernel. q and the text keys as DIRECT, but the image keys
-//     and values are kp/vp [B, S_pad, H*D], zero-padded in w-major tile order
-//     (tile s = (c*gt + a)*gh + b), so the window column c of query tile
-//     (a, bh) is wt contiguous runs of wh tiles from tile row
-//     sb = clamp(bh - wh/2, 0, gh - wh). There is no neighbour table and no
-//     key-bias operand: slot (column, run, tile of the run) and key validity
-//     (the column and run exist, |b - bh| <= wh/2, the token lies inside the
-//     grid) are computed here from the geometry, as the TPU's col_bias. The
-//     TPU's VMEM ring of ww + 1 columns does not fit in shared memory (one
-//     head's K column at (4, 8, 8) / (3, 3, 3) is 2,304 keys x 128 x 2 B =
-//     590 KB): this kernel reads the runs through L2, with the query tile's
-//     column innermost in the launch order, so the query tiles that share two
-//     of their three columns run together.
+//     them. s = s32 * (sq * sk * scale).
+//   DIRECT = RING = true (RUNNING = QUANT = false): _sta_ring_kernel. q is
+//     the row-major [B, T*Hg*Wg, H*D] token grid of a (T, Hg, Wg) patch grid
+//     (a tile's tokens addressed through their (t, h, w) coordinates), the
+//     text keys [B, Lt, H*D] (bias tb [B, Lt]) are folded after the image
+//     slots, and the image keys and values are kp/vp [B, S_pad, H*D],
+//     zero-padded in w-major tile order (tile s = (c*gt + a)*gh + b), so the
+//     window column c of query tile (a, bh) is wt contiguous runs of wh tiles
+//     from tile row sb = clamp(bh - wh/2, 0, gh - wh). There is no neighbour
+//     table and no key-bias operand: slot (column, run, tile of the run) and
+//     key validity (the column and run exist, |b - bh| <= wh/2, the token
+//     lies inside the grid) are computed here from the geometry, as the
+//     TPU's col_bias. The TPU's VMEM ring of ww + 1 columns does not fit in
+//     shared memory (one head's K column at (4, 8, 8) / (3, 3, 3) is 2,304
+//     keys x 128 x 2 B = 590 KB): this kernel reads the runs through L2,
+//     with the query tile's column innermost in the launch order, so the
+//     query tiles that share two of their three columns run together.
 // The softmax is the flash kernels': static p = exp(s*scale + (kb - C)) or
 // running online softmax, then out = acc / max(l, 1e-37). Rows of padding
-// tokens are not stored (DIRECT) or stored as zeros (permuted layout).
+// tokens are stored as zeros (permuted layout) or not stored (ring).
 //
 // Neighbour table nbr [n_tiles, n_slots] int32: key tile (or text block)
 // of each slot, -1 = none. Every slot is tested; the TPU's forward-filled
@@ -56,15 +52,14 @@
 // cores (under QUANT half of them int8, at 1,979 TOP/s); a query sees up to
 // 27 tiles of 256 keys, far above the bytes of q/k/v/out, so the kernel is
 // bound by operations (989 TFLOP/s bf16 dense).
-// This first design is the flash kernel's (flash_tile.cuh): one block of 4
+// The design is the first flash kernel's (flash_tile.cuh): one block of 4
 // warps owns 64 query rows of one (b, h, query tile) and walks the tile's
 // valid slots in 64-key chunks; Q stays in registers as mma.sync A
 // fragments; K and V^T go through padded shared memory; S and P never leave
 // registers. Positions beyond the grid are masked here (no zero-padded copy
 // of K/V), and a chunk with no valid key, or a 64-query block with no valid
-// query, is skipped whole. Not yet done: wgmma, TMA, a cp.async ring, K/V
-// reuse across the neighbouring query tiles that share them (under RING a
-// warp-specialised TMA producer keeping a shared-memory ring of chunks full).
+// query, is skipped whole. Not yet done: sta_direct.cu's wgmma + TMA ring,
+// K/V reuse across the neighbouring query tiles that share them.
 #include "flash_tile.cuh"
 
 namespace {
@@ -114,10 +109,9 @@ __device__ __forceinline__ int row_major_tile(const Geometry& g, int s) {
   return ((s / g.nh) % g.nt * g.nh + s % g.nh) * g.nw + s / (g.nh * g.nt);
 }
 
-// One int8 scale per (b, h, tile) of x: max(max|x|, 1e-6) / 127 over the
-// tile's tokens (DIRECT: row-major grid tokens, missing ones skipped;
-// otherwise tile-major rows tile*block + f).
-template <typename T, int D, bool DIRECT>
+// One int8 scale per (b, h, tile) of tile-major x: max(max|x|, 1e-6) / 127
+// over the tile's rows tile*block + f.
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 tile_scales_kernel(const T* __restrict__ x, long long bs, long long rs,
                    Geometry geo, int H, float* __restrict__ out) {
@@ -127,11 +121,9 @@ tile_scales_kernel(const T* __restrict__ x, long long bs, long long rs,
   const T* xh = x + b * bs + (long long)h * D;
   float m = 0.f;
   for (int i = threadIdx.x; i < block * CH; i += THREADS) {
-    const int f = i / CH, c = (i % CH) * 8;
-    const int row = DIRECT ? token_of(geo, tile, f) : tile * block + f;
-    if (row >= 0)
-      m = hv::absmax8<T>(*reinterpret_cast<const uint4*>(xh + row * rs + c),
-                         m);
+    const int row = tile * block + i / CH, c = (i % CH) * 8;
+    m = hv::absmax8<T>(*reinterpret_cast<const uint4*>(xh + row * rs + c),
+                       m);
   }
   m = hv::block_max(m);
   if (threadIdx.x == 0)
@@ -153,6 +145,8 @@ sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                long long tk_rs, long long tv_bs, long long tv_rs,
                long long o_bs, long long o_rs, long long kb_bs,
                float scale) {
+  static_assert(DIRECT == RING && !(QUANT && DIRECT) && !(RUNNING && DIRECT),
+                "the row-major layout is the ring arm's alone");
   constexpr int DP = D + 8;   // padded rows: conflict-free fragment loads
   constexpr int CH = D / 8;   // 16-byte chunks per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -252,9 +246,6 @@ sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         row = token_of(geo, row_major_tile(geo, nb), f) < 0 ? -1
                                                              : nb * block + f;
         bias = row < 0 ? NEG_INF : 0.f;
-      } else if (DIRECT) {
-        row = token_of(geo, nb, (ci % k_subs) * BK + tid);
-        bias = row < 0 ? NEG_INF : (kb ? kb[b * kb_bs + row] : 0.f);
       } else {
         row = nb * block + (ci % k_subs) * BK + tid;
         bias = kb[b * kb_bs + row];
@@ -268,10 +259,9 @@ sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* kh = (img ? k + b * k_bs : tk + b * tk_bs) + (long long)h * D;
     const T* vh = (img ? v + b * v_bs : tv + b * tv_bs) + (long long)h * D;
     const long long krs = img ? k_rs : tk_rs, vrs = img ? v_rs : tv_rs;
-    // int8 chunk: an image key tile (DIRECT) or any key tile (permuted)
-    const bool q8 = QUANT && img;
-    const float sk = q8 ? sk_t[bh * n_ktiles + nb] : 0.f;
-    const float inv_k = q8 ? 1.f / sk : 0.f;
+    // int8 chunk: any key tile of the permuted layout
+    const float sk = QUANT ? sk_t[bh * n_ktiles + nb] : 0.f;
+    const float inv_k = QUANT ? 1.f / sk : 0.f;
     for (int i = tid; i < BK * CH; i += THREADS) {
       const int r = i / CH, c = (i % CH) * 8;
       uint4 kv = zero4, vv = zero4;
@@ -280,7 +270,7 @@ sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         kv = *reinterpret_cast<const uint4*>(kh + row * krs + c);
         vv = *reinterpret_cast<const uint4*>(vh + row * vrs + c);
       }
-      if (q8) {
+      if (QUANT) {
         *reinterpret_cast<uint2*>(K8 + r * RP + c) =
             hv::quant8_s8<T>(kv, inv_k);
         hv::stage_v(Vt, r, c, vv);
@@ -297,15 +287,9 @@ sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 2; ++j) bias[nt][j] = k_bias[nt * 8 + 2 * t + j];
     if constexpr (QUANT) {
       float s[BK / 8][4];
-      if (q8) {
-        hv::qk_chunk_s8<D>(qa8, K8, s, g, t);
-        hv::fold_scores<T, D, RUNNING>(s, Vt, bias, sq * sk * scale, c_off,
-                                       acc, m_r, l_r, g, t);
-      } else {  // the direct kernel's text keys
-        hv::load_q<T, D>(Qs, r0, t, qa);
-        hv::fold_chunk<T, D, RUNNING>(qa, Ks, Vt, bias, scale, c_off, acc,
-                                      m_r, l_r, g, t);
-      }
+      hv::qk_chunk_s8<D>(qa8, K8, s, g, t);
+      hv::fold_scores<T, D, RUNNING>(s, Vt, bias, sq * sk * scale, c_off,
+                                     acc, m_r, l_r, g, t);
     } else {
       hv::fold_chunk<T, D, RUNNING>(qa, Ks, Vt, bias, scale, c_off, acc, m_r,
                                     l_r, g, t);
@@ -345,10 +329,10 @@ struct Args {
 template <typename T, int D, bool DIRECT, bool RUNNING, bool QUANT, bool RING>
 cudaError_t launch(const Args& a) {
   if (QUANT) {
-    tile_scales_kernel<T, D, DIRECT>
+    tile_scales_kernel<T, D>
         <<<dim3(a.n_tiles, a.H, a.B), THREADS, 0, a.stream>>>(
             static_cast<const T*>(a.q), a.q_bs, a.q_rs, a.geo, a.H, a.sq);
-    tile_scales_kernel<T, D, DIRECT>
+    tile_scales_kernel<T, D>
         <<<dim3(a.n_ktiles, a.H, a.B), THREADS, 0, a.stream>>>(
             static_cast<const T*>(a.k), a.k_bs, a.k_rs, a.geo, a.H, a.sk);
     cudaError_t err = cudaGetLastError();
@@ -381,57 +365,48 @@ cudaError_t dispatch_d(int head_dim, const Args& a) {
 }
 
 template <typename T>
-cudaError_t dispatch_mode(int direct, int running, int quant, int head_dim,
+cudaError_t dispatch_mode(int running, int quant, int head_dim,
                           const Args& a) {
-  if (direct && !running && !quant)
-    return dispatch_d<T, true, false, false>(head_dim, a);
-  if (direct && !running && quant)
-    return dispatch_d<T, true, false, true>(head_dim, a);
-  if (!direct && !running && !quant)
+  if (!running && !quant)
     return dispatch_d<T, false, false, false>(head_dim, a);
-  if (!direct && !running && quant)
+  if (!running && quant)
     return dispatch_d<T, false, false, true>(head_dim, a);
-  if (!direct && running && !quant)
+  if (running && !quant)
     return dispatch_d<T, false, true, false>(head_dim, a);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = bf16, 1 = fp16. direct: 1 = row-major token grid with text
-// keys tk/tv folded last, 0 = tile-major q with kcat keys. running: 1 =
-// running max (permuted layout only), 0 = static offset c [B, H]. quant: 1 =
-// int8 Q.K^T (static offset only); sq [B, H, n_tiles] and sk [B, H,
-// n_ktiles] fp32 receive the tile scales (n_ktiles: key tiles of k, the
-// grid's tiles when direct). kb (DIRECT: may be null), tb (may be null),
-// tk/tv (DIRECT only). Tile token count a multiple of 64. Returns the
-// cudaError_t of the launches.
+// The permuted kernels. dtype: 0 = bf16, 1 = fp16. q tile-major [B, S_pad
+// rows], k/v the kcat/vcat keys [B, n_ktiles * tile tokens rows], o [B,
+// S_pad rows], each row H*D wide (batch and row strides in elements); kb
+// [B, keys] fp32. running: 1 = running max, 0 = static offset c [B, H].
+// quant: 1 = int8 Q.K^T (static offset only); sq [B, H, n_tiles] and sk
+// [B, H, n_ktiles] fp32 receive the tile scales. Tile token count a
+// multiple of 64. Returns the cudaError_t of the launches.
 extern "C" int hv_sta_attention_fwd(
-    int dtype, int direct, int running, int quant, int head_dim,
-    const void* q, const void* k, const void* v, void* o, const void* tk,
-    const void* tv, const float* kb, const float* tb, const float* c,
-    const int* nbr, float* sq, float* sk, int B, int H, int n_slots, int Lt,
+    int dtype, int running, int quant, int head_dim, const void* q,
+    const void* k, const void* v, void* o, const float* kb, const float* c,
+    const int* nbr, float* sq, float* sk, int B, int H, int n_slots,
     int n_ktiles, int T, int Hg, int Wg, int tt, int th, int tw,
     long long q_bs, long long q_rs, long long k_bs, long long k_rs,
-    long long v_bs, long long v_rs, long long tk_bs, long long tk_rs,
-    long long tv_bs, long long tv_rs, long long o_bs, long long o_rs,
+    long long v_bs, long long v_rs, long long o_bs, long long o_rs,
     long long kb_bs, float scale, void* stream) {
   const int nt = (T + tt - 1) / tt, nh = (Hg + th - 1) / th,
             nw = (Wg + tw - 1) / tw;
-  if ((tt * th * tw) % BQ != 0) return cudaErrorInvalidValue;
-  if (!direct && kb == nullptr) return cudaErrorInvalidValue;
+  if ((tt * th * tw) % BQ != 0 || kb == nullptr) return cudaErrorInvalidValue;
   if (!running && c == nullptr) return cudaErrorInvalidValue;
-  if (quant && (sq == nullptr || sk == nullptr)) return cudaErrorInvalidValue;
-  const Args a{q, k, v, o, tk, tv, kb, tb, c, nbr, sq, sk, B, H, n_slots,
-               Lt, nt * nh * nw, n_ktiles,
+  if (quant && (running || sq == nullptr || sk == nullptr))
+    return cudaErrorInvalidValue;
+  const Args a{q, k, v, o, nullptr, nullptr, kb, nullptr, c, nbr, sq, sk, B,
+               H, n_slots, 0, nt * nh * nw, n_ktiles,
                Geometry{T, Hg, Wg, tt, th, tw, nt, nh, nw, 0, 0, 0}, q_bs,
-               q_rs, k_bs,
-               k_rs, v_bs, v_rs, tk_bs, tk_rs, tv_bs, tv_rs, o_bs, o_rs,
-               kb_bs, scale, static_cast<cudaStream_t>(stream)};
+               q_rs, k_bs, k_rs, v_bs, v_rs, 0, 0, 0, 0, o_bs, o_rs, kb_bs,
+               scale, static_cast<cudaStream_t>(stream)};
   if (dtype == 0)
-    return dispatch_mode<__nv_bfloat16>(direct, running, quant, head_dim, a);
-  if (dtype == 1)
-    return dispatch_mode<__half>(direct, running, quant, head_dim, a);
+    return dispatch_mode<__nv_bfloat16>(running, quant, head_dim, a);
+  if (dtype == 1) return dispatch_mode<__half>(running, quant, head_dim, a);
   return cudaErrorInvalidValue;
 }
 

@@ -124,14 +124,36 @@ def frame_causal_block_bias(n_hw: int) -> Callable:
     return fn
 
 
+FLASH_DTYPES = (torch.bfloat16, torch.float16)
+FLASH_HEAD_DIMS = (64, 128)
+CHUNKED_FROM = 8192   # query length from which "auto" takes chunked, not sdpa
+
+
+def resolve_auto_mode(device_type: str, dtype: torch.dtype, head_dim: int,
+                      q_len: int = 0) -> str:
+    """The route of mode="auto". On CUDA tensors "flash" inside the flash
+    kernels' reach (bf16/fp16, head_dim 64 or 128), otherwise "sdpa", or
+    "chunked" from CHUNKED_FROM queries on (JAX ops/attention.py:276-283
+    resolves "auto" to its kernel only where it runs, and to sdpa/chunked
+    elsewhere). On any other device "flash", whose wrappers run their plain
+    versions there."""
+    if device_type != "cuda":
+        return "flash"
+    if dtype in FLASH_DTYPES and head_dim in FLASH_HEAD_DIMS:
+        return "flash"
+    return "chunked" if q_len >= CHUNKED_FROM else "sdpa"
+
+
 def attention(q, k, v, mode: str = "auto", bias=None, key_bias=None,
               scale: Optional[float] = None, bound_mode: str = "auto",
               score_bound=None, plain: bool = False) -> torch.Tensor:
     """Dispatch: "flash" (the CUDA kernels; their plain versions on CPU
-    tensors), "flash_int8", "sdpa", "chunked"; "auto" is "flash" at every
-    length. plain=True runs flash_int8 on its plain version."""
+    tensors), "flash_int8", "sdpa", "chunked"; "auto" as
+    `resolve_auto_mode` decides. plain=True runs flash_int8 on its plain
+    version."""
     if mode == "auto":
-        mode = "flash"
+        mode = resolve_auto_mode(q.device.type, q.dtype, q.shape[-1],
+                                 q.shape[1])
     if mode == "sdpa":
         return sdpa_attention(q, k, v, bias=bias if bias is not None
                               else key_bias, scale=scale)

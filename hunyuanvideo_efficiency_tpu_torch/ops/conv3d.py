@@ -52,9 +52,10 @@ def causal_conv3d(x: torch.Tensor, kernel: torch.Tensor,
     mode='replicate') then a valid conv).
 
     impl (JAX ops/conv3d.py:causal_conv3d): "auto" takes K3 inside its gate
-    and F.conv3d outside it; "cuda" (JAX's "pallas") takes K3 and raises
-    outside the gate; "3d" takes F.conv3d. JAX's "t2d" is an XLA:TPU layout
-    choice and is not carried over."""
+    for fp16/bf16 inputs (the types K3 takes) and F.conv3d otherwise, fp32
+    included; "cuda" (JAX's "pallas") takes K3 and raises outside the gate
+    (K3 itself raises for fp32 on the card); "3d" takes F.conv3d. JAX's
+    "t2d" is an XLA:TPU layout choice and is not carried over."""
     if impl not in ("auto", "cuda", "3d"):
         raise ValueError(f"causal_conv3d impl={impl!r}: expected 'auto', "
                          f"'cuda' or '3d'")
@@ -64,7 +65,8 @@ def causal_conv3d(x: torch.Tensor, kernel: torch.Tensor,
     if impl == "cuda" and not gated:
         raise ValueError(f"the K3 conv gate rejects kernel "
                          f"{tuple(kernel.shape)} stride {tuple(stride)}")
-    if gated and impl != "3d":
+    if impl == "cuda" or (impl == "auto" and gated
+                          and x.dtype in (torch.float16, torch.bfloat16)):
         return conv3d_stride1(xp, kernel, bias)
     out = F.conv3d(xp.permute(0, 4, 1, 2, 3),
                    kernel.to(x.dtype).permute(4, 3, 0, 1, 2),

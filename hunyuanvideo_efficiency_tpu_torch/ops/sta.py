@@ -7,34 +7,30 @@ window of tiles around it, plus every text key. Text queries keep full
 attention over [img | txt]. The tile plan (`tile_plan`) is host numpy,
 static per (grid, tile, window), and equal to the JAX package's.
 
-Five kernels with one CUDA source (`csrc/sta_attention.cu`, template
-flags DIRECT, RUNNING and QUANT), each a wrapper here with a `LAUNCHES`
-count:
+Six kernels, each a wrapper here with a `LAUNCHES` count:
 
-* `sta_direct` (DIRECT=1, RUNNING=0) replaces `_sta_nomax_direct_kernel`:
-  static exponent offset C, q/k/v read and out written in the row-major
-  token grid, text keys folded last. The main path's kernel under QK-norm.
-* `sta_permuted_static` (DIRECT=0, RUNNING=0) replaces
-  `_sta_nomax_fused_kernel` and `_sta_nomax_kernel`, which compute the same
-  function: static offset over tile-major permuted q and the concatenated
-  [img tiles | text] keys `kcat`, the text block(s) being extra slots of
-  the neighbour table.
+* `sta_direct` (B4, `csrc/sta_direct.cu`, QUANT=0) replaces
+  `_sta_nomax_direct_kernel`: static exponent offset C, q/k/v read and out
+  written in the row-major token grid through 5-D TMA maps, text keys
+  folded last; wgmma products on a TMA ring (`plan_sta_direct` describes
+  the launch on the host, `sta_direct_emulate` its walk over key boxes).
+  The main path's kernel under QK-norm.
+* `sta_direct_int8` (B4q, the same source with QUANT=1) is its `quant=True`
+  arm (`--attn-mode sta_int8`): a pre-pass (`sta_tile_codes`) writes int8
+  codes of q and k in the row-major grid with one scale per (batch, head,
+  tile), then the image keys' Q.K^T runs on s8 wgmma and the text keys'
+  in the input type.
+* `sta_permuted_static` (`csrc/sta_attention.cu`, DIRECT=0, RUNNING=0)
+  replaces `_sta_nomax_fused_kernel` and `_sta_nomax_kernel`, which compute
+  the same function: static offset over tile-major permuted q and the
+  concatenated [img tiles | text] keys `kcat`, the text block(s) being
+  extra slots of the neighbour table.
 * `sta_permuted_running` (DIRECT=0, RUNNING=1) replaces `_sta_kernel`: the
   same layout with a running max, for models without QK-norm.
-* `sta_direct_int8` and `sta_permuted_static_int8` (QUANT=1) are the
-  `quant=True` arms of the first two (`--attn-mode sta_int8`): Q.K^T in
-  int8 with one scale per (batch, head, tile) of the queries and of the
-  keys; the direct arm's text keys stay bf16, the permuted arm quantizes
-  its text blocks like image key tiles. The two arms compute different
-  functions, and each wrapper follows its JAX arm.
-
-A sixth, `sta_ring` (the `RING` flag of `csrc/sta_attention.cu`), replaces
-`_sta_ring_kernel`: the direct static arm with K/V in w-major tile order
-(`_permute_tokens_cols`), so that a query tile's window column is wt
-contiguous runs of wh tiles, and the validity computed in the kernel
-(`ring_plan` describes it on the host for the plain version
-`sta_ring_plain`). `set_sta_ring(True)` makes it the direct arm's default
-where the geometry admits it.
+* `sta_permuted_static_int8` (QUANT=1) is the `quant=True` arm of the
+  permuted static kernels: every key tile of kcat quantized, text blocks
+  included. The direct and permuted int8 arms compute different functions,
+  and each wrapper follows its JAX arm.
 
 On CPU tensors each wrapper runs the plain version (`sta_attention_plain`,
 built on `sta_permuted_plain`): neighbour tiles gathered per chunk of query
@@ -54,8 +50,9 @@ far above the bytes of q/k/v/out, so the kernels are bound by operations.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,10 +60,12 @@ import torch
 from . import cuda_lib
 from .flash_attention import (_DTYPE_CODE, _as_rows, flash_attention,
                               int8_bound_inflation, merge_flash_states)
+from .flash_backward import tma_view_error
 
 NEG_INF = -1e30
 PLAIN_TILE_CHUNK = 8   # query tiles per step of the plain version: at 540p
                        # (24 heads) its scores take ~3 GB per step
+STA_CHUNK = 128        # B4's keys a ring slot, and its most query rows a block
 
 
 # --------------------------------------------------------------------------
@@ -288,6 +287,146 @@ def sta_pair_count(grid, tile, window, txt_valid: int) -> int:
     return int((rows * (keys + txt_valid)).sum())
 
 
+def sta_direct_gate(tile, window, d: int) -> Optional[str]:
+    """Why B4 (csrc/sta_direct.cu) cannot take a geometry, or None: head_dim
+    64 or 128; tile tokens a multiple of 64 and of R = min(128, tokens),
+    the tokens of a TMA box; the box whole (h, w) planes (th*tw divides R)
+    or whole rows of one plane (R divides th*tw and tw divides R); an odd
+    window."""
+    tt, th, tw = tile
+    block, plane = tt * th * tw, th * tw
+    rows = min(STA_CHUNK, block)
+    if d not in (64, 128):
+        return f"head_dim {d} is not 64 or 128"
+    if block <= 0 or block % 64 or block % rows:
+        return f"tile {tuple(tile)} has {block} tokens: not 64 or a " \
+               f"multiple of 128"
+    if rows % plane and (plane % rows or rows % tw):
+        return (f"tile {tuple(tile)}: {rows} tokens are neither whole "
+                f"{th}x{tw} planes nor whole rows of one")
+    if any(x % 2 == 0 for x in window):
+        return f"window {tuple(window)} is not odd"
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class StaDirectPlan:
+    """B4's launch (csrc/sta_direct.cu) on one geometry: `rows` tokens of a
+    tile a TMA box (a block's query rows), the box as (frames, rows,
+    columns) of the tile, `subs` boxes a tile, `boxes` boxes a key chunk of
+    STA_CHUNK, the launch grid (box of a query tile fastest, then heads,
+    batch), the keys of a text chunk (B4q: 64, so that its bf16 K fits
+    where an image chunk's int8 K goes) and the text's chunks, the ring's
+    slots and the dynamic shared memory in bytes (Q, under QUANT also its
+    int8 codes; per slot K, V, the per-key bias (QUANT with a factor) and
+    the chunk's boxes; the barriers; per warp a count of key boxes and the
+    last unmasked text key; 1024 to align). The kernel walks the text
+    chunks up to the last one holding an unmasked key (masked keys add
+    nothing), at most `txt_chunks`."""
+    rows: int
+    box: Tuple[int, int, int]
+    subs: int
+    boxes: int
+    blocks: Tuple[int, int, int]
+    txt_keys: int
+    txt_chunks: int
+    stages: int
+    smem: int
+
+
+def plan_sta_direct(b: int, heads: int, d: int, grid, tile, window,
+                    lt: int, quant: bool = False) -> StaDirectPlan:
+    """The plan of B4 (quant: B4q) for [b, T*Hg*Wg, heads, d] queries over
+    `grid` and lt text keys; raises ValueError outside its gate."""
+    err = sta_direct_gate(tile, window, d)
+    if err:
+        raise ValueError(f"sta_direct: {err}")
+    tt, th, tw = tile
+    block, plane = tt * th * tw, th * tw
+    rows = min(STA_CHUNK, block)
+    box = (rows // plane, th, tw) if rows % plane == 0 else (1, rows // tw,
+                                                              tw)
+    n_tiles = int(np.prod([_ceil(n, k) for n, k in zip(grid, tile)]))
+    stages = 3
+    # a slot: K (int8 codes, or a 64-key text chunk's bf16 K, under quant),
+    # V, and per key the bias (quant: with a factor)
+    slot = STA_CHUNK * d * (3 if quant else 4) + STA_CHUNK * (8 if quant
+                                                              else 4)
+    smem = (STA_CHUNK * d * (3 if quant else 2) + stages * (slot + 32)
+            + (1 + 3 * stages) * 8 + 2 * (384 // 32) * 4 + 1024)
+    txt_keys = 64 if quant else STA_CHUNK
+    subs = block // rows
+    return StaDirectPlan(rows, box, subs, STA_CHUNK // rows,
+                         (n_tiles * subs, heads, b), txt_keys,
+                         _ceil(lt, txt_keys), stages, smem)
+
+
+def sta_grid_map(grid, plan: StaDirectPlan, b: int, cols: int,
+                 row_stride: int, batch_stride: int, itemsize: int,
+                 box_cols: int = 64):
+    """B4's 5-D TMA map over a [b, T*Hg*Wg, cols] grid operand (strides in
+    elements): dims innermost first (cols, Wg, Hg, T, b), the byte strides
+    of the outer four, and the box (box_cols, bw, bh, bt, 1)."""
+    t, hg, wg = grid
+    if b == 1:
+        batch_stride = row_stride * t * hg * wg
+    dims = (cols, wg, hg, t, b)
+    strides = tuple(x * itemsize for x in (
+        row_stride, row_stride * wg, row_stride * wg * hg, batch_stride))
+    bt, bh, bw = plan.box
+    return dims, strides, (box_cols, bw, bh, bt, 1)
+
+
+def _box_origin(tile, rows, a, bb, cc, sub):
+    """The first token (t, h, w) of box `sub` of tile (a, bb, cc), boxes of
+    `rows` tokens."""
+    tt, th, tw = tile
+    f0 = sub * rows
+    return a * tt + f0 // (th * tw), bb * th + (f0 // tw) % th, cc * tw
+
+
+def sta_box_tokens(grid, tile, plan: StaDirectPlan, tile_idx: int,
+                   sub: int) -> np.ndarray:
+    """The row-major token of each of the box's rows, -1 past the grid (the
+    rows TMA zero-fills), [rows] int64."""
+    t, hg, wg = grid
+    gh, gw = _ceil(hg, tile[1]), _ceil(wg, tile[2])
+    t0, h0, w0 = _box_origin(tile, plan.rows, tile_idx // (gh * gw),
+                             (tile_idx // gw) % gh, tile_idx % gw, sub)
+    _, bh, bw = plan.box
+    r = np.arange(plan.rows)
+    tt_, hh, ww = t0 + r // (bh * bw), h0 + (r // bw) % bh, w0 + r % bw
+    tok = (tt_ * hg + hh) * wg + ww
+    return np.where((tt_ < t) & (hh < hg) & (ww < wg), tok, -1)
+
+
+def sta_walk(grid, tile, window, plan: StaDirectPlan,
+             qtile: int) -> List[List[Tuple[int, int]]]:
+    """B4's image key chunks of query tile `qtile`, as the kernel walks
+    them: the window's tiles in tile_plan's slot order, each tile's boxes
+    (tile, sub) in turn, a box whose first token lies past the grid
+    skipped, `plan.boxes` boxes a chunk (the last chunk may be short: the
+    kernel loads its first box again there, masked). The text chunks
+    follow."""
+    t, hg, wg = grid
+    tt, th, tw = tile
+    wt, wh, ww = window
+    gt, gh, gw = _ceil(t, tt), _ceil(hg, th), _ceil(wg, tw)
+    qa, qb, qc = qtile // (gh * gw), (qtile // gw) % gh, qtile % gw
+    boxes = []
+    for s in range(wt * wh * ww):
+        a = qa + s // (wh * ww) - wt // 2
+        bb = qb + (s // ww) % wh - wh // 2
+        cc = qc + s % ww - ww // 2
+        if not (0 <= a < gt and 0 <= bb < gh and 0 <= cc < gw):
+            continue
+        for sub in range(plan.subs):
+            t0, h0, _ = _box_origin(tile, plan.rows, a, bb, cc, sub)
+            if t0 < t and h0 < hg:
+                boxes.append(((a * gh + bb) * gw + cc, sub))
+    return [boxes[i:i + plan.boxes] for i in range(0, len(boxes), plan.boxes)]
+
+
 # --------------------------------------------------------------------------
 # plain versions
 # --------------------------------------------------------------------------
@@ -299,7 +438,10 @@ def tile_codes(x: torch.Tensor, block: int):
     scale = max(max|x|, 1e-6) / 127, codes round(x * (1/scale))."""
     b, s, hh, d = x.shape
     xf = x.float().reshape(b, s // block, block, hh, d)
-    sc = xf.abs().amax(dim=(2, 4)).clamp_min(1e-6) / 127.0
+    m = xf.abs().amax(dim=(2, 4)).clamp_min(1e-6)
+    # a true division on every device (on CUDA tensors `m / 127.0` is a
+    # product with the rounded reciprocal)
+    sc = m / m.new_tensor(127.0)
     return torch.round(xf * (1.0 / sc)[:, :, None, :, None]), sc
 
 
@@ -377,6 +519,100 @@ def sta_permuted_plain(qp, kcat, vcat, kb, grid, tile, window, scale: float,
         out[:, t0:t1] = o.permute(0, 1, 3, 2, 4).reshape(
             b, cn, block, hh * d).to(qp.dtype)
     return out.reshape(b, s_pad, hh * d)
+
+
+def sta_tile_codes_plain(x: torch.Tensor, grid, tile):
+    """B4q's pre-pass in plain PyTorch: x [B, S_img, H, D] row-major to its
+    int8 codes [B, S_img, H*D] (each token with its own tile's scale) and
+    the scales [B, H, n_tiles]: `tile_codes` of the tile-major layout, back
+    in row-major order."""
+    b, s, hh, d = x.shape
+    grid, tile = tuple(grid), tuple(tile)
+    plan = tile_plan(grid, tile, (1, 1, 1), 0)
+    codes, sc = tile_codes(_permute_tokens(x, grid, tile, plan),
+                           plan["tokens_per_tile"])
+    codes = _unpermute_tokens(codes.reshape(b, -1, hh * d), grid, plan)
+    return codes.to(torch.int8), sc.permute(0, 2, 1).contiguous()
+
+
+def sta_direct_emulate(img_q, img_k, img_v, txt_k, txt_v, txt_bias, c, grid,
+                       tile, window, scale: float, img_key_bias=None,
+                       quant: bool = False) -> torch.Tensor:
+    """B4's (quant: B4q's) walk in plain PyTorch, for checking its plan on
+    the CPU: per block, the query box of `sta_box_tokens` with its rows past
+    the grid zero (TMA's zero fill), then the key chunks of `sta_walk`,
+    each key past the grid zero with bias -1e30 (as is a short chunk's
+    repeated box), then the text keys in chunks of `plan.txt_keys`, those
+    past Lt zero with bias -1e30; p = exp(s + bias - c) with s = Q.K^T *
+    scale, or under quant the image keys' s32 * (sq * sk * scale) from the
+    pre-pass's codes, p rounded to V's type before P.V, out = acc /
+    max(l, 1e-37), rows past the grid not stored. Arguments as
+    `sta_direct`; returns [B, S_img, H*D]."""
+    b, s_img, hh, d = img_q.shape
+    lt = txt_k.shape[1]
+    grid, tile, window = tuple(grid), tuple(tile), tuple(window)
+    plan = plan_sta_direct(b, hh, d, grid, tile, window, lt, quant)
+    dev = img_q.device
+
+    def zero_row(x):   # index s_img (or Lt) reads a zero row
+        return torch.cat([x, x.new_zeros((b, 1) + x.shape[2:])], dim=1)
+
+    qz, kz, vz = zero_row(img_q), zero_row(img_k), zero_row(img_v)
+    if quant:
+        q8, sq = sta_tile_codes_plain(img_q, grid, tile)
+        k8, sk = sta_tile_codes_plain(img_k, grid, tile)
+        q8 = zero_row(q8.float().reshape(b, s_img, hh, d))
+        k8 = zero_row(k8.float().reshape(b, s_img, hh, d))
+    kb = (img_key_bias.reshape(b, s_img).float() if img_key_bias is not None
+          else torch.zeros((b, s_img), device=dev))
+    kb = torch.cat([kb, torch.full((b, 1), NEG_INF, device=dev)], dim=1)
+    lt_pad = plan.txt_chunks * plan.txt_keys
+    tb = (txt_bias.reshape(b, lt).float() if txt_bias is not None
+          else torch.zeros((b, lt), device=dev))
+    tb = torch.nn.functional.pad(tb, (0, lt_pad - lt), value=NEG_INF)
+    tk, tv = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, lt_pad - lt))
+              for x in (txt_k, txt_v))
+    off = c.float().expand(b, hh)[:, :, None, None]
+    out = torch.zeros((b, s_img, hh * d), dtype=img_q.dtype, device=dev)
+    n_tiles = plan.blocks[0] // plan.subs
+    for qtile in range(n_tiles):
+        keys, key_tile, live = [], [], []
+        for chunk in sta_walk(grid, tile, window, plan, qtile):
+            padded = chunk + [chunk[0]] * (plan.boxes - len(chunk))
+            for u, (kt, sub) in enumerate(padded):
+                tok = sta_box_tokens(grid, tile, plan, kt, sub)
+                keys.append(np.where(tok < 0, s_img, tok))
+                key_tile.append(np.full(plan.rows, kt))
+                live.append(np.full(plan.rows, u < len(chunk)) & (tok >= 0))
+        kidx = torch.from_numpy(np.concatenate(keys)).to(dev)
+        kbias = torch.where(torch.from_numpy(np.concatenate(live)).to(dev),
+                            kb[:, kidx], NEG_INF)
+        for sub in range(plan.subs):
+            tok = sta_box_tokens(grid, tile, plan, qtile, sub)
+            if tok[0] < 0:
+                continue   # no query of the box: the block returns at once
+            qidx = torch.from_numpy(np.where(tok < 0, s_img, tok)).to(dev)
+            q = qz[:, qidx].float()
+            if quant:
+                s32 = torch.einsum("bqhd,bkhd->bhqk", q8[:, qidx],
+                                   k8[:, kidx])
+                fac = sq[:, :, qtile, None] * sk[:, :, torch.from_numpy(
+                    np.concatenate(key_tile)).to(dev)]        # [B, H, K]
+                s_i = s32 * (fac * scale)[:, :, None, :]
+            else:
+                s_i = torch.einsum("bqhd,bkhd->bhqk", q,
+                                   kz[:, kidx].float()) * scale
+            s_t = torch.einsum("bqhd,bkhd->bhqk", q, tk.float()) * scale
+            p = torch.exp(torch.cat([s_i + kbias[:, None, None, :],
+                                     s_t + tb[:, None, None, :]], -1) - off)
+            l = p.sum(-1)
+            v = torch.cat([vz[:, kidx], tv], dim=1)
+            o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(),
+                             v.float()) / l.clamp_min(1e-37).transpose(
+                                 1, 2)[..., None]
+            ok = torch.from_numpy(tok >= 0).to(dev)
+            out[:, qidx[ok]] = o[:, ok].reshape(b, -1, hh * d).to(out.dtype)
+    return out
 
 
 def permuted_operands(img_q, img_k, img_v, txt_k, txt_v, txt_bias, grid,
@@ -519,12 +755,14 @@ def _geometry(name, grid, tile, d):
     return block
 
 
-def _launch(name, direct, running, q, k, v, out, tk, tv, kb, tb, c, nbr,
-            grid, tile, lt, scale, quant=False):
+def _launch(name, running, q, k, v, out, kb, c, nbr, grid, tile, scale,
+            quant=False):
+    """The permuted kernels of csrc/sta_attention.cu on tile-major q and
+    kcat/vcat (all [B, S, H, D] row views)."""
     b, _, hh, d = q.shape
     block = tile[0] * tile[1] * tile[2]
     n_qtiles = nbr.shape[0]
-    n_ktiles = k.shape[1] // block if not direct else n_qtiles
+    n_ktiles = k.shape[1] // block
     sq = sk = None
     if quant:   # scratch for the kernel's tile-scale pre-pass
         sq = torch.empty((b, hh, n_qtiles), dtype=torch.float32,
@@ -532,22 +770,63 @@ def _launch(name, direct, running, q, k, v, out, tk, tv, kb, tb, c, nbr,
         sk = torch.empty((b, hh, n_ktiles), dtype=torch.float32,
                          device=q.device)
     lib = cuda_lib.library("sta_attention")
-
-    def ptr(x):
-        return x.data_ptr() if x is not None else None
-
-    def strides(x):
-        return (x.stride(0), x.stride(1)) if x is not None else (0, 0)
-
     err = lib.hv_sta_attention_fwd(
-        _DTYPE_CODE[q.dtype], int(direct), int(running), int(quant), d,
-        ptr(q), ptr(k), ptr(v), ptr(out), ptr(tk), ptr(tv), ptr(kb), ptr(tb),
-        ptr(c), ptr(nbr), ptr(sq), ptr(sk), b, hh, nbr.shape[1], lt,
-        n_ktiles, *grid, *tile,
-        *strides(q), *strides(k), *strides(v), *strides(tk), *strides(tv),
-        out.stride(0), out.stride(1), kb.stride(0) if kb is not None else 0,
-        float(scale), cuda_lib.stream_ptr(q.device))
+        _DTYPE_CODE[q.dtype], int(running), int(quant), d, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(), kb.data_ptr(),
+        c.data_ptr() if c is not None else None, nbr.data_ptr(),
+        sq.data_ptr() if quant else None, sk.data_ptr() if quant else None,
+        b, hh, nbr.shape[1], n_ktiles, *grid, *tile, q.stride(0),
+        q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        out.stride(0), out.stride(1), kb.stride(0), float(scale),
+        cuda_lib.stream_ptr(q.device))
     cuda_lib.check(err, name)
+
+
+def _rows_for_tma(name, **views):
+    """Each [B, S, H, D] view as TMA reads it (`_as_rows`: a copy only if
+    its heads are not packed in 16-byte aligned rows), checked by
+    `tma_view_error`."""
+    out = []
+    for what, x in views.items():
+        x = _as_rows(x)
+        err = tma_view_error(what, x.shape, x.stride(), x.data_ptr(),
+                             x.element_size())
+        if err:
+            raise ValueError(f"{name}: {err}")
+        out.append(x)
+    return out
+
+
+def sta_tile_codes(img_q, img_k, grid, tile):
+    """B4q's pre-pass (csrc/sta_direct.cu:tile_codes_kernel): the int8
+    codes of img_q and img_k [B, S_img, H, D] in the row-major grid, each
+    token with its own tile's scale, and the scales: (q8, k8 [B, S_img,
+    H*D] int8, sq, sk [B, H, n_tiles] fp32). Kernel on CUDA tensors,
+    `sta_tile_codes_plain` on CPU tensors."""
+    grid, tile = tuple(grid), tuple(tile)
+    if img_q.device.type == "cpu":
+        (q8, sq), (k8, sk) = (sta_tile_codes_plain(x, grid, tile)
+                              for x in (img_q, img_k))
+        return q8, k8, sq, sk
+    name = "sta_tile_codes"
+    _check(name, (("img_q", img_q), ("img_k", img_k)), img_q.dtype)
+    b, s_img, hh, d = img_q.shape
+    if img_k.shape != img_q.shape or s_img != grid[0] * grid[1] * grid[2]:
+        raise ValueError(f"{name}: bad shapes q {tuple(img_q.shape)} k "
+                         f"{tuple(img_k.shape)} for grid {grid}")
+    q, k = _rows_for_tma(name, img_q=img_q, img_k=img_k)
+    n_tiles = int(np.prod([_ceil(n, t) for n, t in zip(grid, tile)]))
+    q8, k8 = (torch.empty((b, s_img, hh * d), dtype=torch.int8,
+                          device=q.device) for _ in range(2))
+    sq, sk = (torch.empty((b, hh, n_tiles), dtype=torch.float32,
+                          device=q.device) for _ in range(2))
+    err = cuda_lib.library("sta_direct").hv_sta_tile_codes(
+        _DTYPE_CODE[q.dtype], d, q.data_ptr(), q.stride(0), q.stride(1),
+        k.data_ptr(), k.stride(0), k.stride(1), b, hh, *grid, *tile,
+        q8.data_ptr(), k8.data_ptr(), sq.data_ptr(), sk.data_ptr(),
+        cuda_lib.stream_ptr(q.device))
+    cuda_lib.check(err, name)
+    return q8, k8, sq, sk
 
 
 def _direct(name, quant, img_q, img_k, img_v, txt_k, txt_v, txt_bias, c,
@@ -561,32 +840,48 @@ def _direct(name, quant, img_q, img_k, img_v, txt_k, txt_v, txt_bias, c,
                   ("txt_k", txt_k), ("txt_v", txt_v)), img_q.dtype)
     b, s_img, hh, d = img_q.shape
     lt = txt_k.shape[1]
-    _geometry(name, grid, tile, d)
+    err = sta_direct_gate(tile, window, d)
+    if err:
+        raise ValueError(f"{name}: {err}")
     if s_img != grid[0] * grid[1] * grid[2] or img_k.shape != img_q.shape \
             or img_v.shape != img_q.shape \
             or txt_k.shape != (b, lt, hh, d) or txt_v.shape != txt_k.shape:
         raise ValueError(f"{name}: bad shapes q {tuple(img_q.shape)} "
                          f"for grid {grid}, txt {tuple(txt_k.shape)}")
-    q, k, v = _as_rows(img_q), _as_rows(img_k), _as_rows(img_v)
-    tk, tv = _as_rows(txt_k), _as_rows(txt_v)
+    q, k, v, tk, tv = _rows_for_tma(name, img_q=img_q, img_k=img_k,
+                                    img_v=img_v, txt_k=txt_k, txt_v=txt_v)
     kb = (img_key_bias.reshape(b, s_img).float().contiguous()
           if img_key_bias is not None else None)
     tb = (txt_bias.reshape(b, lt).float().contiguous()
           if txt_bias is not None else None)
     cc = c.float().expand(b, hh).contiguous()
-    nbr = _device_nbr(grid, tile, window, 0, q.device)
+    q8 = k8 = sq = sk = None
+    if quant:
+        q8, k8, sq, sk = sta_tile_codes(q, k, grid, tile)
     out = torch.empty((b, s_img, hh * d), dtype=q.dtype, device=q.device)
-    _launch(name, True, False, q, k, v, out, tk, tv, kb, tb, cc, nbr, grid,
-            tile, lt, scale, quant)
+
+    def ptr(x):
+        return x.data_ptr() if x is not None else None
+
+    err = cuda_lib.library("sta_direct").hv_sta_direct_fwd(
+        _DTYPE_CODE[q.dtype], int(quant), d, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), tk.data_ptr(), tv.data_ptr(), ptr(kb),
+        ptr(tb), cc.data_ptr(), ptr(q8), ptr(k8), ptr(sq), ptr(sk), b, hh,
+        lt, *grid, *tile, *window, q.stride(0), q.stride(1), k.stride(0),
+        k.stride(1), v.stride(0), v.stride(1), tk.stride(0), tk.stride(1),
+        tv.stride(0), tv.stride(1), out.stride(0), out.stride(1),
+        float(scale), cuda_lib.stream_ptr(q.device))
+    cuda_lib.check(err, name)
     return out
 
 
 def sta_direct(img_q, img_k, img_v, txt_k, txt_v, txt_bias, c, grid, tile,
                window, scale: float, img_key_bias=None) -> torch.Tensor:
-    """B4: static-offset STA in the row-major token grid. img_q/k/v
-    [B, S_img, H, D]; txt_k/v [B, Lt, H, D]; txt_bias [B, 1, 1, Lt] (or
-    [B, Lt]) fp32 or None; c [B, H] fp32 offsets; img_key_bias optional
-    [B, S_img] fp32. Returns [B, S_img, H*D]. Kernel on CUDA tensors, plain
+    """B4 (csrc/sta_direct.cu): static-offset STA in the row-major token
+    grid. img_q/k/v [B, S_img, H, D]; txt_k/v [B, Lt, H, D]; txt_bias
+    [B, 1, 1, Lt] (or [B, Lt]) fp32 or None; c [B, H] fp32 offsets;
+    img_key_bias optional [B, S_img] fp32. Returns [B, S_img, H*D]. Kernel
+    on CUDA tensors (inside `sta_direct_gate`; it raises outside), plain
     version on CPU tensors."""
     out = _direct("sta_direct", False, img_q, img_k, img_v, txt_k, txt_v,
                   txt_bias, c, grid, tile, window, scale, img_key_bias)
@@ -601,9 +896,10 @@ sta_direct.LAUNCHES = 0
 def sta_direct_int8(img_q, img_k, img_v, txt_k, txt_v, txt_bias, c, grid,
                     tile, window, scale: float,
                     img_key_bias=None) -> torch.Tensor:
-    """B4's int8 arm: as `sta_direct` with the image Q.K^T in int8 (tile
-    scales) and the text keys in the input type; c must bound the int8
-    scores (inflated). Kernel on CUDA tensors, plain version on CPU."""
+    """B4q (csrc/sta_direct.cu, QUANT): as `sta_direct` with the image
+    Q.K^T in int8 (the tile scales of `sta_tile_codes`, its pre-pass) and
+    the text keys in the input type; c must bound the int8 scores
+    (inflated). Kernel on CUDA tensors, plain version on CPU."""
     out = _direct("sta_direct_int8", True, img_q, img_k, img_v, txt_k, txt_v,
                   txt_bias, c, grid, tile, window, scale, img_key_bias)
     if img_q.device.type != "cpu":
@@ -636,8 +932,8 @@ def _permuted(name, running, qp, kcat, vcat, kb, c, grid, tile, window,
     cc = None if running else c.float().expand(b, hh).contiguous()
     nbr = _device_nbr(grid, tile, window, kcat.shape[1] - s_pad, q.device)
     out = torch.empty((b, s_pad, hh * d), dtype=q.dtype, device=q.device)
-    _launch(name, False, running, q, k, v, out, None, None, kbf, None, cc,
-            nbr, grid, tile, 0, scale, quant)
+    _launch(name, running, q, k, v, out, kbf, cc, nbr, grid, tile, scale,
+            quant)
     return out
 
 
@@ -855,7 +1151,9 @@ def sta_joint_attention(
     image and text queries alike. plain=True routes the image queries to
     `sta_attention_plain` (a reference for checks on the card).
     slot_block, head_block: accepted for signature parity with the JAX
-    function; the CUDA kernels' tiles are fixed at 64 x 64.
+    function; the CUDA kernels fix their own tiles (B4 and B4q: boxes of up
+    to 128 query rows, key chunks of 128; the permuted kernels and B10:
+    64 x 64).
     lane_rotate (a TPU DMA-elision plan) is not ported.
     """
     del head_block

@@ -49,13 +49,14 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def ptxas_report():
-    """ptxas's lines for csrc/flash_backward.cu and the SASS's local
-    stores."""
+def ptxas_report(name="flash_backward"):
+    """ptxas's lines for csrc/<name>.cu, and in its SASS the count of local
+    stores and of warpgroup (HGMMA, IGMMA) and warp (HMMA, IMMA) products;
+    exits if nvcc fails."""
     nvcc = cuda_lib.nvcc_path()
-    src = cuda_lib.CSRC / "flash_backward.cu"
+    src = cuda_lib.CSRC / f"{name}.cu"
     with tempfile.TemporaryDirectory() as tmp:
-        cubin = Path(tmp) / "flash_backward.cubin"
+        cubin = Path(tmp) / f"{name}.cubin"
         flags = [f for f in cuda_lib.NVCC_FLAGS
                  if f not in ("-shared", "-Xcompiler", "-fPIC")]
         out = subprocess.run(
@@ -68,8 +69,8 @@ def ptxas_report():
         sass = subprocess.run(
             [str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
             capture_output=True, text=True).stdout
-    print(json.dumps({"sass_STL": sass.count("STL"),
-                      "sass_HGMMA": sass.count("HGMMA")}), flush=True)
+    print(json.dumps({f"sass_{op}": sass.count(op) for op in (
+        "STL", "HGMMA", "IGMMA", "HMMA", "IMMA")}), flush=True)
 
 
 def inputs(dev):

@@ -77,8 +77,10 @@ def category(name: str) -> str:
         return "W8A8 linear (B9)"
     if RING_STA.search(low):
         return "STA ring (B10)"
-    if "sta_fwd_kernel" in low or "tile_scales_kernel" in low:
-        return "sliding-tile attention (STA)"
+    if any(k in low for k in ("sta_direct_kernel", "tile_codes_kernel",
+                              "sta_fwd_kernel", "tile_scales_kernel")):
+        return "sliding-tile attention (STA)"   # B4/B4q and the pre-pass,
+                                                # B6/B7
     if "conv3d_s1_kernel" in low:
         return "conv3d (K3)"
     if "conv3d_v2_kernel" in low:

@@ -103,6 +103,38 @@ def test_causal_conv3d_impl_rejects(impl, cin):
         tconv.causal_conv3d(x, kern, impl=impl)
 
 
+@pytest.mark.parametrize("dtype,impl,k3", [
+    (torch.float32, "auto", False),    # fp32 inside the gate: F.conv3d
+    (torch.bfloat16, "auto", True),
+    (torch.float16, "auto", True),
+    (torch.float32, "cuda", True),     # "cuda" keeps K3, which rejects fp32
+                                       # on the card (test_torch_cuda_kernels)
+    (torch.float32, "3d", False),
+])
+def test_causal_conv3d_routes_by_dtype(monkeypatch, dtype, impl, k3):
+    """Inside the K3 gate, "auto" takes K3 only for the types K3 takes and
+    F.conv3d for fp32 (what the reference runs in fp32); both routes give
+    the plain conv's result."""
+    calls = []
+
+    def k3_spy(xp, kernel, bias=None):
+        calls.append(xp.dtype)
+        return conv3d_stride1(xp, kernel, bias)
+
+    monkeypatch.setattr(tconv, "conv3d_stride1", k3_spy)
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(_rand(rng, 1, 3, 8, 8, 128)).to(dtype)
+    kern = torch.from_numpy(_rand(rng, 3, 3, 3, 128, 128, scale=0.05))
+    out = tconv.causal_conv3d(x, kern, impl=impl)
+    assert calls == ([dtype] if k3 else [])
+    assert out.dtype == dtype and out.shape == (1, 3, 8, 8, 128)
+    xp = tconv.replicate_pad(x.float(), (2, 0), (1, 1), (1, 1))
+    ref = conv3d_stride1(xp, kern)
+    tol = TOL if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(out.float().numpy(), ref.numpy(), rtol=tol,
+                               atol=tol)
+
+
 @pytest.mark.parametrize("cin,cout,k,stride", [
     (32, 64, 3, (1, 1, 1)),      # below the channel gate
     (16, 128, 3, (1, 1, 1)),     # conv_in-like

@@ -291,6 +291,185 @@ def test_sta_kernels_match_plain(dev, dtype, d, case):
                                rtol=TOL)
 
 
+# B4 / B4q beyond STA_CASES: (grid, tile, window, text keys, valid text keys
+# of batch 1). Text lengths 1, 127, 129 and 256 against 128-key chunks (B4q:
+# 64), every text key of batch 1 masked (no text chunk walked); T = 5 of
+# 4-frame tiles, so the last tile's second 128-row query box lies wholly
+# past T; a 64-token tile whose last key chunk repeats its box.
+DIRECT_CASES = [
+    ((5, 17, 30), (4, 8, 8), (3, 3, 3), 1, 1),
+    ((5, 17, 30), (4, 8, 8), (3, 3, 3), 64, 0),
+    ((5, 17, 30), (4, 8, 8), (3, 3, 3), 127, 100),
+    ((6, 16, 24), (4, 8, 8), (3, 3, 3), 129, 129),
+    ((9, 10, 19), (2, 4, 8), (3, 3, 3), 256, 3),
+]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", DIRECT_CASES)
+def test_sta_direct_kernels_edges(dev, dtype, case, quant):
+    """B4 and B4q (csrc/sta_direct.cu) against sta_attention_plain with an
+    image key bias and v a column view of a fused [B, S, 3, H, D]
+    projection; two runs equal bit for bit; one launch counted a call."""
+    from hunyuanvideo_efficiency_tpu_torch.ops import sta
+    from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
+        int8_bound_inflation)
+
+    grid, tile, window, lt, txt_valid = case
+    d = 128
+    (iq, ik, iv), (_, tk, tv), tb, c = _sta_inputs(dev, dtype, grid, d, lt,
+                                                   txt_valid, seed=14)
+    fused = torch.zeros(*iv.shape[:2], 3, *iv.shape[2:], dtype=dtype,
+                        device=dev)
+    fused[:, :, 2] = iv
+    iv = fused[:, :, 2]
+    assert not iv.is_contiguous()
+    if quant:
+        c = c * int8_bound_inflation(d)
+    ikb = torch.zeros(iq.shape[:2], device=dev)
+    ikb[1, ::5] = -1e30
+    ikb[0, 3::7] = -0.5
+    scale = d ** -0.5
+    fn = sta.sta_direct_int8 if quant else sta.sta_direct
+    n0 = fn.LAUNCHES
+    out = fn(iq, ik, iv, tk, tv, tb, c, grid, tile, window, scale, ikb)
+    again = fn(iq, ik, iv, tk, tv, tb, c, grid, tile, window, scale, ikb)
+    ref = sta.sta_attention_plain(iq, ik, iv, tk, tv, tb, grid, tile, window,
+                                  scale, c, ikb, qk_int8=quant)
+    torch.cuda.synchronize()
+    assert fn.LAUNCHES == n0 + 2
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("grid,tile", [((5, 17, 30), (4, 8, 8)),
+                                       ((5, 9, 13), (2, 4, 8)),
+                                       ((17, 34, 60), (4, 8, 8))])
+def test_sta_tile_codes_equal_plain(dev, dtype, grid, tile):
+    """B4q's pre-pass against sta_tile_codes_plain (tile_codes in row-major
+    order) bit for bit: codes, scales, and in tile-major order the zero rows
+    past the grid; k a strided view."""
+    from hunyuanvideo_efficiency_tpu_torch.ops import sta
+
+    g = torch.Generator(dev).manual_seed(15)
+    b, h, d = 2, 3, 128
+    s = grid[0] * grid[1] * grid[2]
+    q = torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, s, 2, h, d, generator=g, device=dev).to(dtype)[:, :, 1]
+    q8, k8, sq, sk = sta.sta_tile_codes(q, k, grid, tile)
+    torch.cuda.synchronize()
+    plan = sta.tile_plan(grid, tile, (1, 1, 1), 0)
+    for x, codes, scales in ((q, q8, sq), (k, k8, sk)):
+        want, want_sc = sta.sta_tile_codes_plain(x, grid, tile)
+        assert torch.equal(codes, want) and torch.equal(scales, want_sc)
+        tiles, _ = sta.tile_codes(sta._permute_tokens(x, grid, tile, plan),
+                                  plan["tokens_per_tile"])
+        got = sta._permute_tokens(codes.reshape(b, s, h, d), grid, tile,
+                                  plan)
+        assert torch.equal(got.float(), tiles.reshape(got.shape))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_sta_direct_at_the_540p_shape(dev, quant):
+    """B4 / B4q at the STA main path's shape, [2, 34680, 24, 128] bf16 on
+    the 17x34x60 grid with 256 text keys (40 valid), against the plain
+    version: max error relative to the output's scale 2e-2."""
+    from hunyuanvideo_efficiency_tpu_torch.ops import sta
+    from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
+        int8_bound_inflation)
+
+    grid, tile, window = (17, 34, 60), (4, 8, 8), (3, 3, 3)
+    g = torch.Generator(dev).manual_seed(16)
+    b, h, d, lt = 2, 24, 128, 256
+    s = grid[0] * grid[1] * grid[2]
+
+    def normed(n):
+        x = torch.randn(b, n, h, d, generator=g, device=dev)
+        return (x * torch.rsqrt(x.square().mean(-1, keepdim=True))).bfloat16()
+
+    iq, ik, tk = normed(s), normed(s), normed(lt)
+    iv, tv = (torch.randn(b, n, h, d, generator=g, device=dev).bfloat16()
+              for n in (s, lt))
+    tb = torch.zeros(b, 1, 1, lt, device=dev)
+    tb[..., 40:] = -1e30
+    c = torch.full((b, h), d ** 0.5, device=dev)   # |q.k| * scale <= sqrt(d)
+    if quant:
+        c = c * int8_bound_inflation(d)
+    fn = sta.sta_direct_int8 if quant else sta.sta_direct
+    out = fn(iq, ik, iv, tk, tv, tb, c, grid, tile, window, d ** -0.5)
+    ref = sta.sta_attention_plain(iq, ik, iv, tk, tv, tb, grid, tile, window,
+                                  d ** -0.5, c, qk_int8=quant)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert torch.isfinite(out).all() and err < 2e-2
+
+
+def test_conv_cuda_impl_rejects_fp32(dev):
+    """causal_conv3d(impl="cuda") keeps K3 for fp32, and K3 refuses it."""
+    from hunyuanvideo_efficiency_tpu_torch.ops.conv3d import causal_conv3d
+
+    x = torch.zeros(1, 3, 8, 8, 128, device=dev)
+    with pytest.raises(TypeError, match="fp16 or bf16"):
+        causal_conv3d(x, torch.zeros(3, 3, 3, 128, 128, device=dev),
+                      impl="cuda")
+
+
+def test_fp32_vae_decode_on_the_card(dev):
+    """--vae-precision fp32: a small VAE whose convs lie inside K3's gate
+    decodes in fp32 on the card through F.conv3d (cuDNN with TF32 off: the
+    reference's fp32), no K3 launch, within 1e-3 of the CPU decode relative
+    to the output scale; in fp16 the same convs take K3."""
+    from hunyuanvideo_efficiency_tpu_torch.models.vae import (
+        AutoencoderKLCausal3D)
+    from hunyuanvideo_efficiency_tpu_torch.models.vae_config import (
+        VAEConfig)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    vae = AutoencoderKLCausal3D(VAEConfig(
+        block_out_channels=(128, 128, 128, 128), layers_per_block=1,
+        sample_size=32, sample_tsize=8)).eval()
+    z = torch.randn(1, 16, 2, 4, 4)
+    with torch.no_grad():
+        ref = vae.decode(z)
+        n0 = conv3d_stride1.LAUNCHES
+        out = vae.to(dev).decode(z.to(dev))
+        torch.cuda.synchronize()
+        assert conv3d_stride1.LAUNCHES == n0
+        assert out.dtype == torch.float32 and torch.isfinite(out).all()
+        torch.testing.assert_close(out.cpu(), ref, rtol=1e-3,
+                                   atol=1e-3 * ref.abs().max().item())
+        vae.half().decode(z.to(dev).half())
+        torch.cuda.synchronize()
+        assert conv3d_stride1.LAUNCHES > n0
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128),
+                                     (torch.bfloat16, 32)])
+def test_attention_auto_outside_the_flash_gate(dev, dtype, d):
+    """attention(mode="auto") on fp32 or head_dim 32 takes sdpa on the
+    card (no flash launch) and equals it; an explicit "flash" raises."""
+    from hunyuanvideo_efficiency_tpu_torch.ops.attention import (
+        attention, sdpa_attention)
+
+    g = torch.Generator(dev).manual_seed(17)
+    q, k, v = (torch.randn(2, 300, 3, d, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    kb = torch.zeros(2, 1, 1, 300, device=dev)
+    kb[1, ..., 250:] = -1e30
+    n0 = (flash_static.LAUNCHES, flash_running.LAUNCHES)
+    out = attention(q, k, v, mode="auto", key_bias=kb)
+    torch.cuda.synchronize()
+    assert (flash_static.LAUNCHES, flash_running.LAUNCHES) == n0
+    torch.testing.assert_close(out, sdpa_attention(q, k, v, bias=kb),
+                               rtol=0, atol=0)
+    with pytest.raises((TypeError, ValueError)):
+        attention(q, k, v, mode="flash", key_bias=kb)
+
+
 # the STA_CASES that pass the ring gate (gh >= wh, ww >= 2), and one with
 # a (1, 3, 3) window whose two w-tiles leave a column out at each edge
 RING_CASES = [c for c in STA_CASES if ring_geometry_ok(*c[:3])] + [

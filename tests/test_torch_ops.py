@@ -102,6 +102,32 @@ def test_joint_attention_matches_jax(mode):
         _close(o, r)
 
 
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+def test_resolve_auto_mode(device, dtype, head_dim):
+    """mode="auto": on CUDA tensors flash only inside the kernels' reach
+    (bf16/fp16, head_dim 64 or 128), else sdpa, or chunked from 8192
+    queries; on the CPU the flash path (its plain versions) as before."""
+    flash = dtype != torch.float32 and head_dim in (64, 128)
+    want = "flash" if device == "cpu" or flash else "sdpa"
+    assert tattn.resolve_auto_mode(device, dtype, head_dim) == want
+    assert tattn.resolve_auto_mode(device, dtype, head_dim, 4096) == want
+    assert tattn.resolve_auto_mode(device, dtype, head_dim, 8192) == (
+        "chunked" if want == "sdpa" else want)
+
+
+def test_auto_mode_on_cpu_is_the_flash_path():
+    """On CPU tensors "auto" equals "flash" exactly (fp32, head_dim 32:
+    outside the kernels' reach on the card, the plain flash path here)."""
+    q, k, v = (torch.from_numpy(_rand(30 + i, 2, 24, 2, 32)) for i in
+               range(3))
+    torch.testing.assert_close(tattn.attention(q, k, v, mode="auto"),
+                               tattn.attention(q, k, v, mode="flash"),
+                               rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("kw", [
     dict(shift=7.0), dict(shift=5.0, reverse=False),
     dict(use_linear_quadratic_schedule=True, linear_schedule_end=3)])

@@ -7,6 +7,8 @@ attention. The port runs the kernel wrappers' plain versions. Inputs are
 numpy draws from a seed, fp32; tolerance atol 2e-5 times the output scale,
 rtol 1e-5 (fp32 sums in other orders).
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +18,8 @@ from hunyuanvideo_efficiency_tpu.ops import sta as jsta
 from hunyuanvideo_efficiency_tpu_torch.ops import sta
 from hunyuanvideo_efficiency_tpu_torch.ops.attention import (attention,
                                                              joint_attention)
+from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
+    int8_bound_inflation)
 
 NEG_INF = -1e30
 GEOMETRIES = [
@@ -259,3 +263,168 @@ def test_sta_modes_dispatch_and_reject():
                                        qk_int8=qk_int8)
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+# B4's host plan (csrc/sta_direct.cu): the 540p main path, the 720p
+# headline, the CUDA tests' 64-token tiles and a tile whose 128-token boxes
+# are half an (h, w) plane
+@pytest.mark.parametrize("grid,tile,quant,want", [
+    ((17, 34, 60), (4, 8, 8), False,
+     dict(rows=128, box=(2, 8, 8), subs=2, boxes=1,
+          blocks=(400, 24, 2), txt_keys=128, txt_chunks=2,
+          stages=3, smem=232208)),
+    ((17, 34, 60), (4, 8, 8), True,
+     dict(rows=128, box=(2, 8, 8), subs=2, boxes=1,
+          blocks=(400, 24, 2), txt_keys=64, txt_chunks=4,
+          stages=3, smem=200976)),
+    ((33, 45, 80), (4, 8, 8), False,
+     dict(rows=128, box=(2, 8, 8), subs=2, boxes=1,
+          blocks=(1080, 24, 2), txt_keys=128, txt_chunks=2,
+          stages=3, smem=232208)),
+    ((5, 9, 13), (2, 4, 8), False,
+     dict(rows=64, box=(2, 4, 8), subs=1, boxes=2,
+          blocks=(18, 24, 2), txt_keys=128, txt_chunks=2,
+          stages=3, smem=232208)),
+    ((4, 40, 40), (1, 16, 16), False,
+     dict(rows=128, box=(1, 8, 16), subs=2, boxes=1,
+          blocks=(72, 24, 2), txt_keys=128, txt_chunks=2,
+          stages=3, smem=232208)),
+], ids=["540p", "540p_int8", "720p", "tile64", "half_plane"])
+def test_plan_sta_direct_pins(grid, tile, quant, want):
+    plan = sta.plan_sta_direct(2, 24, 128, grid, tile, (3, 3, 3), 256,
+                               quant)
+    assert dataclasses.asdict(plan) == want
+    assert plan.smem <= 232448      # the H100's shared memory a block
+    # 5-D maps over q (contiguous) and v (a column view of fused qkv)
+    s = grid[0] * grid[1] * grid[2]
+    for rs in (24 * 128, 3 * 24 * 128):
+        dims, strides, box = sta.sta_grid_map(grid, plan, 2, 24 * 128, rs,
+                                              s * rs, 2)
+        assert dims == (24 * 128, grid[2], grid[1], grid[0], 2)
+        assert strides == (2 * rs, 2 * rs * grid[2],
+                           2 * rs * grid[2] * grid[1], 2 * s * rs)
+        assert all(x % 16 == 0 and x < 2 ** 40 for x in strides)
+        assert box[0] * 2 == 128 and box[1] * box[2] * box[3] == plan.rows
+        assert max(box) <= 256
+
+
+@pytest.mark.parametrize("tile,window,d,match", [
+    ((2, 4, 4), (3, 3, 3), 128, "32 tokens"),
+    ((3, 8, 8), (3, 3, 3), 128, "192 tokens"),
+    ((1, 16, 24), (3, 3, 3), 128, "planes"),
+    ((4, 8, 8), (2, 3, 3), 128, "odd"),
+    ((4, 8, 8), (3, 3, 3), 32, "head_dim"),
+])
+def test_sta_direct_gate_rejects(tile, window, d, match):
+    """Outside its gate B4 raises (on the card; the CPU runs the plain
+    version whatever the tile)."""
+    assert match in sta.sta_direct_gate(tile, window, d)
+    with pytest.raises(ValueError, match=match):
+        sta.plan_sta_direct(1, 2, d, (8, 16, 16), tile, window, 8)
+
+
+@pytest.mark.parametrize("grid,tile,window", [
+    ((5, 9, 13), (2, 4, 8), (3, 3, 3)),
+    ((4, 8, 16), (2, 4, 8), (1, 3, 3)),
+    ((5, 17, 30), (4, 8, 8), (3, 3, 3)),
+    ((17, 34, 60), (4, 8, 8), (3, 3, 3)),
+])
+def test_sta_walk_covers_the_valid_pairs(grid, tile, window):
+    """The kernel's walk: every block's valid query rows times the valid
+    keys of its chunks, plus the text, is the exact pair count of the STA
+    function; no key is visited twice; an interior 540p tile takes 27 tiles
+    x 2 boxes."""
+    plan = sta.plan_sta_direct(1, 1, 128, grid, tile, window, 7)
+    pairs, n_tiles = 0, plan.blocks[0] // plan.subs
+    for qt in range(n_tiles):
+        keys = [sta.sta_box_tokens(grid, tile, plan, kt, sub)
+                for chunk in sta.sta_walk(grid, tile, window, plan, qt)
+                for kt, sub in chunk]
+        keys = np.concatenate(keys)
+        keys = keys[keys >= 0]
+        assert np.unique(keys).size == keys.size
+        rows = sum(int((sta.sta_box_tokens(grid, tile, plan, qt, sub)
+                        >= 0).sum()) for sub in range(plan.subs))
+        pairs += rows * (keys.size + 7)
+    assert pairs == sta.sta_pair_count(grid, tile, window, 7)
+    if grid == (17, 34, 60):
+        chunks = sta.sta_walk(grid, tile, window, plan, (1 * 5 + 2) * 8 + 3)
+        assert len(chunks) == 54 and all(len(c) == 1 for c in chunks)
+
+
+# the CUDA tests' STA_CASES (grid, tile, window, text keys, valid text keys
+# of batch 1) at small widths
+EMULATED = [((5, 9, 13), (2, 4, 8), (3, 3, 3), 37, 20),
+            ((4, 8, 16), (2, 4, 8), (1, 3, 3), 160, 5),
+            ((5, 17, 30), (4, 8, 8), (3, 3, 3), 256, 40)]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("case", EMULATED, ids=["ragged", "masked_txt",
+                                                "main_tile"])
+def test_sta_direct_emulation_matches_plain(case, quant):
+    """B4's walk with zero-filled boxes and the geometry bias
+    (sta_direct_emulate) is the function of sta_attention_plain, with and
+    without an image key bias; fp32, sums in another order."""
+    grid, tile, window, lt, txt_valid = case
+    rng = np.random.default_rng(11)
+    b, h, d = 2, 2, 64
+    s = grid[0] * grid[1] * grid[2]
+    img = [torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(
+        np.float32) * 0.5) for _ in range(3)]
+    tk, tv = (torch.from_numpy(rng.standard_normal((b, lt, h, d)).astype(
+        np.float32) * 0.5) for _ in range(2))
+    tb = torch.zeros(b, 1, 1, lt)
+    tb[1, ..., txt_valid:] = NEG_INF
+    ikb = torch.from_numpy(np.where(rng.random((b, s)) > 0.2, 0.0, NEG_INF)
+                           .astype(np.float32))
+    c = torch.full((b, h), 3.0)
+    for kb in (None, ikb):
+        got = sta.sta_direct_emulate(*img, tk, tv, tb, c, grid, tile, window,
+                                     d ** -0.5, kb, quant)
+        want = sta.sta_attention_plain(*img, tk, tv, tb, grid, tile, window,
+                                       d ** -0.5, c, kb, qk_int8=quant)
+        _close(got, want)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_sta_direct_emulation_matches_jax_kernel(quant):
+    """The walk against JAX's _sta_nomax_direct_kernel in interpret mode
+    (sta_joint_attention's static direct arm) on a ragged grid of 64-token
+    tiles, whose key chunks pair two tiles."""
+    grid, tile, window, lt, _ = EMULATED[0]
+    img, txt, tb, ikb = _inputs(grid, seed=12, d=64, lt=lt, key_bias=True)
+    bound = 2.0
+    kw = dict(grid=grid, tile=tile, window=window, bound_mode="static",
+              qk_int8=quant)
+    want, _ = jsta.sta_joint_attention(*_jax(*img, *txt, tb), **kw,
+                                       img_key_bias=_jax(ikb)[0],
+                                       score_bound=jnp.float32(bound))
+    d = img[0].shape[-1]
+    c = torch.full((2, 2), bound * (int8_bound_inflation(d) if quant
+                                    else 1.0))
+    iq, ik, iv, _, tk, tv, tbt, kb = _torch(*img, *txt, tb, ikb)
+    got = sta.sta_direct_emulate(iq, ik, iv, tk, tv, tbt, c, grid, tile,
+                                 window, d ** -0.5, kb, quant)
+    _close(got, want)
+
+
+def test_sta_tile_codes_plain_is_tile_codes():
+    """B4q's pre-pass layout: the row-major codes, moved back to tile-major
+    order with the rows past the grid zero, are tile_codes' bit for bit,
+    and the scales are its scales; on CPU tensors the wrapper is the plain
+    version."""
+    grid, tile, window = (5, 9, 13), (2, 4, 8), (3, 3, 3)
+    rng = np.random.default_rng(13)
+    q, k = (torch.from_numpy(rng.standard_normal((2, 585, 3, 64)).astype(
+        np.float32)).bfloat16() for _ in range(2))
+    q8, k8, sq, sk = sta.sta_tile_codes(q, k, grid, tile)
+    plan = sta.tile_plan(grid, tile, window, 0)
+    for x, codes, scales in ((q, q8, sq), (k, k8, sk)):
+        want, want_sc = sta.tile_codes(
+            sta._permute_tokens(x, grid, tile, plan), 64)
+        got = sta._permute_tokens(codes.reshape(2, 585, 3, 64), grid, tile,
+                                  plan)
+        assert codes.dtype == torch.int8 and codes.shape == (2, 585, 192)
+        assert torch.equal(got.float(), want.reshape(got.shape))
+        assert torch.equal(scales, want_sc.permute(0, 2, 1))
