@@ -1,44 +1,27 @@
 // Sliding-tile attention (STA) forward for the image queries of the MM-DiT
-// joint [img | txt] sequence: the permuted kernels and the ring kernel.
-// (The direct kernel B4 and its int8 arm are sta_direct.cu.)
+// joint [img | txt] sequence: the permuted kernels with a static offset.
+// (The direct kernels B4, B4q and the ring kernel B10 are sta_direct.cu, the
+// permuted running-max kernel B7 sta_permuted.cu.)
 //
-// Replaces four Pallas TPU kernels of the JAX package's ops/sta.py, as one
-// source with template flags:
-//   DIRECT = false, RUNNING = false: _sta_nomax_fused_kernel and
-//     _sta_nomax_kernel (the same function; the TPU masked or skipped the
-//     border slots, this kernel skips them). q is tile-major [B, S_pad,
-//     H*D]; the keys are kcat = [image tiles | text padded to whole tiles],
-//     the text blocks being extra slots n_tiles + j of the neighbour table;
-//     kb [B, S_pad + txt_pad] carries the padding mask and the text bias.
-//   DIRECT = false, RUNNING = true: _sta_kernel, the same with a running
-//     row max instead of the static offset C.
-//   QUANT = true (with DIRECT = RUNNING = false): the `quant=True` arm of
-//     the first, int8 Q.K^T on mma.sync m16n8k32. One symmetric scale per
-//     (b, head, query tile) and per (b, head, key tile), scale =
-//     max(max|x|, 1e-6) / 127, codes round(x * (1/scale)) with ties to even;
-//     the text blocks are key tiles like any other and are quantized. A key
-//     tile's scale does not depend on the query tile, so tile_scales_kernel
-//     computes every scale once per launch and the attention kernel reads
-//     them. s = s32 * (sq * sk * scale).
-//   DIRECT = RING = true (RUNNING = QUANT = false): _sta_ring_kernel. q is
-//     the row-major [B, T*Hg*Wg, H*D] token grid of a (T, Hg, Wg) patch grid
-//     (a tile's tokens addressed through their (t, h, w) coordinates), the
-//     text keys [B, Lt, H*D] (bias tb [B, Lt]) are folded after the image
-//     slots, and the image keys and values are kp/vp [B, S_pad, H*D],
-//     zero-padded in w-major tile order (tile s = (c*gt + a)*gh + b), so the
-//     window column c of query tile (a, bh) is wt contiguous runs of wh tiles
-//     from tile row sb = clamp(bh - wh/2, 0, gh - wh). There is no neighbour
-//     table and no key-bias operand: slot (column, run, tile of the run) and
-//     key validity (the column and run exist, |b - bh| <= wh/2, the token
-//     lies inside the grid) are computed here from the geometry, as the
-//     TPU's col_bias. The TPU's VMEM ring of ww + 1 columns does not fit in
-//     shared memory (one head's K column at (4, 8, 8) / (3, 3, 3) is 2,304
-//     keys x 128 x 2 B = 590 KB): this kernel reads the runs through L2,
-//     with the query tile's column innermost in the launch order, so the
-//     query tiles that share two of their three columns run together.
-// The softmax is the flash kernels': static p = exp(s*scale + (kb - C)) or
-// running online softmax, then out = acc / max(l, 1e-37). Rows of padding
-// tokens are stored as zeros (permuted layout) or not stored (ring).
+// Replaces three Pallas TPU kernels of the JAX package's ops/sta.py, as one
+// source with a template flag:
+//   QUANT = false: _sta_nomax_fused_kernel and _sta_nomax_kernel (the same
+//     function; the TPU masked or skipped the border slots, this kernel
+//     skips them). q is tile-major [B, S_pad, H*D]; the keys are kcat =
+//     [image tiles | text padded to whole tiles], the text blocks being
+//     extra slots n_tiles + j of the neighbour table; kb [B, S_pad +
+//     txt_pad] carries the padding mask and the text bias.
+//   QUANT = true: the `quant=True` arm of the first, int8 Q.K^T on mma.sync
+//     m16n8k32. One symmetric scale per (b, head, query tile) and per (b,
+//     head, key tile), scale = max(max|x|, 1e-6) / 127, codes round(x *
+//     (1/scale)) with ties to even; the text blocks are key tiles like any
+//     other and are quantized. A key tile's scale does not depend on the
+//     query tile, so tile_scales_kernel computes every scale once per
+//     launch and the attention kernel reads them. s = s32 * (sq * sk *
+//     scale).
+// The softmax is the static flash kernels': p = exp(s*scale + (kb - C)),
+// then out = acc / max(l, 1e-37). Rows of padding tokens are stored as
+// zeros.
 //
 // Neighbour table nbr [n_tiles, n_slots] int32: key tile (or text block)
 // of each slot, -1 = none. Every slot is tested; the TPU's forward-filled
@@ -58,8 +41,7 @@
 // fragments; K and V^T go through padded shared memory; S and P never leave
 // registers. Positions beyond the grid are masked here (no zero-padded copy
 // of K/V), and a chunk with no valid key, or a 64-query block with no valid
-// query, is skipped whole. Not yet done: sta_direct.cu's wgmma + TMA ring,
-// K/V reuse across the neighbouring query tiles that share them.
+// query, is skipped whole. Not yet done: sta_permuted.cu's wgmma + TMA ring.
 #include "flash_tile.cuh"
 
 namespace {
@@ -73,7 +55,6 @@ struct Geometry {
   int T, Hg, Wg;   // token grid
   int tt, th, tw;  // tile
   int nt, nh, nw;  // tiles along t, h and w
-  int wt, wh, ww;  // window in tiles (RING)
 };
 
 // Row-major token index of flat position f of tile `tile`, or -1 when the
@@ -87,26 +68,6 @@ __device__ __forceinline__ int token_of(const Geometry& g, int tile, int f) {
   const int w = cc * g.tw + f % g.tw;
   if (t >= g.T || h >= g.Hg || w >= g.Wg) return -1;
   return (t * g.Hg + h) * g.Wg + w;
-}
-
-// RING: the w-major key tile of slot s = (dc*wt + da)*wh + r of row-major
-// query tile `tile` (window column dc, run da, tile r of the run), or -1 when
-// the column or run lies beyond the grid or the tile is outside the
-// h-window. n_slots = (2*(ww/2) + 1) * wt * wh.
-__device__ __forceinline__ int ring_tile(const Geometry& g, int tile, int s) {
-  const int a = tile / (g.nh * g.nw);
-  const int bh = (tile / g.nw) % g.nh;
-  const int cc = tile % g.nw + s / (g.wt * g.wh) - g.ww / 2;
-  const int aa = a + (s / g.wh) % g.wt - g.wt / 2;
-  const int bb = min(max(bh - g.wh / 2, 0), g.nh - g.wh) + s % g.wh;
-  if (cc < 0 || cc >= g.nw || aa < 0 || aa >= g.nt || abs(bb - bh) > g.wh / 2)
-    return -1;
-  return (cc * g.nt + aa) * g.nh + bb;
-}
-
-// The row-major index of w-major tile s.
-__device__ __forceinline__ int row_major_tile(const Geometry& g, int s) {
-  return ((s / g.nh) % g.nt * g.nh + s % g.nh) * g.nw + s / (g.nh * g.nt);
 }
 
 // One int8 scale per (b, h, tile) of tile-major x: max(max|x|, 1e-6) / 127
@@ -130,23 +91,17 @@ tile_scales_kernel(const T* __restrict__ x, long long bs, long long rs,
     out[((long long)b * H + h) * gridDim.x + tile] = fmaxf(m, 1e-6f) / 127.f;
 }
 
-template <typename T, int D, bool DIRECT, bool RUNNING, bool QUANT, bool RING>
+template <typename T, int D, bool QUANT>
 __global__ void __launch_bounds__(THREADS)
 sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, T* __restrict__ o,
-               const T* __restrict__ tk, const T* __restrict__ tv,
-               const float* __restrict__ kb, const float* __restrict__ tb,
-               const float* __restrict__ cb, const int* __restrict__ nbr,
-               const float* __restrict__ sq_t, const float* __restrict__ sk_t,
-               Geometry geo, int H, int n_slots, int Lt, int n_ktiles,
-               long long q_bs,
-               long long q_rs, long long k_bs, long long k_rs,
-               long long v_bs, long long v_rs, long long tk_bs,
-               long long tk_rs, long long tv_bs, long long tv_rs,
-               long long o_bs, long long o_rs, long long kb_bs,
-               float scale) {
-  static_assert(DIRECT == RING && !(QUANT && DIRECT) && !(RUNNING && DIRECT),
-                "the row-major layout is the ring arm's alone");
+               const float* __restrict__ kb, const float* __restrict__ cb,
+               const int* __restrict__ nbr, const float* __restrict__ sq_t,
+               const float* __restrict__ sk_t, Geometry geo, int H,
+               int n_slots, int n_ktiles, long long q_bs, long long q_rs,
+               long long k_bs, long long k_rs, long long v_bs,
+               long long v_rs, long long o_bs, long long o_rs,
+               long long kb_bs, float scale) {
   constexpr int DP = D + 8;   // padded rows: conflict-free fragment loads
   constexpr int CH = D / 8;   // 16-byte chunks per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -157,7 +112,7 @@ sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int RP = hv::s8_row<D>();
   int8_t* Q8 = reinterpret_cast<int8_t*>(Vt + D * (BK + 8));
   int8_t* K8 = reinterpret_cast<int8_t*>(Ks);
-  __shared__ int q_row[BQ];     // memory row of each query (-1: none)
+  __shared__ int q_row[BQ];     // memory row of each query
   __shared__ int q_ok[BQ];      // the query token exists
   __shared__ int k_row[BK];     // memory row of each key of the chunk
   __shared__ float k_bias[BK];  // its additive bias (NEG_INF: masked)
@@ -173,16 +128,14 @@ sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   int valid = 0;
   if (tid < BQ) {
-    const int tok = token_of(geo, qi, f0 + tid);
-    valid = tok >= 0;
+    valid = token_of(geo, qi, f0 + tid) >= 0;
     q_ok[tid] = valid;
-    q_row[tid] = DIRECT ? tok : qi * block + f0 + tid;
+    q_row[tid] = qi * block + f0 + tid;
   }
   if (!__syncthreads_or(valid)) {  // no query of these 64 rows exists
-    if (!DIRECT)
-      for (int i = tid; i < BQ * CH; i += THREADS)
-        *reinterpret_cast<uint4*>(oh + q_row[i / CH] * o_rs +
-                                  (i % CH) * 8) = zero4;
+    for (int i = tid; i < BQ * CH; i += THREADS)
+      *reinterpret_cast<uint4*>(oh + q_row[i / CH] * o_rs + (i % CH) * 8) =
+          zero4;
     return;
   }
 
@@ -214,51 +167,33 @@ sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     hv::load_q<T, D>(Qs, r0, t, qa);
   }
 
-  const float c_off = RUNNING ? 0.f : cb[b * H + h];
+  const float c_off = cb[b * H + h];
   float acc[D / 8][4];
 #pragma unroll
   for (int dn = 0; dn < D / 8; ++dn)
     acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  float m_r[2] = {NEG_INF, NEG_INF};  // running max, rows r0 and r0 + 8
+  float m_r[2] = {NEG_INF, NEG_INF};  // unused by the static softmax
   float l_r[2] = {0.f, 0.f};          // this thread's part of the row sums
 
-  // Chunks: k_subs per image slot, then (DIRECT) the text keys.
-  const int n_img = n_slots * k_subs;
-  const int n_chunks = n_img + (DIRECT ? (Lt + BK - 1) / BK : 0);
-  const int* nbr_q = RING ? nullptr : nbr + (long long)qi * n_slots;
+  // Chunks: k_subs per slot.
+  const int n_chunks = n_slots * k_subs;
+  const int* nbr_q = nbr + (long long)qi * n_slots;
   for (int ci = 0; ci < n_chunks; ++ci) {
-    const bool img = ci < n_img;
-    const int nb = !img ? 0
-                   : RING ? ring_tile(geo, qi, ci / k_subs)
-                          : nbr_q[ci / k_subs];
+    const int nb = nbr_q[ci / k_subs];
     if (nb < 0) continue;  // uniform across the block
     __syncthreads();       // every warp is done with the previous chunk
     int any = 0;
     if (tid < BK) {
-      int row;
-      float bias;
-      if (!img) {
-        const int j = (ci - n_img) * BK + tid;
-        row = j < Lt ? j : -1;
-        bias = row < 0 ? NEG_INF : (tb ? tb[(long long)b * Lt + j] : 0.f);
-      } else if (RING) {  // w-major rows; padding tokens are masked
-        const int f = (ci % k_subs) * BK + tid;
-        row = token_of(geo, row_major_tile(geo, nb), f) < 0 ? -1
-                                                             : nb * block + f;
-        bias = row < 0 ? NEG_INF : 0.f;
-      } else {
-        row = nb * block + (ci % k_subs) * BK + tid;
-        bias = kb[b * kb_bs + row];
-      }
+      const int row = nb * block + (ci % k_subs) * BK + tid;
+      const float bias = kb[b * kb_bs + row];
       any = bias > 0.5f * NEG_INF;
       k_row[tid] = any ? row : -1;  // masked keys read as zero K/V
       k_bias[tid] = any ? bias : NEG_INF;
     }
     if (!__syncthreads_or(any)) continue;  // no valid key in this chunk
 
-    const T* kh = (img ? k + b * k_bs : tk + b * tk_bs) + (long long)h * D;
-    const T* vh = (img ? v + b * v_bs : tv + b * tv_bs) + (long long)h * D;
-    const long long krs = img ? k_rs : tk_rs, vrs = img ? v_rs : tv_rs;
+    const T* kh = k + b * k_bs + (long long)h * D;
+    const T* vh = v + b * v_bs + (long long)h * D;
     // int8 chunk: any key tile of the permuted layout
     const float sk = QUANT ? sk_t[bh * n_ktiles + nb] : 0.f;
     const float inv_k = QUANT ? 1.f / sk : 0.f;
@@ -267,8 +202,8 @@ sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       uint4 kv = zero4, vv = zero4;
       const int row = k_row[r];
       if (row >= 0) {
-        kv = *reinterpret_cast<const uint4*>(kh + row * krs + c);
-        vv = *reinterpret_cast<const uint4*>(vh + row * vrs + c);
+        kv = *reinterpret_cast<const uint4*>(kh + row * k_rs + c);
+        vv = *reinterpret_cast<const uint4*>(vh + row * v_rs + c);
       }
       if (QUANT) {
         *reinterpret_cast<uint2*>(K8 + r * RP + c) =
@@ -288,11 +223,11 @@ sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if constexpr (QUANT) {
       float s[BK / 8][4];
       hv::qk_chunk_s8<D>(qa8, K8, s, g, t);
-      hv::fold_scores<T, D, RUNNING>(s, Vt, bias, sq * sk * scale, c_off,
-                                     acc, m_r, l_r, g, t);
+      hv::fold_scores<T, D, false>(s, Vt, bias, sq * sk * scale, c_off, acc,
+                                   m_r, l_r, g, t);
     } else {
-      hv::fold_chunk<T, D, RUNNING>(qa, Ks, Vt, bias, scale, c_off, acc, m_r,
-                                    l_r, g, t);
+      hv::fold_chunk<T, D, false>(qa, Ks, Vt, bias, scale, c_off, acc, m_r,
+                                  l_r, g, t);
     }
   }
 
@@ -301,8 +236,7 @@ sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float l = hv::quad_sum(l_r[i]);
     const int r = r0 + 8 * i;
     const int row = q_row[r];
-    if (row < 0) continue;
-    // a missing query row (permuted layout) is stored as zeros
+    // a missing query row is stored as zeros
     const float inv = q_ok[r] ? 1.f / fmaxf(l, 1e-37f) : 0.f;
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn)
@@ -314,19 +248,17 @@ sta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 struct Args {
   const void *q, *k, *v;
   void* o;
-  const void *tk, *tv;
-  const float *kb, *tb, *c;
+  const float *kb, *c;
   const int* nbr;
   float *sq, *sk;
-  int B, H, n_slots, Lt, n_tiles, n_ktiles;
+  int B, H, n_slots, n_tiles, n_ktiles;
   Geometry geo;
-  long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, tk_bs, tk_rs, tv_bs, tv_rs,
-      o_bs, o_rs, kb_bs;
+  long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, kb_bs;
   float scale;
   cudaStream_t stream;
 };
 
-template <typename T, int D, bool DIRECT, bool RUNNING, bool QUANT, bool RING>
+template <typename T, int D, bool QUANT>
 cudaError_t launch(const Args& a) {
   if (QUANT) {
     tile_scales_kernel<T, D>
@@ -338,7 +270,7 @@ cudaError_t launch(const Args& a) {
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  auto kern = sta_fwd_kernel<T, D, DIRECT, RUNNING, QUANT, RING>;
+  auto kern = sta_fwd_kernel<T, D, QUANT>;
   const int smem = hv::tile_smem_bytes<T, D>()
                    + (QUANT ? BQ * hv::s8_row<D>() : 0);
   cudaError_t err = cudaFuncSetAttribute(
@@ -348,96 +280,50 @@ cudaError_t launch(const Args& a) {
   dim3 grid(a.n_tiles * (block / BQ), a.H, a.B);
   kern<<<grid, THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.o),
-      static_cast<const T*>(a.tk), static_cast<const T*>(a.tv), a.kb, a.tb,
-      a.c, a.nbr, a.sq, a.sk, a.geo, a.H, a.n_slots, a.Lt, a.n_ktiles,
-      a.q_bs, a.q_rs, a.k_bs, a.k_rs, a.v_bs, a.v_rs, a.tk_bs, a.tk_rs,
-      a.tv_bs, a.tv_rs, a.o_bs, a.o_rs, a.kb_bs, a.scale);
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.kb, a.c, a.nbr,
+      a.sq, a.sk, a.geo, a.H, a.n_slots, a.n_ktiles, a.q_bs, a.q_rs, a.k_bs,
+      a.k_rs, a.v_bs, a.v_rs, a.o_bs, a.o_rs, a.kb_bs, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, bool DIRECT, bool RUNNING, bool QUANT,
-          bool RING = false>
+template <typename T, bool QUANT>
 cudaError_t dispatch_d(int head_dim, const Args& a) {
-  if (head_dim == 128) return launch<T, 128, DIRECT, RUNNING, QUANT, RING>(a);
-  if (head_dim == 64) return launch<T, 64, DIRECT, RUNNING, QUANT, RING>(a);
-  return cudaErrorInvalidValue;
-}
-
-template <typename T>
-cudaError_t dispatch_mode(int running, int quant, int head_dim,
-                          const Args& a) {
-  if (!running && !quant)
-    return dispatch_d<T, false, false, false>(head_dim, a);
-  if (!running && quant)
-    return dispatch_d<T, false, false, true>(head_dim, a);
-  if (running && !quant)
-    return dispatch_d<T, false, true, false>(head_dim, a);
+  if (head_dim == 128) return launch<T, 128, QUANT>(a);
+  if (head_dim == 64) return launch<T, 64, QUANT>(a);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The permuted kernels. dtype: 0 = bf16, 1 = fp16. q tile-major [B, S_pad
-// rows], k/v the kcat/vcat keys [B, n_ktiles * tile tokens rows], o [B,
-// S_pad rows], each row H*D wide (batch and row strides in elements); kb
-// [B, keys] fp32. running: 1 = running max, 0 = static offset c [B, H].
-// quant: 1 = int8 Q.K^T (static offset only); sq [B, H, n_tiles] and sk
-// [B, H, n_ktiles] fp32 receive the tile scales. Tile token count a
-// multiple of 64. Returns the cudaError_t of the launches.
+// The static permuted kernels. dtype: 0 = bf16, 1 = fp16. q tile-major [B,
+// S_pad rows], k/v the kcat/vcat keys [B, n_ktiles * tile tokens rows], o
+// [B, S_pad rows], each row H*D wide (batch and row strides in elements);
+// kb [B, keys] fp32; c [B, H] fp32 the static offset. quant: 1 = int8
+// Q.K^T; sq [B, H, n_tiles] and sk [B, H, n_ktiles] fp32 receive the tile
+// scales. Tile token count a multiple of 64. Returns the cudaError_t of
+// the launches.
 extern "C" int hv_sta_attention_fwd(
-    int dtype, int running, int quant, int head_dim, const void* q,
-    const void* k, const void* v, void* o, const float* kb, const float* c,
-    const int* nbr, float* sq, float* sk, int B, int H, int n_slots,
-    int n_ktiles, int T, int Hg, int Wg, int tt, int th, int tw,
-    long long q_bs, long long q_rs, long long k_bs, long long k_rs,
-    long long v_bs, long long v_rs, long long o_bs, long long o_rs,
-    long long kb_bs, float scale, void* stream) {
+    int dtype, int quant, int head_dim, const void* q, const void* k,
+    const void* v, void* o, const float* kb, const float* c, const int* nbr,
+    float* sq, float* sk, int B, int H, int n_slots, int n_ktiles, int T,
+    int Hg, int Wg, int tt, int th, int tw, long long q_bs, long long q_rs,
+    long long k_bs, long long k_rs, long long v_bs, long long v_rs,
+    long long o_bs, long long o_rs, long long kb_bs, float scale,
+    void* stream) {
   const int nt = (T + tt - 1) / tt, nh = (Hg + th - 1) / th,
             nw = (Wg + tw - 1) / tw;
-  if ((tt * th * tw) % BQ != 0 || kb == nullptr) return cudaErrorInvalidValue;
-  if (!running && c == nullptr) return cudaErrorInvalidValue;
-  if (quant && (running || sq == nullptr || sk == nullptr))
+  if ((tt * th * tw) % BQ != 0 || kb == nullptr || c == nullptr)
     return cudaErrorInvalidValue;
-  const Args a{q, k, v, o, nullptr, nullptr, kb, nullptr, c, nbr, sq, sk, B,
-               H, n_slots, 0, nt * nh * nw, n_ktiles,
-               Geometry{T, Hg, Wg, tt, th, tw, nt, nh, nw, 0, 0, 0}, q_bs,
-               q_rs, k_bs, k_rs, v_bs, v_rs, 0, 0, 0, 0, o_bs, o_rs, kb_bs,
-               scale, static_cast<cudaStream_t>(stream)};
+  if (quant && (sq == nullptr || sk == nullptr)) return cudaErrorInvalidValue;
+  const Args a{q, k, v, o, kb, c, nbr, sq, sk, B, H, n_slots, nt * nh * nw,
+               n_ktiles, Geometry{T, Hg, Wg, tt, th, tw, nt, nh, nw}, q_bs,
+               q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, kb_bs, scale,
+               static_cast<cudaStream_t>(stream)};
   if (dtype == 0)
-    return dispatch_mode<__nv_bfloat16>(running, quant, head_dim, a);
-  if (dtype == 1) return dispatch_mode<__half>(running, quant, head_dim, a);
-  return cudaErrorInvalidValue;
-}
-
-// The RING arm (B10). dtype: 0 = bf16, 1 = fp16. q [B, T*Hg*Wg rows]
-// row-major, kp/vp [B, S_pad rows] w-major, o [B, T*Hg*Wg rows], tk/tv
-// [B, Lt rows], each row H*D wide with the given batch and row strides (in
-// elements); tb [B, Lt] and c [B, H] fp32. The tile's token count must be a
-// multiple of 64, gh >= wh and ww >= 2 (the ring gate). Returns the
-// cudaError_t of the launch.
-extern "C" int hv_sta_ring_fwd(
-    int dtype, int head_dim, const void* q, const void* kp, const void* vp,
-    void* o, const void* tk, const void* tv, const float* tb, const float* c,
-    int B, int H, int Lt, int T, int Hg, int Wg, int tt, int th, int tw,
-    int wt, int wh, int ww, long long q_bs, long long q_rs, long long k_bs,
-    long long k_rs, long long v_bs, long long v_rs, long long tk_bs,
-    long long tk_rs, long long tv_bs, long long tv_rs, long long o_bs,
-    long long o_rs, float scale, void* stream) {
-  const int nt = (T + tt - 1) / tt, nh = (Hg + th - 1) / th,
-            nw = (Wg + tw - 1) / tw;
-  if ((tt * th * tw) % BQ != 0 || nh < wh || ww < 2 || tb == nullptr ||
-      c == nullptr)
-    return cudaErrorInvalidValue;
-  const Args a{q, kp, vp, o, tk, tv, nullptr, tb, c, nullptr, nullptr,
-               nullptr, B, H, (2 * (ww / 2) + 1) * wt * wh, Lt,
-               nt * nh * nw, 0,
-               Geometry{T, Hg, Wg, tt, th, tw, nt, nh, nw, wt, wh, ww}, q_bs,
-               q_rs, k_bs, k_rs, v_bs, v_rs, tk_bs, tk_rs, tv_bs, tv_rs,
-               o_bs, o_rs, 0, scale, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0)
-    return dispatch_d<__nv_bfloat16, true, false, false, true>(head_dim, a);
+    return quant ? dispatch_d<__nv_bfloat16, true>(head_dim, a)
+                 : dispatch_d<__nv_bfloat16, false>(head_dim, a);
   if (dtype == 1)
-    return dispatch_d<__half, true, false, false, true>(head_dim, a);
+    return quant ? dispatch_d<__half, true>(head_dim, a)
+                 : dispatch_d<__half, false>(head_dim, a);
   return cudaErrorInvalidValue;
 }

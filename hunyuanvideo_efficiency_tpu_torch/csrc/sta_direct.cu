@@ -1,9 +1,10 @@
 // Sliding-tile attention (STA) forward for the image queries of the MM-DiT
-// joint [img | txt] sequence, read and written in the row-major token grid,
-// for Hopper (sm_90a): wgmma products fed by a TMA ring.
+// joint [img | txt] sequence, queries read and written in the row-major
+// token grid, for Hopper (sm_90a): wgmma products fed by a TMA ring.
 //
-// Replaces ops/sta.py:_sta_nomax_direct_kernel (:602) of the JAX package,
-// both of its arms, as one source with a template flag:
+// Replaces two kernels of the JAX package's ops/sta.py, as one source with
+// template flags:
+//   _sta_nomax_direct_kernel (:602), both of its arms:
 //   QUANT = false (B4): the static per-(batch, head) exponent offset C,
 //     p = exp(s*scale + bias - C), out = acc / max(l, 1e-37), Q.K^T in the
 //     input type with fp32 accumulation;
@@ -11,7 +12,15 @@
 //     keys' scores s = s32(Q8.K8^T) * (sq * sk * scale), one symmetric scale
 //     per (batch, head, tile) of q and of k, scale = max(max|x|, 1e-6) / 127
 //     over the tile's tokens inside the grid, codes round(x * (1/scale))
-//     with ties to even; the text keys' scores in the input type.
+//     with ties to even; the text keys' scores in the input type;
+//   RING = true (B10, _sta_ring_kernel :950): B4's function with the image
+//     keys and values read from kp/vp [B, S_pad, H*D], zero-padded in w-major
+//     tile order (tile s = (c*nt + a)*nh + b, each tile's tokens in (t, h, w)
+//     order), in the ring kernel's slot order: window column c, then run a,
+//     then the wh tiles of the run from sb = clamp(qb - wh/2, 0, nh - wh),
+//     those with |b - qb| > wh/2 skipped (for an odd window the tile set is
+//     B4's). No neighbour table and no image key bias: a key's validity comes
+//     from the geometry, as the TPU's col_bias.
 // q/k/v are [B, T*Hg*Wg, H*D], the row-major tokens of a (T, Hg, Wg) patch
 // grid cut into (tt, th, tw) tiles (row and batch strides are arguments; v
 // may be a column view of a fused projection). A query of tile (a, b, c)
@@ -32,28 +41,32 @@
 //     bw, bh, bt, 1). The box lands in shared memory as R rows of 128 bytes
 //     with the 128-byte swizzle, the layout of a 2-D box, so K1's wgmma
 //     descriptors read it unchanged. TMA zero-fills past the grid's edge.
+//     RING: a key box is R contiguous rows of kp/vp, one box of a 3-D map
+//     (H*D columns, S_pad rows, B), its rows in the same order.
 //   * The block is K1's: three warpgroups own one query box (R = 128: two
 //     consumer warpgroups of 64 rows; R = 64: both take the same rows and
 //     the first stores them). Blocks are numbered box, query tile (w
-//     innermost), head, batch, so the blocks in flight share keys in L2.
+//     innermost), head, batch, so the blocks in flight share keys in L2
+//     (RING: the runs of a window column; the TPU's VMEM ring of ww + 1
+//     columns does not fit in 227 KB, one head's column being 590 KB).
 //   * Keys arrive in chunks of 128 (128 / R boxes) through a ring of 3
 //     slots: the live boxes of the window's tiles in tile_plan's slot order
-//     (a box whose first token lies past the grid is skipped), then the text
-//     keys as boxes of a 3-D map, up to the last one not masked (masked keys
-//     add nothing). All threads count the live boxes and find that key at
-//     the start, in parallel. Warp 0 of the producer warpgroup walks the
-//     window by counters (no integer division: measured on the card, a
-//     walk with divisions made the TMA lane the kernel's bottleneck) ahead
-//     of each slot's release and issues TMA, writing each chunk's boxes
-//     beside its slot; warp s + 1 writes slot s's per-key bias from them
-//     (the key bias, the text bias, or -1e30 for a key past the grid, less
-//     C, in log2 units; under QUANT beside each key's factor), as B8's
-//     warps do (flash_int8.cu).
-//   * The consumers run K1's loop: S = Q.K^T by wgmma (SS, K-major; under
-//     QUANT the image chunks on s8 m64n128k32), the static softmax, P packed
-//     to T and P.V by wgmma (RS, V MN-major); chunk j's S is issued with
-//     chunk j-1's P.V, so the softmax runs under a product, and the two
-//     warpgroups take turns to issue (B8's turns).
+//     (RING: ring_plan's), a box whose first token lies past the grid
+//     skipped, then the text keys as boxes of a 3-D map, up to the last one
+//     not masked (masked keys add nothing). All threads count the live boxes
+//     and find that key at the start, in parallel. Warp 0 of the producer
+//     warpgroup walks the window by counters (no integer division: measured
+//     on the card, a walk with divisions made the TMA lane the kernel's
+//     bottleneck) ahead of each slot's release and issues TMA, writing each
+//     chunk's boxes beside its slot; warp s + 1 writes slot s's per-key bias
+//     from them (the key bias, the text bias, or -1e30 for a key past the
+//     grid, less C, in log2 units; under QUANT beside each key's factor), as
+//     B8's warps do (flash_int8.cu).
+//   * The consumers run K1's loop (sta_wg.cuh): S = Q.K^T by wgmma (SS,
+//     K-major; under QUANT the image chunks on s8 m64n128k32), the static
+//     softmax, P packed to T and P.V by wgmma (RS, V MN-major); chunk j's S
+//     is issued with chunk j-1's P.V, so the softmax runs under a product,
+//     and the two warpgroups take turns to issue (B8's turns).
 //   * Rows are stored one by one into the row-major grid, those past the
 //     grid's edge skipped.
 //   * B4q: a pre-pass (tile_codes_kernel) writes q's and k's int8 codes in
@@ -65,7 +78,7 @@
 //     holds 128 keys of int8 K and their V (48 KB) and the text keys come in
 //     chunks of 64: their bf16 K takes the same 16 KB, S is m64n64 and
 //     P.V four k16 steps.
-#include "flash_wg.cuh"
+#include "sta_wg.cuh"
 
 namespace {
 
@@ -136,28 +149,60 @@ struct Walk {
   }
 };
 
+// B10's live image key boxes of query tile (qa, qb, qc), in ring_plan's
+// slot order: window column dc, then run da, then tile r of the run from
+// sb (those outside the h-window skipped), each tile's boxes in turn; a box
+// whose first token lies past the grid holds no key and is skipped.
+// Stepped by counters, without divisions, as Walk; `row` is the box's first
+// row of the w-major kp/vp.
+struct RingWalk {
+  int qa, qb, qc, sb;
+  int dc = 0, da = 0, r = 0;    // the window slot
+  int sub = 0, dt = 0, dh = 0;  // the tile's next box and its first token
+
+  // The next live box and its row; false once the window is done.
+  __device__ __forceinline__ bool next(const Geo& g, Box& box, int& row) {
+    for (; dc <= 2 * (g.ww / 2); ++dc, da = 0) {
+      const int c = qc + dc - g.ww / 2;
+      if (c < 0 || c >= g.nw) continue;
+      for (; da < g.wt; ++da, r = 0) {
+        const int a = qa + da - g.wt / 2;
+        if (a < 0 || a >= g.nt) continue;
+        for (; r < g.wh; ++r, sub = dt = dh = 0) {
+          const int b = sb + r;
+          if (b - qb > g.wh / 2 || qb - b > g.wh / 2) continue;
+          while (sub < g.subs) {
+            box = Box{a * g.tt + dt, b * g.th + dh, c * g.tw};
+            row = (((c * g.nt + a) * g.nh + b) * g.subs + sub) * g.rows;
+            ++sub;
+            dh += g.bh;
+            if (dh >= g.th) dh = 0, dt += g.bt;
+            if (box.t < g.T && box.h < g.Hg) return true;
+          }
+        }
+      }
+    }
+    return false;
+  }
+};
+
 // Shared memory, byte offsets from a 1024-aligned base. A tile of R rows is
 // D/64 TMA boxes of [R][64] T (128-byte rows, swizzled), one after another;
 // int8 codes are [R][D] (one swizzled row a token). Q is laid out for 128
-// rows whatever R is. A ring slot holds a chunk's K and V and per key its
-// bias (QUANT: (factor, bias) pairs as B8 keeps them): 128 keys of bf16 K,
-// or under QUANT 128 keys of int8 K or a text chunk's 64 keys of bf16 K
-// (both BN * D bytes), and V of as many keys.
+// rows whatever R is. Then the ring's slots (StaSlot: K, V, the per-key
+// values) and beside each slot its chunk's boxes.
 template <int D, bool QUANT>
-struct Smem {
-  static constexpr int STAGES = 3;
-  static constexpr int TXT = QUANT ? 64 : BN;  // keys a text chunk
+struct Smem : StaSlot<D, QUANT> {
+  using S = StaSlot<D, QUANT>;
+  static constexpr int STAGES = S::STAGES;
   static constexpr int Q_BYTES = BM * D * 2;
   static constexpr int Q8_BYTES = QUANT ? BM * D : 0;
-  static constexpr int K_BYTES = BN * D * (QUANT ? 1 : 2);
-  static constexpr int V_BYTES = BN * D * 2;
-  static constexpr int W_BYTES = BN * (QUANT ? 8 : 4);
   static constexpr int Q = 0;
   static constexpr int Q8 = Q + Q_BYTES;
   static constexpr int K = Q8 + Q8_BYTES;               // [STAGES] K tiles
-  static constexpr int V = K + STAGES * K_BYTES;        // [STAGES] V tiles
-  static constexpr int W = V + STAGES * V_BYTES;        // [STAGES] biases
-  static constexpr int BOX = W + STAGES * W_BYTES;      // [STAGES] int4[KB]
+  static constexpr int V = K + STAGES * S::K_BYTES;     // [STAGES] V tiles
+  static constexpr int W = V + STAGES * S::V_BYTES;     // [STAGES] biases
+  static constexpr int BOX = W + STAGES * S::W_BYTES;   // [STAGES] int4[KB]
   // barriers: q, full[], empty[], boxed[] (a slot's boxes are written)
   static constexpr int BAR = BOX + STAGES * KB * 16;
   // per warp: live key boxes, last unmasked text key
@@ -166,156 +211,7 @@ struct Smem {
   static constexpr int ALLOC = BYTES + 1024;            // base alignment
 };
 
-// The kinds of a chunk's products: 128 keys of 16-bit K (B4's chunks), of
-// int8 codes (B4q's image chunks), or a text chunk of 64 keys of 16-bit K
-// (B4q's).
-enum class Kind { bf16, s8, txt64 };
-
-// S = Q.K^T for a text chunk of 64 keys: 64 query rows (A at q_addr) x 64
-// keys (B, K-major: D/64 boxes of [64][64]), D/16 k16 steps, one commit
-// group.
-template <typename T, int D>
-__device__ __forceinline__ void issue_qk_n64(float (&sc)[32], uint32_t q_addr,
-                                             uint32_t k_addr) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t qoff = (kk >> 2) * (BM * 128) + (kk & 3) * 32;
-    const uint32_t koff = (kk >> 2) * (64 * 128) + (kk & 3) * 32;
-    wgmma_m64n64k16_ss(sc, desc_sw128(q_addr + qoff, 16, 1024),
-                       desc_sw128(k_addr + koff, 16, 1024), kk > 0, T());
-  }
-  wgmma_commit();
-}
-
-// O += P.V of a chunk: 128 keys (issue_pv) or a text chunk's 64 (V as D/64
-// boxes of [64][64], P in pa[0..3]). One commit group.
-template <Kind K, typename T, int D>
-__device__ __forceinline__ void issue_pv_of(float (&acc)[D / 2],
-                                            const uint32_t (&pa)[BN / 16][4],
-                                            uint32_t v_addr) {
-  if constexpr (K == Kind::txt64) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_tb<D, T>(acc, pa[kk],
-                        desc_sw128(v_addr + kk * 2048, 64 * 128, 1024));
-    wgmma_commit();
-  } else {
-    issue_pv<T, D>(acc, pa, v_addr);
-  }
-}
-
-// A consumer warpgroup's pieces of the chunk loop: where the ring lies,
-// and one chunk's products and softmax. Chunk it's S is issued together
-// with chunk it-1's P.V, so that its softmax runs under that product (K1's
-// loop, flash_attention.cu), and the two warpgroups take turns to issue
-// (B8's turns, flash_wg.cuh), so that one's softmax runs under the other's
-// products.
-template <typename T, int D, bool QUANT>
-struct Consumer {
-  using L = Smem<D, QUANT>;
-  static constexpr int STAGES = L::STAGES;
-  static constexpr int W_FLOATS = L::W_BYTES / 4;
-  uint64_t* full;
-  uint64_t* empty;
-  uint32_t q_addr, q8_addr, k_base, v_base;  // this warpgroup's Q rows
-  const float* w_base;                        // the slots' per-key values
-  float sl2;                                  // scale * log2(e)
-  int t, lane, wgc;
-
-  // S of chunk `it` (kind SK), issued after chunk it-1's P.V (kind PK;
-  // none for the FIRST chunk), then as probabilities packed into pa.
-  // Frees chunk it-1's slot.
-  template <Kind SK, Kind PK, bool FIRST = false>
-  __device__ __forceinline__ void step(int it, float (&acc)[D / 2],
-                                       float (&l_r)[2],
-                                       uint32_t (&pa)[BN / 16][4]) const {
-    const int s = it % STAGES, sp = FIRST ? 0 : (it - 1) % STAGES;
-    const float* w = w_base + s * W_FLOATS;
-    const float4* fb = reinterpret_cast<const float4*>(w);
-    float m_r[2], corr[2];  // the static softmax keeps no running max
-    mbar_wait(&full[s], (it / STAGES) & 1);
-    __syncwarp();  // converged for the .aligned wgmma instructions
-    turn_wait(wgc);
-    wgmma_fence();
-    if constexpr (SK == Kind::txt64) {
-      float x[32];
-      issue_qk_n64<T, D>(x, q_addr, k_base + s * L::K_BYTES);
-      if constexpr (!FIRST)
-        issue_pv_of<PK, T, D>(acc, pa, v_base + sp * L::V_BYTES);
-      turn_pass(wgc);
-      wgmma_wait<FIRST ? 0 : 1>();  // S is done; the P.V may still run
-      fence_regs(x);
-      // static softmax of the chunk's 64 keys: (factor, bias) pairs
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 f = fb[4 * j + t];
-        x[4 * j + 0] = exp2f(fmaf(x[4 * j + 0], f.x, f.z));
-        x[4 * j + 1] = exp2f(fmaf(x[4 * j + 1], f.y, f.w));
-        x[4 * j + 2] = exp2f(fmaf(x[4 * j + 2], f.x, f.z));
-        x[4 * j + 3] = exp2f(fmaf(x[4 * j + 3], f.y, f.w));
-        l_r[0] += x[4 * j + 0] + x[4 * j + 1];
-        l_r[1] += x[4 * j + 2] + x[4 * j + 3];
-      }
-      finish<FIRST>(sp, acc, pa);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        pa[kk][0] = hv::pack2(x[8 * kk + 0], x[8 * kk + 1], T());
-        pa[kk][1] = hv::pack2(x[8 * kk + 2], x[8 * kk + 3], T());
-        pa[kk][2] = hv::pack2(x[8 * kk + 4], x[8 * kk + 5], T());
-        pa[kk][3] = hv::pack2(x[8 * kk + 6], x[8 * kk + 7], T());
-      }
-    } else if constexpr (SK == Kind::s8) {
-      int si[64];
-      float x[64];
-      issue_qk_s8<D>(si, q8_addr, k_base + s * L::K_BYTES);
-      if constexpr (!FIRST)
-        issue_pv_of<PK, T, D>(acc, pa, v_base + sp * L::V_BYTES);
-      turn_pass(wgc);
-      wgmma_wait<FIRST ? 0 : 1>();  // S is done; the P.V may still run
-      fence_regs(si);
-      softmax_tile_s8<false>(si, x, fb, t, m_r, l_r, corr);
-      finish<FIRST>(sp, acc, pa);
-      pack_p<T>(x, pa);
-    } else {
-      float x[64];
-      issue_qk<T, D>(x, q_addr, k_base + s * L::K_BYTES);
-      if constexpr (!FIRST)
-        issue_pv_of<PK, T, D>(acc, pa, v_base + sp * L::V_BYTES);
-      turn_pass(wgc);
-      wgmma_wait<FIRST ? 0 : 1>();  // S is done; the P.V may still run
-      fence_regs(x);
-      softmax_tile<false>(x, w, sl2, t, m_r, l_r, corr);
-      finish<FIRST>(sp, acc, pa);
-      pack_p<T>(x, pa);
-    }
-  }
-
-  // The previous chunk's P.V is done: its slot sp is free.
-  template <bool FIRST>
-  __device__ __forceinline__ void finish(int sp, float (&acc)[D / 2],
-                                         uint32_t (&pa)[BN / 16][4]) const {
-    wgmma_wait<0>();
-    fence_regs(acc);
-    fence_pa(pa);
-    if (!FIRST && lane == 0) mbar_arrive(&empty[sp]);
-  }
-
-  // The last chunk's P.V (kind PK, chunk it).
-  template <Kind PK>
-  __device__ __forceinline__ void last(int it, float (&acc)[D / 2],
-                                       uint32_t (&pa)[BN / 16][4]) const {
-    turn_wait(wgc);
-    wgmma_fence();
-    issue_pv_of<PK, T, D>(acc, pa, v_base + (it % STAGES) * L::V_BYTES);
-    // the second warpgroup's last pass would find no one to wait for it
-    if (wgc == 0) turn_pass(wgc);
-    wgmma_wait<0>();
-    fence_regs(acc);
-    fence_pa(pa);
-  }
-};
-
-template <typename T, int D, bool QUANT>
+template <typename T, int D, bool QUANT, bool RING>
 __global__ void __launch_bounds__(THREADS, 1)
 sta_direct_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
@@ -329,6 +225,7 @@ sta_direct_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const float* __restrict__ sq_t,
                   const float* __restrict__ sk_t, Geo geo, int H,
                   long long o_bs, long long o_rs, float scale) {
+  static_assert(!(QUANT && RING), "the ring arm has no int8 arm");
   using L = Smem<D, QUANT>;
   constexpr int STAGES = L::STAGES;
   const int n_tiles = geo.nt * geo.nh * geo.nw;
@@ -360,16 +257,27 @@ sta_direct_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     fence_barrier_init();
   }
+  // RING: the first tile row of the query tile's h-runs
+  const int sb = min(max(qb - geo.wh / 2, 0), geo.nh - geo.wh);
   // All threads at once: the live key boxes of the window (a thread a
   // (window slot, box)), and the last text key not masked, so that the
   // chunks of masked text keys past it, which add nothing, are not walked.
   int n_live = 0, txt_last = -1;
-  for (int i = threadIdx.x; i < geo.wt * geo.wh * geo.ww * geo.subs;
+  const int n_cols = RING ? 2 * (geo.ww / 2) + 1 : geo.ww;
+  for (int i = threadIdx.x; i < geo.wt * geo.wh * n_cols * geo.subs;
        i += THREADS) {
     const int s = i / geo.subs;
-    const int a = qa + s / (geo.wh * geo.ww) - geo.wt / 2;
-    const int bb = qb + (s / geo.ww) % geo.wh - geo.wh / 2;
-    const int c = qc + s % geo.ww - geo.ww / 2;
+    int a, bb, c;
+    if (RING) {  // slot (column, run, tile of the run)
+      c = qc + s / (geo.wt * geo.wh) - geo.ww / 2;
+      a = qa + (s / geo.wh) % geo.wt - geo.wt / 2;
+      bb = sb + s % geo.wh;
+      if (abs(bb - qb) > geo.wh / 2) continue;
+    } else {     // slot (frame, row, column) of tile_plan
+      a = qa + s / (geo.wh * geo.ww) - geo.wt / 2;
+      bb = qb + (s / geo.ww) % geo.wh - geo.wh / 2;
+      c = qc + s % geo.ww - geo.ww / 2;
+    }
     if (a < 0 || a >= geo.nt || bb < 0 || bb >= geo.nh || c < 0 ||
         c >= geo.nw)
       continue;
@@ -415,7 +323,9 @@ sta_direct_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (QUANT)
           tma_load_5d(smem_u32(sm + L::Q8), &tm_q8, qbar, h * D, qbox.w,
                       qbox.h, qbox.t, b);
-        Walk w{qa, qb, qc};
+        // the window's walk (RING: a box's `tile` is its kp/vp row)
+        std::conditional_t<RING, RingWalk, Walk> w{qa, qb, qc};
+        if constexpr (RING) w.sb = sb;
         for (int it = 0; it < n_chunks; ++it) {
           const int s = it % STAGES;
           // the chunk's boxes (tile -1: a repeated box, masked), walked
@@ -443,17 +353,28 @@ sta_direct_kernel(const __grid_constant__ CUtensorMap tm_q,
             mbar_arrive_expect_tx(bar, BN * D * (QUANT ? 3 : 4));
             for (int u = 0; u < kbc; ++u) {
               const int4 bq = box_s[KB * s + u];
-              if (QUANT)
-                tma_load_5d(kdst + u * geo.rows * D, &tm_k8, bar, h * D,
-                            bq.z, bq.y, bq.x, b);
+              if constexpr (RING) {
+                // a repeated box reads the chunk's first box's rows again
+                const int row = bq.w >= 0 ? bq.w : box_s[KB * s].w;
 #pragma unroll
-              for (int c = 0; c < D / 64; ++c) {
-                const uint32_t off = c * BN * 128 + u * geo.rows * 128;
-                if (!QUANT)
-                  tma_load_5d(kdst + off, &tm_k, bar, h * D + 64 * c, bq.z,
+                for (int c = 0; c < D / 64; ++c) {
+                  const uint32_t off = c * BN * 128 + u * geo.rows * 128;
+                  tma_load_3d(kdst + off, &tm_k, bar, h * D + 64 * c, row, b);
+                  tma_load_3d(vdst + off, &tm_v, bar, h * D + 64 * c, row, b);
+                }
+              } else {
+                if (QUANT)
+                  tma_load_5d(kdst + u * geo.rows * D, &tm_k8, bar, h * D,
+                              bq.z, bq.y, bq.x, b);
+#pragma unroll
+                for (int c = 0; c < D / 64; ++c) {
+                  const uint32_t off = c * BN * 128 + u * geo.rows * 128;
+                  if (!QUANT)
+                    tma_load_5d(kdst + off, &tm_k, bar, h * D + 64 * c, bq.z,
+                                bq.y, bq.x, b);
+                  tma_load_5d(vdst + off, &tm_v, bar, h * D + 64 * c, bq.z,
                               bq.y, bq.x, b);
-                tma_load_5d(vdst + off, &tm_v, bar, h * D + 64 * c, bq.z,
-                            bq.y, bq.x, b);
+                }
               }
             }
           } else {
@@ -550,6 +471,7 @@ sta_direct_kernel(const __grid_constant__ CUtensorMap tm_q,
     float acc[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m_r[2];               // unused: the static softmax keeps no max
     float l_r[2] = {0.f, 0.f};  // this thread's part of the row sums
     uint32_t pa[BN / 16][4];    // P of the previous chunk, T in A layout
 
@@ -558,21 +480,21 @@ sta_direct_kernel(const __grid_constant__ CUtensorMap tm_q,
     // chunk 0 (image keys of the query's own tile) is peeled off, so that
     // every wait in the loops is unconditional
     constexpr Kind IMG = QUANT ? Kind::s8 : Kind::bf16;
-    cs.template step<IMG, IMG, true>(0, acc, l_r, pa);
+    cs.template step<IMG, IMG, true>(0, acc, m_r, l_r, pa);
     if constexpr (QUANT) {
       for (int it = 1; it < n_img; ++it)
-        cs.template step<Kind::s8, Kind::s8>(it, acc, l_r, pa);
+        cs.template step<Kind::s8, Kind::s8>(it, acc, m_r, l_r, pa);
       if (n_img < n_chunks) {
-        cs.template step<Kind::txt64, Kind::s8>(n_img, acc, l_r, pa);
+        cs.template step<Kind::txt64, Kind::s8>(n_img, acc, m_r, l_r, pa);
         for (int it = n_img + 1; it < n_chunks; ++it)
-          cs.template step<Kind::txt64, Kind::txt64>(it, acc, l_r, pa);
+          cs.template step<Kind::txt64, Kind::txt64>(it, acc, m_r, l_r, pa);
         cs.template last<Kind::txt64>(n_chunks - 1, acc, pa);
       } else {
         cs.template last<Kind::s8>(n_chunks - 1, acc, pa);
       }
     } else {
       for (int it = 1; it < n_chunks; ++it)
-        cs.template step<Kind::bf16, Kind::bf16>(it, acc, l_r, pa);
+        cs.template step<Kind::bf16, Kind::bf16>(it, acc, m_r, l_r, pa);
       cs.template last<Kind::bf16>(n_chunks - 1, acc, pa);
     }
 
@@ -658,14 +580,18 @@ tile_codes_kernel(const T* __restrict__ q, long long q_bs, long long q_rs,
 // The geometry of a launch, false outside the kernel's gate: tile tokens a
 // multiple of 64, R = min(128, tokens) dividing them, and an R-token query
 // box of whole (h, w) planes (th*tw divides R) or of whole rows of one plane
-// (R divides th*tw, tw divides R); odd windows. ops/sta.py:plan_sta_direct
-// describes the same on the host.
+// (R divides th*tw, tw divides R); odd windows, or under `ring` (B10) any
+// window with at least wh tile rows and ww >= 2. ops/sta.py:plan_sta_direct
+// and plan_sta_ring describe the same on the host.
 bool make_geo(Geo& g, int T, int Hg, int Wg, int tt, int th, int tw, int wt,
-              int wh, int ww, int Lt) {
+              int wh, int ww, int Lt, bool ring = false) {
   const int block = tt * th * tw, plane = th * tw;
   const int rows = block < BM ? block : BM;
   if (block <= 0 || block % 64 != 0 || block % rows != 0) return false;
-  if (wt % 2 == 0 || wh % 2 == 0 || ww % 2 == 0 || Lt < 0) return false;
+  if (wt < 1 || wh < 1 || ww < 1 || Lt < 0) return false;
+  if (ring ? (Hg + th - 1) / th < wh || ww < 2
+           : wt % 2 == 0 || wh % 2 == 0 || ww % 2 == 0)
+    return false;
   g = Geo{T, Hg, Wg, tt, th, tw, (T + tt - 1) / tt, (Hg + th - 1) / th,
           (Wg + tw - 1) / tw, wt, wh, ww, rows, 1, th, tw, block / rows, Lt};
   if (rows % plane == 0) {
@@ -714,7 +640,7 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D, bool QUANT>
+template <typename T, int D, bool QUANT, bool RING>
 cudaError_t launch(const Args& a) {
   const Geo& g = a.geo;
   const CUtensorMapDataType dt = std::is_same<T, __half>::value
@@ -725,9 +651,17 @@ cudaError_t launch(const Args& a) {
   // without text keys the text maps are never read: encode them over q
   const bool txt = g.Lt > 0;
   CUtensorMap tq, tk, tv, ttk, ttv, tq8, tk8;
+  // RING: kp/vp [B, S_pad, H*D] in w-major tile order, boxes of R rows
+  const int s_pad = g.nt * g.tt * g.nh * g.th * g.nw * g.tw;
   if (!encode_grid(&tq, dt, sw, a.q, 2, cols, a.B, a.q_rs, a.q_bs, g, 64) ||
-      !encode_grid(&tk, dt, sw, a.k, 2, cols, a.B, a.k_rs, a.k_bs, g, 64) ||
-      !encode_grid(&tv, dt, sw, a.v, 2, cols, a.B, a.v_rs, a.v_bs, g, 64) ||
+      !(RING ? encode_rows<T>(&tk, a.k, cols, s_pad, a.B, a.k_rs, a.k_bs,
+                              g.rows)
+             : encode_grid(&tk, dt, sw, a.k, 2, cols, a.B, a.k_rs, a.k_bs, g,
+                           64)) ||
+      !(RING ? encode_rows<T>(&tv, a.v, cols, s_pad, a.B, a.v_rs, a.v_bs,
+                              g.rows)
+             : encode_grid(&tv, dt, sw, a.v, 2, cols, a.B, a.v_rs, a.v_bs, g,
+                           64)) ||
       !encode_rows<T>(&ttk, txt ? a.tk : a.q, cols, txt ? g.Lt : 1, a.B,
                       txt ? a.tk_rs : a.q_rs, txt ? a.tk_bs : a.q_bs,
                       Smem<D, QUANT>::TXT) ||
@@ -748,7 +682,7 @@ cudaError_t launch(const Args& a) {
                      a.B, crs, cbs, g, D))
       return cudaErrorInvalidValue;
   }
-  auto kern = sta_direct_kernel<T, D, QUANT>;
+  auto kern = sta_direct_kernel<T, D, QUANT, RING>;
   const int smem = Smem<D, QUANT>::ALLOC;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -760,10 +694,10 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, bool QUANT>
+template <typename T, bool QUANT, bool RING = false>
 cudaError_t dispatch_d(int head_dim, const Args& a) {
-  if (head_dim == 128) return launch<T, 128, QUANT>(a);
-  if (head_dim == 64) return launch<T, 64, QUANT>(a);
+  if (head_dim == 128) return launch<T, 128, QUANT, RING>(a);
+  if (head_dim == 64) return launch<T, 64, QUANT, RING>(a);
   return cudaErrorInvalidValue;
 }
 
@@ -841,5 +775,34 @@ extern "C" int hv_sta_direct_fwd(
   if (dtype == 1)
     return quant ? dispatch_d<__half, true>(head_dim, a)
                  : dispatch_d<__half, false>(head_dim, a);
+  return cudaErrorInvalidValue;
+}
+
+// B10, the ring arm. dtype: 0 = bf16, 1 = fp16. q [B, T*Hg*Wg rows]
+// row-major over the grid, kp/vp [B, S_pad rows] in w-major tile order
+// (zero on padding tokens), o [B, T*Hg*Wg rows], tk/tv [B, Lt rows], each
+// row H*D wide with the given batch and row strides (in elements); tb
+// [B, Lt] fp32 may be null, c [B, H] fp32. The ring gate: at least wh tile
+// rows and ww >= 2, and B4's tile gate. Returns the cudaError_t of the
+// launch.
+extern "C" int hv_sta_ring_fwd(
+    int dtype, int head_dim, const void* q, const void* kp, const void* vp,
+    void* o, const void* tk, const void* tv, const float* tb, const float* c,
+    int B, int H, int Lt, int T, int Hg, int Wg, int tt, int th, int tw,
+    int wt, int wh, int ww, long long q_bs, long long q_rs, long long k_bs,
+    long long k_rs, long long v_bs, long long v_rs, long long tk_bs,
+    long long tk_rs, long long tv_bs, long long tv_rs, long long o_bs,
+    long long o_rs, float scale, void* stream) {
+  Geo g;
+  if (!make_geo(g, T, Hg, Wg, tt, th, tw, wt, wh, ww, Lt, true) ||
+      c == nullptr)
+    return cudaErrorInvalidValue;
+  const Args a{q, kp, vp, o, tk, tv, nullptr, tb, c, nullptr, nullptr,
+               nullptr, nullptr, B, H, g, q_bs, q_rs, k_bs, k_rs, v_bs,
+               v_rs, tk_bs, tk_rs, tv_bs, tv_rs, o_bs, o_rs, scale,
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == 0)
+    return dispatch_d<__nv_bfloat16, false, true>(head_dim, a);
+  if (dtype == 1) return dispatch_d<__half, false, true>(head_dim, a);
   return cudaErrorInvalidValue;
 }

@@ -45,15 +45,19 @@ SIGNATURES = {
     },
     "sta_attention": {
         "hv_sta_attention_fwd": (
-            _I, [_I] * 4 + [_P] * 9 + [_I] * 10 + [_LL] * 9 + [_F, _P]),
-        "hv_sta_ring_fwd": (
-            _I, [_I] * 2 + [_P] * 8 + [_I] * 12 + [_LL] * 12 + [_F, _P]),
+            _I, [_I] * 3 + [_P] * 9 + [_I] * 10 + [_LL] * 9 + [_F, _P]),
     },
     "sta_direct": {
         "hv_sta_tile_codes": (
             _I, [_I, _I, _P, _LL, _LL, _P, _LL, _LL] + [_I] * 8 + [_P] * 5),
         "hv_sta_direct_fwd": (
             _I, [_I] * 3 + [_P] * 13 + [_I] * 12 + [_LL] * 12 + [_F, _P]),
+        "hv_sta_ring_fwd": (
+            _I, [_I] * 2 + [_P] * 8 + [_I] * 12 + [_LL] * 12 + [_F, _P]),
+    },
+    "sta_permuted": {
+        "hv_sta_permuted_fwd": (
+            _I, [_I] * 3 + [_P] * 7 + [_I] * 10 + [_LL] * 9 + [_F, _P]),
     },
     "flash_int8": {
         "hv_quantize_groups": (

@@ -20,20 +20,28 @@ Six kernels, each a wrapper here with a `LAUNCHES` count:
   codes of q and k in the row-major grid with one scale per (batch, head,
   tile), then the image keys' Q.K^T runs on s8 wgmma and the text keys'
   in the input type.
-* `sta_permuted_static` (`csrc/sta_attention.cu`, DIRECT=0, RUNNING=0)
-  replaces `_sta_nomax_fused_kernel` and `_sta_nomax_kernel`, which compute
-  the same function: static offset over tile-major permuted q and the
-  concatenated [img tiles | text] keys `kcat`, the text block(s) being
-  extra slots of the neighbour table.
-* `sta_permuted_running` (DIRECT=0, RUNNING=1) replaces `_sta_kernel`: the
-  same layout with a running max, for models without QK-norm.
-* `sta_permuted_static_int8` (QUANT=1) is the `quant=True` arm of the
-  permuted static kernels: every key tile of kcat quantized, text blocks
-  included. The direct and permuted int8 arms compute different functions,
-  and each wrapper follows its JAX arm.
+* `sta_ring` (B10, `csrc/sta_direct.cu`, RING=1) replaces
+  `_sta_ring_kernel`: B4's function with the image keys read from w-major
+  copies as whole window-column runs, validity from the geometry; B4's
+  loop and query side (`plan_sta_ring`, `sta_ring_walk`,
+  `sta_ring_emulate`).
+* `sta_permuted_static` (`csrc/sta_attention.cu`, QUANT=0) replaces
+  `_sta_nomax_fused_kernel` and `_sta_nomax_kernel`, which compute the same
+  function: static offset over tile-major permuted q and the concatenated
+  [img tiles | text] keys `kcat`, the text block(s) being extra slots of
+  the neighbour table.
+* `sta_permuted_running` (B7, `csrc/sta_permuted.cu`) replaces
+  `_sta_kernel`: the same layout with a running max, for models without
+  QK-norm; wgmma products on a TMA ring over the neighbour table's key
+  boxes (`plan_sta_permuted`, `sta_permuted_walk`,
+  `sta_permuted_emulate`).
+* `sta_permuted_static_int8` (`csrc/sta_attention.cu`, QUANT=1) is the
+  `quant=True` arm of the permuted static kernels: every key tile of kcat
+  quantized, text blocks included. The direct and permuted int8 arms
+  compute different functions, and each wrapper follows its JAX arm.
 
 On CPU tensors each wrapper runs the plain version (`sta_attention_plain`,
-built on `sta_permuted_plain`): neighbour tiles gathered per chunk of query
+built on `sta_permuted_plain`; B10's `sta_ring_plain`): neighbour tiles gathered per chunk of query
 tiles, fp32 scores from the model-dtype inputs (or exact int8 products
 times sq*sk*scale), p rounded to V's type before P.V, the static arm
 exp(s*scale + kb - C) with max(l, 1e-37) and the running arm an exact
@@ -287,12 +295,12 @@ def sta_pair_count(grid, tile, window, txt_valid: int) -> int:
     return int((rows * (keys + txt_valid)).sum())
 
 
-def sta_direct_gate(tile, window, d: int) -> Optional[str]:
-    """Why B4 (csrc/sta_direct.cu) cannot take a geometry, or None: head_dim
-    64 or 128; tile tokens a multiple of 64 and of R = min(128, tokens),
-    the tokens of a TMA box; the box whole (h, w) planes (th*tw divides R)
-    or whole rows of one plane (R divides th*tw and tw divides R); an odd
-    window."""
+def _box_gate(tile, d: int) -> Optional[str]:
+    """Why csrc/sta_direct.cu cannot cut a tile into TMA boxes, or None:
+    head_dim 64 or 128; tile tokens a multiple of 64 and of R = min(128,
+    tokens), the tokens of a box; the box whole (h, w) planes (th*tw
+    divides R) or whole rows of one plane (R divides th*tw and tw divides
+    R)."""
     tt, th, tw = tile
     block, plane = tt * th * tw, th * tw
     rows = min(STA_CHUNK, block)
@@ -304,8 +312,31 @@ def sta_direct_gate(tile, window, d: int) -> Optional[str]:
     if rows % plane and (plane % rows or rows % tw):
         return (f"tile {tuple(tile)}: {rows} tokens are neither whole "
                 f"{th}x{tw} planes nor whole rows of one")
+    return None
+
+
+def sta_direct_gate(tile, window, d: int) -> Optional[str]:
+    """Why B4 (csrc/sta_direct.cu) cannot take a geometry, or None: the
+    tile's TMA boxes (`_box_gate`) and an odd window."""
+    err = _box_gate(tile, d)
+    if err:
+        return err
     if any(x % 2 == 0 for x in window):
         return f"window {tuple(window)} is not odd"
+    return None
+
+
+def sta_ring_gate(grid, tile, window, d: int) -> Optional[str]:
+    """Why B10 (csrc/sta_direct.cu, RING) cannot take a geometry, or None:
+    the tile's TMA boxes (`_box_gate`) and the ring gate
+    (`ring_geometry_ok`: at least wh tile rows, ww >= 2); any window
+    parity."""
+    err = _box_gate(tile, d)
+    if err:
+        return err
+    if not ring_geometry_ok(grid, tile, window):
+        return (f"grid {tuple(grid)} with tile {tuple(tile)} has fewer "
+                f"h-tiles than window {tuple(window)} needs, or ww < 2")
     return None
 
 
@@ -341,6 +372,21 @@ def plan_sta_direct(b: int, heads: int, d: int, grid, tile, window,
     err = sta_direct_gate(tile, window, d)
     if err:
         raise ValueError(f"sta_direct: {err}")
+    return _direct_plan(b, heads, d, grid, tile, lt, quant)
+
+
+def plan_sta_ring(b: int, heads: int, d: int, grid, tile, window,
+                  lt: int) -> StaDirectPlan:
+    """The plan of B10 (B4's launch, block and ring; its key boxes are R
+    contiguous rows of the w-major kp/vp); raises ValueError outside
+    `sta_ring_gate`."""
+    err = sta_ring_gate(grid, tile, window, d)
+    if err:
+        raise ValueError(f"sta_ring: {err}")
+    return _direct_plan(b, heads, d, grid, tile, lt, False)
+
+
+def _direct_plan(b, heads, d, grid, tile, lt, quant) -> StaDirectPlan:
     tt, th, tw = tile
     block, plane = tt * th * tw, th * tw
     rows = min(STA_CHUNK, block)
@@ -424,6 +470,116 @@ def sta_walk(grid, tile, window, plan: StaDirectPlan,
             t0, h0, _ = _box_origin(tile, plan.rows, a, bb, cc, sub)
             if t0 < t and h0 < hg:
                 boxes.append(((a * gh + bb) * gw + cc, sub))
+    return [boxes[i:i + plan.boxes] for i in range(0, len(boxes), plan.boxes)]
+
+
+def sta_ring_walk(grid, tile, window, plan: StaDirectPlan,
+                  qtile: int) -> List[List[Tuple[int, int, int]]]:
+    """B10's image key chunks of row-major query tile `qtile`, as the kernel
+    walks them: ring_plan's slot order (window column, run, tile of the run
+    from the clamped start, a tile outside the h-window skipped), each
+    tile's boxes (row-major tile, sub, first row in the w-major kp/vp) in
+    turn, a box whose first token lies past the grid skipped, `plan.boxes`
+    boxes a chunk (a short last chunk loads its first box again,
+    masked)."""
+    t, hg, wg = grid
+    tt, th, tw = tile
+    wt, wh, ww = window
+    gt, gh, gw = _ceil(t, tt), _ceil(hg, th), _ceil(wg, tw)
+    qa, qb, qc = qtile // (gh * gw), (qtile // gw) % gh, qtile % gw
+    sb = min(max(qb - wh // 2, 0), gh - wh)
+    boxes = []
+    for dc in range(2 * (ww // 2) + 1):
+        cc = qc + dc - ww // 2
+        for da in range(wt):
+            a = qa + da - wt // 2
+            for r in range(wh):
+                bb = sb + r
+                if not (0 <= cc < gw and 0 <= a < gt) \
+                        or abs(bb - qb) > wh // 2:
+                    continue
+                for sub in range(plan.subs):
+                    t0, h0, _ = _box_origin(tile, plan.rows, a, bb, cc, sub)
+                    if t0 < t and h0 < hg:
+                        row = (((cc * gt + a) * gh + bb) * plan.subs
+                               + sub) * plan.rows
+                        boxes.append(((a * gh + bb) * gw + cc, sub, row))
+    return [boxes[i:i + plan.boxes] for i in range(0, len(boxes), plan.boxes)]
+
+
+PERMUTED_MAX_BOXES = 1024  # B7's marks of live key boxes a query tile
+
+
+@dataclasses.dataclass(frozen=True)
+class StaPermutedPlan:
+    """B7's launch (csrc/sta_permuted.cu) on one geometry: `rows` rows of a
+    tile a TMA box (a block's query rows: 128, or 64 when the tile's tokens
+    are not a multiple of 128), `subs` boxes a tile, `boxes` boxes a key
+    chunk of STA_CHUNK, `n_boxes` key boxes a query tile (slots x subs,
+    each marked live or not before the walk), the launch grid (box of a
+    query tile fastest, then heads, batch), the ring's slots and the
+    dynamic shared memory in bytes (Q; per slot K, V, the per-key bias and
+    the chunk's box rows; the barriers; the marks; 1024 to align)."""
+    rows: int
+    subs: int
+    boxes: int
+    n_boxes: int
+    blocks: Tuple[int, int, int]
+    stages: int
+    smem: int
+
+
+def sta_permuted_gate(tile, n_slots: int, d: int) -> Optional[str]:
+    """Why B7 (csrc/sta_permuted.cu) cannot take a geometry, or None:
+    head_dim 64 or 128, tile tokens a multiple of 64, at most
+    PERMUTED_MAX_BOXES key boxes a query tile."""
+    block = tile[0] * tile[1] * tile[2]
+    if d not in (64, 128):
+        return f"head_dim {d} is not 64 or 128"
+    if block <= 0 or block % 64:
+        return f"tile {tuple(tile)} has {block} tokens, not a multiple of 64"
+    rows = STA_CHUNK if block % STA_CHUNK == 0 else 64
+    if n_slots * (block // rows) > PERMUTED_MAX_BOXES:
+        return (f"{n_slots} slots of {block // rows} boxes exceed "
+                f"{PERMUTED_MAX_BOXES} key boxes")
+    return None
+
+
+def plan_sta_permuted(b: int, heads: int, d: int, grid, tile, window,
+                      txt_pad: int) -> StaPermutedPlan:
+    """The plan of B7 for tile-major [b, S_pad, heads, d] queries over
+    `grid` with txt_pad padded text keys (whole tiles); raises ValueError
+    outside `sta_permuted_gate`."""
+    plan = tile_plan(tuple(grid), tuple(tile), tuple(window), txt_pad)
+    err = sta_permuted_gate(tile, plan["n_slots"], d)
+    if err:
+        raise ValueError(f"sta_permuted_running: {err}")
+    block = plan["tokens_per_tile"]
+    rows = STA_CHUNK if block % STA_CHUNK == 0 else 64
+    stages, subs = 3, block // rows
+    smem = (STA_CHUNK * d * 2 + stages * (STA_CHUNK * d * 4 + STA_CHUNK * 4
+                                          + 8)
+            + (1 + 3 * stages) * 8 + PERMUTED_MAX_BOXES // 8 + 1024)
+    return StaPermutedPlan(rows, subs, STA_CHUNK // rows,
+                           plan["n_slots"] * subs,
+                           (plan["n_tiles"] * subs, heads, b), stages, smem)
+
+
+def sta_permuted_walk(plan: StaPermutedPlan, block: int, nbr_row,
+                      kb_row) -> List[List[int]]:
+    """B7's key chunks of one query tile and batch entry, as the kernel
+    walks them: the boxes of the slots of `nbr_row` (its row of the
+    neighbour table) in slot order, each tile's `plan.subs` boxes in turn,
+    a box none of whose keys is unmasked in `kb_row` (that batch entry's kb,
+    host numpy) skipped; each box as the kcat row of its first key,
+    `plan.boxes` a chunk (a short last chunk loads its first box again,
+    masked)."""
+    boxes = []
+    for nb in nbr_row:
+        for sub in range(plan.subs):
+            row = int(nb) * block + sub * plan.rows
+            if nb >= 0 and (kb_row[row:row + plan.rows] > 0.5 * NEG_INF).any():
+                boxes.append(row)
     return [boxes[i:i + plan.boxes] for i in range(0, len(boxes), plan.boxes)]
 
 
@@ -615,6 +771,124 @@ def sta_direct_emulate(img_q, img_k, img_v, txt_k, txt_v, txt_bias, c, grid,
     return out
 
 
+def sta_ring_emulate(q5, kp, vp, txt_k, txt_v, txt_bias, c, grid, tile,
+                     window, scale: float) -> torch.Tensor:
+    """B10's walk in plain PyTorch, for checking its plan on the CPU: per
+    block, the query box of `sta_box_tokens` with its rows past the grid
+    zero (TMA's zero fill), then the key chunks of `sta_ring_walk`, each box
+    R contiguous rows of kp/vp with every key past the grid at bias -1e30
+    (the geometry bias; a short chunk's repeated box is masked whole), then
+    the text keys in chunks of `plan.txt_keys`, those past Lt zero with
+    bias -1e30; p = exp(s*scale + bias - c), p rounded to V's type before
+    P.V, out = acc / max(l, 1e-37), rows past the grid not stored.
+    Arguments as `sta_ring`; returns [B, T, H, W, H*D]."""
+    grid, tile, window = tuple(grid), tuple(tile), tuple(window)
+    b, hd = q5.shape[0], q5.shape[-1]
+    hh = c.shape[1]
+    d, lt = hd // hh, txt_k.shape[1]
+    s_img = grid[0] * grid[1] * grid[2]
+    plan = plan_sta_ring(b, hh, d, grid, tile, window, lt)
+    dev = q5.device
+    q = torch.cat([q5.reshape(b, s_img, hh, d),
+                   q5.new_zeros((b, 1, hh, d))], dim=1)   # row s_img: zero
+    kr, vr = (x.reshape(b, -1, hh, d) for x in (kp, vp))
+    lt_pad = plan.txt_chunks * plan.txt_keys
+    tb = torch.nn.functional.pad(txt_bias.reshape(b, lt).float(),
+                                 (0, lt_pad - lt), value=NEG_INF)
+    tk, tv = (torch.nn.functional.pad(x.reshape(b, lt, hh, d),
+                                      (0, 0, 0, 0, 0, lt_pad - lt))
+              for x in (txt_k, txt_v))
+    off = c.float()[:, :, None, None]
+    out = torch.zeros((b, s_img, hd), dtype=q5.dtype, device=dev)
+    n_tiles = plan.blocks[0] // plan.subs
+    for qtile in range(n_tiles):
+        rows, live = [], []
+        for chunk in sta_ring_walk(grid, tile, window, plan, qtile):
+            padded = chunk + [chunk[0]] * (plan.boxes - len(chunk))
+            for u, (kt, sub, row) in enumerate(padded):
+                tok = sta_box_tokens(grid, tile, plan, kt, sub)
+                rows.append(np.arange(row, row + plan.rows))
+                live.append((tok >= 0) & (u < len(chunk)))
+        kidx = torch.from_numpy(np.concatenate(rows)).to(dev)
+        kbias = torch.where(torch.from_numpy(np.concatenate(live)).to(dev),
+                            0.0, NEG_INF)
+        keys = torch.cat([kr[:, kidx], tk], dim=1).float()
+        vals = torch.cat([vr[:, kidx], tv], dim=1)
+        bias = torch.cat([kbias.expand(b, -1), tb], dim=1)
+        for sub in range(plan.subs):
+            tok = sta_box_tokens(grid, tile, plan, qtile, sub)
+            if tok[0] < 0:
+                continue   # no query of the box: the block returns at once
+            qidx = torch.from_numpy(np.where(tok < 0, s_img, tok)).to(dev)
+            s = torch.einsum("bqhd,bkhd->bhqk", q[:, qidx].float(),
+                             keys) * scale
+            p = torch.exp(s + bias[:, None, None, :] - off)
+            o = torch.einsum("bhqk,bkhd->bqhd", p.to(vals.dtype).float(),
+                             vals.float()) / p.sum(-1).clamp_min(
+                                 1e-37).transpose(1, 2)[..., None]
+            ok = torch.from_numpy(tok >= 0).to(dev)
+            out[:, qidx[ok]] = o[:, ok].reshape(b, -1, hd).to(out.dtype)
+    return out.reshape(b, *grid, hd)
+
+
+def sta_permuted_emulate(qp, kcat, vcat, kb, grid, tile, window,
+                         scale: float) -> torch.Tensor:
+    """B7's walk in plain PyTorch, for checking its plan on the CPU: per
+    block of `plan.rows` query rows of a tile, zeros if none of them is a
+    token or no key box is live; else the key chunks of `sta_permuted_walk`
+    (its all-masked boxes skipped, a short chunk's repeated box at bias
+    -1e30) folded in order by the online softmax: m' = max(m, max_k(s +
+    kb)), p = exp(s + kb - m') rounded to V's type before P.V, l and acc
+    rescaled by exp(m - m'); out = acc / max(l, 1e-37), padding rows zero.
+    Arguments as `sta_permuted_running`; returns [B, S_pad, H*D]."""
+    grid, tile, window = tuple(grid), tuple(tile), tuple(window)
+    b, s_pad, hh, d = qp.shape
+    block = tile[0] * tile[1] * tile[2]
+    tplan = tile_plan(grid, tile, window, kcat.shape[1] - s_pad)
+    plan = plan_sta_permuted(b, hh, d, grid, tile, window,
+                             kcat.shape[1] - s_pad)
+    row_ok = torch.from_numpy(
+        _valid_tokens(grid, tplan["padded_grid"]).reshape(-1)[tplan["perm"]])
+    kbf = kb.float()
+    kb_np = kbf.cpu().numpy()
+    out = torch.zeros((b, s_pad, hh * d), dtype=qp.dtype, device=qp.device)
+    for qtile in range(tplan["n_tiles"]):
+        for sub in range(plan.subs):
+            q0 = qtile * block + sub * plan.rows
+            ok = row_ok[q0:q0 + plan.rows].to(qp.device)
+            if not ok.any():
+                continue
+            q = qp[:, q0:q0 + plan.rows].float()
+            for bi in range(b):
+                chunks = sta_permuted_walk(plan, block, tplan["nbr"][qtile],
+                                           kb_np[bi])
+                m = torch.full((hh, plan.rows), NEG_INF, device=qp.device)
+                l = torch.zeros((hh, plan.rows), device=qp.device)
+                acc = torch.zeros((hh, plan.rows, d), device=qp.device)
+                for chunk in chunks:
+                    padded = chunk + [chunk[0]] * (plan.boxes - len(chunk))
+                    idx = torch.from_numpy(np.concatenate(
+                        [np.arange(r, r + plan.rows) for r in padded])).to(
+                            qp.device)
+                    bias = kbf[bi, idx].clone()
+                    bias[len(chunk) * plan.rows:] = NEG_INF
+                    s = torch.einsum("qhd,khd->hqk", q[bi],
+                                     kcat[bi, idx].float()) * scale + bias
+                    m_new = torch.maximum(m, s.amax(-1))
+                    p = torch.exp(s - m_new[..., None])
+                    corr = torch.exp(m - m_new)
+                    l = l * corr + p.sum(-1)
+                    acc = acc * corr[..., None] + torch.einsum(
+                        "hqk,khd->hqd", p.to(vcat.dtype).float(),
+                        vcat[bi, idx].float())
+                    m = m_new
+                o = acc / l.clamp_min(1e-37)[..., None] if chunks else acc
+                o = o * ok[None, :, None]
+                out[bi, q0:q0 + plan.rows] = o.transpose(0, 1).reshape(
+                    plan.rows, hh * d).to(out.dtype)
+    return out
+
+
 def permuted_operands(img_q, img_k, img_v, txt_k, txt_v, txt_bias, grid,
                       tile, window, img_key_bias=None):
     """The permuted kernels' inputs from row-major tensors: tile-major qp
@@ -688,7 +962,8 @@ def sta_ring_plain(q5, kp, vp, txt_k, txt_v, txt_bias, c, grid, tile,
     hh = c.shape[1]
     d = hd // hh
     lt = txt_k.shape[1]
-    plan = tile_plan(grid, tile, window, 0)
+    # the token layout only: tile_plan's neighbour table takes odd windows
+    plan = tile_plan(grid, tile, (1, 1, 1), 0)
     n_tiles, block = plan["n_tiles"], plan["tokens_per_tile"]
     rows, kbias = (torch.from_numpy(x).to(q5.device)
                    for x in ring_plan(grid, tile, window))
@@ -755,10 +1030,24 @@ def _geometry(name, grid, tile, d):
     return block
 
 
-def _launch(name, running, q, k, v, out, kb, c, nbr, grid, tile, scale,
-            quant=False):
-    """The permuted kernels of csrc/sta_attention.cu on tile-major q and
-    kcat/vcat (all [B, S, H, D] row views)."""
+def _launch_running(name, q, k, v, out, kb, nbr, grid, tile, scale):
+    """B7 of csrc/sta_permuted.cu on tile-major q and kcat/vcat (all
+    [B, S, H, D] row views TMA reads)."""
+    b, _, hh, d = q.shape
+    n_ktiles = k.shape[1] // (tile[0] * tile[1] * tile[2])
+    err = cuda_lib.library("sta_permuted").hv_sta_permuted_fwd(
+        _DTYPE_CODE[q.dtype], 1, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), kb.data_ptr(), None, nbr.data_ptr(), b, hh,
+        nbr.shape[1], n_ktiles, *grid, *tile, q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), v.stride(0), v.stride(1), out.stride(0),
+        out.stride(1), kb.stride(0), float(scale),
+        cuda_lib.stream_ptr(q.device))
+    cuda_lib.check(err, name)
+
+
+def _launch(name, q, k, v, out, kb, c, nbr, grid, tile, scale, quant):
+    """The static permuted kernels of csrc/sta_attention.cu on tile-major q
+    and kcat/vcat (all [B, S, H, D] row views)."""
     b, _, hh, d = q.shape
     block = tile[0] * tile[1] * tile[2]
     n_qtiles = nbr.shape[0]
@@ -771,9 +1060,9 @@ def _launch(name, running, q, k, v, out, kb, c, nbr, grid, tile, scale,
                          device=q.device)
     lib = cuda_lib.library("sta_attention")
     err = lib.hv_sta_attention_fwd(
-        _DTYPE_CODE[q.dtype], int(running), int(quant), d, q.data_ptr(),
+        _DTYPE_CODE[q.dtype], int(quant), d, q.data_ptr(),
         k.data_ptr(), v.data_ptr(), out.data_ptr(), kb.data_ptr(),
-        c.data_ptr() if c is not None else None, nbr.data_ptr(),
+        c.data_ptr(), nbr.data_ptr(),
         sq.data_ptr() if quant else None, sk.data_ptr() if quant else None,
         b, hh, nbr.shape[1], n_ktiles, *grid, *tile, q.stride(0),
         q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
@@ -927,13 +1216,19 @@ def _permuted(name, running, qp, kcat, vcat, kb, c, grid, tile, window,
         raise ValueError(f"{name}: bad shapes qp {tuple(qp.shape)} kcat "
                          f"{tuple(kcat.shape)} kb {tuple(kb.shape)} for "
                          f"grid {grid}, tile {tile}")
-    q, k, v = _as_rows(qp), _as_rows(kcat), _as_rows(vcat)
+    if running:   # B7 reads them through TMA
+        plan_sta_permuted(b, hh, d, grid, tile, window, kcat.shape[1] - s_pad)
+        q, k, v = _rows_for_tma(name, qp=qp, kcat=kcat, vcat=vcat)
+    else:
+        q, k, v = _as_rows(qp), _as_rows(kcat), _as_rows(vcat)
     kbf = kb.float().contiguous()
     cc = None if running else c.float().expand(b, hh).contiguous()
     nbr = _device_nbr(grid, tile, window, kcat.shape[1] - s_pad, q.device)
     out = torch.empty((b, s_pad, hh * d), dtype=q.dtype, device=q.device)
-    _launch(name, running, q, k, v, out, kbf, cc, nbr, grid, tile, scale,
-            quant)
+    if running:
+        _launch_running(name, q, k, v, out, kbf, nbr, grid, tile, scale)
+    else:
+        _launch(name, q, k, v, out, kbf, cc, nbr, grid, tile, scale, quant)
     return out
 
 
@@ -970,9 +1265,10 @@ sta_permuted_static_int8.LAUNCHES = 0
 
 def sta_permuted_running(qp, kcat, vcat, kb, grid, tile, window,
                          scale: float) -> torch.Tensor:
-    """B7: running-max STA on the tile-major layout of `permuted_operands`.
-    Returns [B, S_pad, H*D] tile-major, padding rows zero. Kernel on CUDA
-    tensors, plain version on CPU."""
+    """B7 (csrc/sta_permuted.cu): running-max STA on the tile-major layout
+    of `permuted_operands`. Returns [B, S_pad, H*D] tile-major, padding
+    rows zero. Kernel on CUDA tensors (inside `sta_permuted_gate`; it
+    raises outside), plain version on CPU."""
     out = _permuted("sta_permuted_running", True, qp, kcat, vcat, kb, None,
                     grid, tile, window, scale)
     if qp.device.type != "cpu":
@@ -985,13 +1281,14 @@ sta_permuted_running.LAUNCHES = 0
 
 def sta_ring(q5, kp, vp, txt_k, txt_v, txt_bias, c, grid, tile, window,
              scale: float) -> torch.Tensor:
-    """B10: static-offset STA reading K/V as contiguous window-column runs
-    of the w-major layout, validity computed in the kernel from the geometry
-    (no neighbour table, no key-bias operand). q5 [B, T, H, W, H*D]
-    row-major; kp/vp [B, S_pad, H*D] from `_permute_tokens_cols`;
-    txt_k/txt_v [B, Lt, H*D]; txt_bias [B, Lt] fp32; c [B, heads] fp32
-    (heads = c.shape[1]). Returns [B, T, H, W, H*D]. Kernel on CUDA
-    tensors, `sta_ring_plain` on CPU tensors."""
+    """B10 (csrc/sta_direct.cu, RING): static-offset STA reading K/V as
+    contiguous window-column runs of the w-major layout, validity computed
+    in the kernel from the geometry (no neighbour table, no key-bias
+    operand). q5 [B, T, H, W, H*D] row-major; kp/vp [B, S_pad, H*D] from
+    `_permute_tokens_cols`; txt_k/txt_v [B, Lt, H*D]; txt_bias [B, Lt]
+    fp32; c [B, heads] fp32 (heads = c.shape[1]). Returns [B, T, H, W,
+    H*D]. Kernel on CUDA tensors (inside `sta_ring_gate`; it raises
+    outside), `sta_ring_plain` on CPU tensors."""
     grid, tile, window = tuple(grid), tuple(tile), tuple(window)
     if q5.device.type == "cpu":
         return sta_ring_plain(q5, kp, vp, txt_k, txt_v, txt_bias, c, grid,
@@ -1003,11 +1300,8 @@ def sta_ring(q5, kp, vp, txt_k, txt_v, txt_bias, c, grid, tile, window,
     hh = c.shape[1]
     d = hd // hh
     lt = txt_k.shape[1]
-    block = _geometry(name, grid, tile, d)
+    plan_sta_ring(b, hh, d, grid, tile, window, lt)   # raises outside it
     s_pad = int(np.prod(_padded_grid(grid, tile)))
-    if not ring_geometry_ok(grid, tile, window):
-        raise ValueError(f"{name}: grid {grid} with tile {tile} fails the "
-                         f"ring gate for window {window}")
     if q5.shape != (b, *grid, hh * d) or kp.shape != (b, s_pad, hd) \
             or vp.shape != kp.shape or txt_k.shape != (b, lt, hd) \
             or txt_v.shape != txt_k.shape or txt_bias.shape != (b, lt) \
@@ -1017,14 +1311,14 @@ def sta_ring(q5, kp, vp, txt_k, txt_v, txt_bias, c, grid, tile, window,
                          f"bias {tuple(txt_bias.shape)} c {tuple(c.shape)} "
                          f"for grid {grid}, tile {tile}")
     n_img = grid[0] * grid[1] * grid[2]
-    q = _as_rows(q5.reshape(b, n_img, hh, d))
-    k, v = (_as_rows(x.reshape(b, s_pad, hh, d)) for x in (kp, vp))
-    tk, tv = (_as_rows(x.reshape(b, lt, hh, d)) for x in (txt_k, txt_v))
+    q, k, v, tk, tv = _rows_for_tma(
+        name, q5=q5.reshape(b, n_img, hh, d), kp=kp.reshape(b, s_pad, hh, d),
+        vp=vp.reshape(b, s_pad, hh, d), txt_k=txt_k.reshape(b, lt, hh, d),
+        txt_v=txt_v.reshape(b, lt, hh, d))
     tb = txt_bias.float().contiguous()
     cc = c.float().contiguous()
     out = torch.empty((b, *grid, hd), dtype=q5.dtype, device=q5.device)
-    lib = cuda_lib.library("sta_attention")
-    err = lib.hv_sta_ring_fwd(
+    err = cuda_lib.library("sta_direct").hv_sta_ring_fwd(
         _DTYPE_CODE[q5.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), tk.data_ptr(), tv.data_ptr(), tb.data_ptr(),
         cc.data_ptr(), b, hh, lt, *grid, *tile, *window,
@@ -1151,9 +1445,9 @@ def sta_joint_attention(
     image and text queries alike. plain=True routes the image queries to
     `sta_attention_plain` (a reference for checks on the card).
     slot_block, head_block: accepted for signature parity with the JAX
-    function; the CUDA kernels fix their own tiles (B4 and B4q: boxes of up
-    to 128 query rows, key chunks of 128; the permuted kernels and B10:
-    64 x 64).
+    function; the CUDA kernels fix their own tiles (B4, B4q, B10 and B7:
+    boxes of up to 128 query rows, key chunks of 128; the static permuted
+    kernels: 64 x 64).
     lane_rotate (a TPU DMA-elision plan) is not ported.
     """
     del head_block

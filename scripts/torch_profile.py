@@ -56,9 +56,9 @@ from hunyuanvideo_efficiency_tpu_torch.ops import sta  # noqa: E402
 # flash_fwd_kernel<T, D, RUNNING=true, LSE=true>
 LSE_FORWARD = re.compile(
     r"flash_fwd_kernel<[^>]*(true|\(bool\)1), (true|\(bool\)1)>")
-# the RING instantiation of csrc/sta_attention.cu's forward template:
-# sta_fwd_kernel<T, D, DIRECT, RUNNING, QUANT, RING=true>
-RING_STA = re.compile(r"sta_fwd_kernel<[^>]*(true|\(bool\)1)>")
+# the RING instantiation of csrc/sta_direct.cu's kernel template:
+# sta_direct_kernel<T, D, QUANT, RING=true>
+RING_STA = re.compile(r"sta_direct_kernel<[^>]*, (true|\(bool\)1)>")
 
 
 def category(name: str) -> str:
@@ -78,7 +78,8 @@ def category(name: str) -> str:
     if RING_STA.search(low):
         return "STA ring (B10)"
     if any(k in low for k in ("sta_direct_kernel", "tile_codes_kernel",
-                              "sta_fwd_kernel", "tile_scales_kernel")):
+                              "sta_fwd_kernel", "tile_scales_kernel",
+                              "sta_permuted_kernel")):
         return "sliding-tile attention (STA)"   # B4/B4q and the pre-pass,
                                                 # B6/B7
     if "conv3d_s1_kernel" in low:

@@ -538,6 +538,146 @@ def test_sta_ring_dispatch_counts(dev, ring_case):
         torch.testing.assert_close(x.float(), y.float(), atol=TOL, rtol=TOL)
 
 
+# B10 beyond RING_CASES: (grid, tile, window, text keys, valid text keys of
+# batch 1). A ragged grid with one text key, 3 valid of 129 (the text
+# chunks past the last one not walked), every text key of batch 1 masked,
+# a ragged grid of 64-token tiles (key chunks pair two boxes), an even
+# window (the ring's own tile set: B4 rejects it).
+RING_EDGE_CASES = [
+    ((5, 17, 30), (4, 8, 8), (3, 3, 3), 1, 1),
+    ((6, 24, 24), (4, 8, 8), (3, 3, 3), 129, 3),
+    ((5, 17, 30), (4, 8, 8), (1, 3, 3), 64, 0),
+    ((9, 10, 19), (2, 4, 8), (3, 3, 3), 256, 3),
+    ((4, 12, 16), (2, 4, 8), (2, 2, 2), 64, 30),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", RING_EDGE_CASES)
+def test_sta_ring_kernel_edges(dev, dtype, case):
+    """B10 (csrc/sta_direct.cu, RING) against sta_ring_plain and, for odd
+    windows, B4 on the row-major inputs; two runs equal bit for bit; one
+    launch counted a call."""
+    from hunyuanvideo_efficiency_tpu_torch.ops import sta
+
+    grid, tile, window, lt, txt_valid = case
+    d = 128
+    (iq, ik, iv), (_, tk, tv), tb, c = _sta_inputs(dev, dtype, grid, d, lt,
+                                                   txt_valid, seed=18)
+    b, s, h, _ = iq.shape
+    scale = d ** -0.5
+    pg = sta._padded_grid(grid, tile)
+    args = (iq.reshape(b, *grid, h * d),
+            sta._permute_tokens_cols(ik, grid, tile, pg),
+            sta._permute_tokens_cols(iv, grid, tile, pg),
+            tk.reshape(b, lt, h * d), tv.reshape(b, lt, h * d),
+            tb.reshape(b, lt), c, grid, tile, window, scale)
+    n0 = sta.sta_ring.LAUNCHES
+    out, again = sta.sta_ring(*args), sta.sta_ring(*args)
+    ref = sta.sta_ring_plain(*args)
+    torch.cuda.synchronize()
+    assert sta.sta_ring.LAUNCHES == n0 + 2
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=TOL)
+    if window[0] % 2:
+        direct = sta.sta_direct(iq, ik, iv, tk, tv, tb, c, grid, tile,
+                                window, scale).reshape(out.shape)
+        torch.testing.assert_close(out.float(), direct.float(), atol=TOL,
+                                   rtol=TOL)
+
+
+# B7 beyond STA_CASES: T = 5 of 4-frame tiles, so the last frame row's
+# second 128-row query box is pure padding (stored as zeros) and its key
+# boxes of padding frames are skipped, with every text key of batch 1
+# masked; a ragged grid of 64-token tiles; a 192-token tile (64-row boxes,
+# three a tile); one text key.
+PERMUTED_EDGE_CASES = [
+    ((5, 17, 30), (4, 8, 8), (3, 3, 3), 64, 0),
+    ((9, 10, 19), (2, 4, 8), (3, 3, 3), 256, 3),
+    ((7, 16, 16), (3, 8, 8), (3, 3, 3), 129, 100),
+    ((6, 16, 24), (4, 8, 8), (1, 3, 3), 1, 1),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", PERMUTED_EDGE_CASES)
+def test_sta_permuted_running_edges(dev, dtype, d, case):
+    """B7 (csrc/sta_permuted.cu) against sta_permuted_plain's running arm
+    on the whole tile-major output (padding rows zero), with an image key
+    bias that masks some keys; two runs equal bit for bit; one launch
+    counted a call."""
+    from hunyuanvideo_efficiency_tpu_torch.ops import sta
+
+    grid, tile, window, lt, txt_valid = case
+    (iq, ik, iv), (_, tk, tv), tb, _ = _sta_inputs(dev, dtype, grid, d, lt,
+                                                   txt_valid, seed=19)
+    ikb = torch.zeros(iq.shape[:2], device=dev)
+    ikb[1, ::5] = -1e30
+    ikb[0, 3::7] = -0.5
+    _, qp, kcat, vcat, kb = sta.permuted_operands(
+        iq, ik, iv, tk, tv, tb, grid, tile, window, ikb)
+    args = (qp, kcat, vcat, kb, grid, tile, window, d ** -0.5)
+    n0 = sta.sta_permuted_running.LAUNCHES
+    out, again = (sta.sta_permuted_running(*args) for _ in range(2))
+    ref = sta.sta_permuted_plain(*args)
+    torch.cuda.synchronize()
+    assert sta.sta_permuted_running.LAUNCHES == n0 + 2
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("kernel", ["sta_ring", "sta_permuted_running"])
+def test_sta_ring_and_running_at_the_540p_shape(dev, kernel):
+    """B10 and B7 at the STA main path's shape, [2, 34680, 24, 128] bf16 on
+    the 17x34x60 grid with 256 text keys (40 valid), against their plain
+    versions (B10 also against B4 on the same inputs): max error relative
+    to the output's scale 2e-2."""
+    from hunyuanvideo_efficiency_tpu_torch.ops import sta
+
+    grid, tile, window = (17, 34, 60), (4, 8, 8), (3, 3, 3)
+    g = torch.Generator(dev).manual_seed(20)
+    b, h, d, lt = 2, 24, 128, 256
+    s = grid[0] * grid[1] * grid[2]
+
+    def normed(n):
+        x = torch.randn(b, n, h, d, generator=g, device=dev)
+        return (x * torch.rsqrt(x.square().mean(-1, keepdim=True))).bfloat16()
+
+    iq, ik, tk = normed(s), normed(s), normed(lt)
+    iv, tv = (torch.randn(b, n, h, d, generator=g, device=dev).bfloat16()
+              for n in (s, lt))
+    tb = torch.zeros(b, 1, 1, lt, device=dev)
+    tb[..., 40:] = -1e30
+    scale = d ** -0.5
+    c = torch.full((b, h), d ** 0.5, device=dev)   # |q.k| * scale <= sqrt(d)
+    refs = []
+    if kernel == "sta_ring":
+        pg = sta._padded_grid(grid, tile)
+        args = (iq.reshape(b, *grid, h * d),
+                sta._permute_tokens_cols(ik, grid, tile, pg),
+                sta._permute_tokens_cols(iv, grid, tile, pg),
+                tk.reshape(b, lt, h * d), tv.reshape(b, lt, h * d),
+                tb.reshape(b, lt), c, grid, tile, window, scale)
+        out = sta.sta_ring(*args).reshape(b, s, h * d)
+        refs.append(sta.sta_ring_plain(*args).reshape(b, s, h * d))
+        refs.append(sta.sta_direct(iq, ik, iv, tk, tv, tb, c, grid, tile,
+                                   window, scale))
+    else:
+        _, qp, kcat, vcat, kb = sta.permuted_operands(
+            iq, ik, iv, tk, tv, tb, grid, tile, window)
+        args = (qp, kcat, vcat, kb, grid, tile, window, scale)
+        out = sta.sta_permuted_running(*args)
+        refs.append(sta.sta_permuted_plain(*args))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    for ref in refs:
+        err = (out.float() - ref.float()).abs().max() / ref.float().abs().max()
+        assert err < 2e-2
+
+
 @pytest.mark.parametrize("kw", [dict(direct=False), dict(fused=False)])
 def test_sta_direct_matches_permuted(dev, kw):
     """sta_joint_attention's direct arm (B4 + text merge through K1) against

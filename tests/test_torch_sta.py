@@ -428,3 +428,138 @@ def test_sta_tile_codes_plain_is_tile_codes():
         assert codes.dtype == torch.int8 and codes.shape == (2, 585, 192)
         assert torch.equal(got.float(), want.reshape(got.shape))
         assert torch.equal(scales, want_sc.permute(0, 2, 1))
+
+
+# B7's host plan (csrc/sta_permuted.cu): the 540p main path, a 64-token
+# tile (two boxes a key chunk) and a 192-token tile (64-row boxes, three a
+# tile)
+@pytest.mark.parametrize("grid,tile,want", [
+    ((17, 34, 60), (4, 8, 8),
+     dict(rows=128, subs=2, boxes=1, n_boxes=56, blocks=(400, 24, 2),
+          stages=3, smem=232168)),
+    ((5, 9, 13), (2, 4, 8),
+     dict(rows=64, subs=1, boxes=2, n_boxes=31, blocks=(18, 24, 2),
+          stages=3, smem=232168)),
+    ((7, 16, 16), (3, 8, 8),
+     dict(rows=64, subs=3, boxes=2, n_boxes=87, blocks=(36, 24, 2),
+          stages=3, smem=232168)),
+], ids=["540p", "tile64", "tile192"])
+def test_plan_sta_permuted_pins(grid, tile, want):
+    block = tile[0] * tile[1] * tile[2]
+    plan = sta.plan_sta_permuted(2, 24, 128, grid, tile, (3, 3, 3),
+                                 sta._ceil(256, block) * block)
+    assert dataclasses.asdict(plan) == want
+    assert plan.smem <= 232448      # the H100's shared memory a block
+
+
+@pytest.mark.parametrize("tile,window,d,match", [
+    ((2, 4, 4), (3, 3, 3), 128, "32 tokens"),
+    ((4, 8, 8), (3, 3, 3), 32, "head_dim"),
+    ((2, 4, 8), (11, 11, 11), 128, "key boxes"),
+])
+def test_sta_permuted_gate_rejects(tile, window, d, match):
+    """Outside its gate B7 raises (on the card; the CPU runs the plain
+    version whatever the tile)."""
+    with pytest.raises(ValueError, match=match):
+        sta.plan_sta_permuted(1, 2, d, (4, 8, 16), tile, window, 64)
+
+
+def _permuted_kb(grid, tile, window, txt_valid, lt=256):
+    """permuted_operands' kb for one batch entry whose first txt_valid of
+    lt text keys are unmasked (host numpy), and the tile plan."""
+    block = tile[0] * tile[1] * tile[2]
+    txt_pad = sta._ceil(lt, block) * block
+    tplan = sta.tile_plan(grid, tile, window, txt_pad)
+    valid = sta._valid_tokens(grid, tplan["padded_grid"]).reshape(-1)
+    img = np.where(valid[tplan["perm"]], 0.0, NEG_INF)
+    txt = np.where(np.arange(txt_pad) < txt_valid, 0.0, NEG_INF)
+    return np.concatenate([img, txt]).astype(np.float32), tplan, txt_pad
+
+
+@pytest.mark.parametrize("grid,tile,window", [
+    ((5, 9, 13), (2, 4, 8), (3, 3, 3)),
+    ((7, 16, 16), (3, 8, 8), (1, 3, 3)),
+    ((17, 34, 60), (4, 8, 8), (3, 3, 3)),
+])
+def test_sta_permuted_walk_covers_the_valid_pairs(grid, tile, window):
+    """B7's walk: every query tile's valid rows times the unmasked keys of
+    its chunks is the exact pair count of the STA function; no key is
+    visited twice; a box all of whose keys are masked is not walked (at
+    540p an interior tile takes 27 tiles x 2 boxes and one text box, a tile
+    of the last frame row one box of each of its 18 tiles there)."""
+    block = tile[0] * tile[1] * tile[2]
+    kb, tplan, txt_pad = _permuted_kb(grid, tile, window, 7)
+    plan = sta.plan_sta_permuted(1, 1, 128, grid, tile, window, txt_pad)
+    rows = sta._tile_rows(grid, tplan)
+    pairs = 0
+    for qt in range(tplan["n_tiles"]):
+        chunks = sta.sta_permuted_walk(plan, block, tplan["nbr"][qt], kb)
+        assert all(0 < len(c) <= plan.boxes for c in chunks)
+        keys = np.concatenate([np.arange(r, r + plan.rows)
+                               for c in chunks for r in c])
+        keys = keys[kb[keys] > 0.5 * NEG_INF]
+        assert np.unique(keys).size == keys.size
+        pairs += int(rows[qt]) * keys.size
+    assert pairs == sta.sta_pair_count(grid, tile, window, 7)
+    if grid == (17, 34, 60):
+        inner = sta.sta_permuted_walk(plan, block,
+                                      tplan["nbr"][(1 * 5 + 2) * 8 + 3], kb)
+        last = sta.sta_permuted_walk(plan, block,
+                                     tplan["nbr"][(4 * 5 + 2) * 8 + 3], kb)
+        assert len(inner) == 27 * 2 + 1
+        assert len(last) == 9 * 2 + 9 + 1
+
+
+# B7's emulation cases (grid, tile, window, text keys, valid text keys of
+# batch 1): a ragged grid of 64-token tiles, fully masked text boxes, the
+# main-path tile whose last frame row has query boxes of pure padding
+PERMUTED_EMULATED = [((5, 9, 13), (2, 4, 8), (3, 3, 3), 37, 20),
+                     ((4, 8, 16), (2, 4, 8), (1, 3, 3), 160, 5),
+                     ((5, 17, 30), (4, 8, 8), (3, 3, 3), 256, 40)]
+
+
+@pytest.mark.parametrize("case", PERMUTED_EMULATED,
+                         ids=["ragged", "masked_txt", "main_tile"])
+def test_sta_permuted_emulation_matches_plain(case):
+    """B7's walk with its all-masked box skip, the online softmax in walk
+    order and zeroed padding rows (sta_permuted_emulate) is the function of
+    sta_permuted_plain's running arm (c=None), padding rows included, with
+    and without an image key bias; fp32, sums in another order."""
+    grid, tile, window, lt, txt_valid = case
+    rng = np.random.default_rng(21)
+    b, h, d = 2, 2, 64
+    s = grid[0] * grid[1] * grid[2]
+    img = [torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(
+        np.float32) * 0.5) for _ in range(3)]
+    tk, tv = (torch.from_numpy(rng.standard_normal((b, lt, h, d)).astype(
+        np.float32) * 0.5) for _ in range(2))
+    tb = torch.zeros(b, 1, 1, lt)
+    tb[1, ..., txt_valid:] = NEG_INF
+    ikb = torch.from_numpy(np.where(rng.random((b, s)) > 0.2, 0.0, NEG_INF)
+                           .astype(np.float32))
+    for kb_img in (None, ikb):
+        _, qp, kcat, vcat, kb = sta.permuted_operands(
+            *img, tk, tv, tb, grid, tile, window, kb_img)
+        got = sta.sta_permuted_emulate(qp, kcat, vcat, kb, grid, tile,
+                                       window, d ** -0.5)
+        want = sta.sta_permuted_plain(qp, kcat, vcat, kb, grid, tile, window,
+                                      d ** -0.5)
+        _close(got, want)
+
+
+def test_sta_permuted_emulation_matches_jax_kernel():
+    """The walk against JAX's _sta_kernel in interpret mode (the running
+    arm of sta_joint_attention, bound_mode="auto") on a ragged grid of
+    64-token tiles, whose key chunks pair two boxes, with an image key
+    bias."""
+    grid, tile, window, lt, _ = PERMUTED_EMULATED[0]
+    img, txt, tb, ikb = _inputs(grid, seed=22, d=64, lt=lt, key_bias=True)
+    kw = dict(grid=grid, tile=tile, window=window, bound_mode="auto")
+    want, _ = jsta.sta_joint_attention(*_jax(*img, *txt, tb), **kw,
+                                       img_key_bias=_jax(ikb)[0])
+    iq, ik, iv, _, tk, tv, tbt, kb_img = _torch(*img, *txt, tb, ikb)
+    plan, qp, kcat, vcat, kb = sta.permuted_operands(
+        iq, ik, iv, tk, tv, tbt, grid, tile, window, kb_img)
+    got = sta.sta_permuted_emulate(qp, kcat, vcat, kb, grid, tile, window,
+                                   64 ** -0.5)
+    _close(sta._unpermute_tokens(got, grid, plan), want)

@@ -23,7 +23,7 @@ from hunyuanvideo_efficiency_tpu.ops.rope import (
 from hunyuanvideo_efficiency_tpu_torch.ops import sta
 from hunyuanvideo_efficiency_tpu_torch.ops.rope import get_nd_rotary_pos_embed
 from test_torch_dit import dit_inputs, make_pair
-from test_torch_sta import _close, _inputs, _jax, _torch
+from test_torch_sta import NEG_INF, _close, _inputs, _jax, _torch
 
 TILE, WINDOW = (2, 4, 4), (3, 3, 3)
 # the ring grids of tests/test_sta.py:496-501
@@ -37,11 +37,11 @@ GRID_IDS = ["ragged", "exact", "gw1", "gw2"]
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_ring(grid, window, head_block=None, seed=2):
+def _jax_ring(grid, window, head_block=None, seed=2, tile=TILE, d=32):
     """JAX's ring=True outputs (interpret mode), computed once per case."""
-    img, txt, tb, _ = _inputs(grid, seed=seed)
+    img, txt, tb, _ = _inputs(grid, seed=seed, d=d)
     out = jsta.sta_joint_attention(*_jax(*img, *txt, tb), grid=grid,
-                                   tile=TILE, window=window,
+                                   tile=tile, window=window,
                                    bound_mode="static", ring=True,
                                    head_block=head_block)
     return tuple(np.asarray(o) for o in out)
@@ -208,3 +208,133 @@ def test_ring_dit_forward_matches_jax(monkeypatch):
     assert scale > 1e-2
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-4 * scale,
                                rtol=1e-4)
+
+
+# B10 (csrc/sta_direct.cu, RING): its host plan, walk and emulation. The
+# kernel's boxes need tiles of a multiple of 64 tokens, so these cases take
+# the ring grids above with 64-token tiles (2 frames of 4 x 8), and D = 64.
+TILE64 = (2, 4, 8)
+
+
+@pytest.mark.parametrize("grid,tile,window", [
+    ((17, 34, 60), (4, 8, 8), (3, 3, 3)),
+    ((3, 12, 10), TILE64, (3, 3, 3)),
+    ((4, 16, 16), TILE64, (2, 2, 2)),
+], ids=["540p", "tile64", "even_window"])
+def test_plan_sta_ring_is_b4s_launch(grid, tile, window):
+    """B10's plan is B4's launch on the same tile (the same block, ring and
+    shared memory), for an even window too, which B4 rejects."""
+    ring = sta.plan_sta_ring(2, 24, 128, grid, tile, window, 256)
+    direct = sta._direct_plan(2, 24, 128, grid, tile, 256, False)
+    assert ring == direct and ring.smem <= 232448
+    assert (sta.sta_direct_gate(tile, window, 128) is None) == (
+        window[0] % 2 == 1)
+
+
+@pytest.mark.parametrize("grid,tile,window,match", [
+    ((3, 8, 10), TILE64, (3, 3, 3), "h-tiles"),      # gh = 2 < wh = 3
+    ((3, 12, 10), TILE64, (3, 3, 1), "ww < 2"),
+    ((3, 12, 10), TILE, (3, 3, 3), "32 tokens"),
+])
+def test_sta_ring_gate_rejects(grid, tile, window, match):
+    """Outside its gate B10 raises (on the card; the CPU runs the plain
+    version)."""
+    assert match in sta.sta_ring_gate(grid, tile, window, 64)
+    with pytest.raises(ValueError, match=match):
+        sta.plan_sta_ring(1, 2, 64, grid, tile, window, 8)
+
+
+@pytest.mark.parametrize("grid,tile,window", [
+    ((3, 12, 10), TILE64, (3, 3, 3)),
+    ((5, 20, 7), TILE64, (1, 3, 3)),
+    ((4, 16, 16), TILE64, (2, 2, 2)),
+    ((17, 34, 60), (4, 8, 8), (3, 3, 3)),
+])
+def test_sta_ring_walk_covers_the_valid_pairs(grid, tile, window):
+    """B10's walk: each box's kp/vp rows hold the tokens of its box in the
+    w-major order; each query tile's walked tokens are exactly ring_plan's
+    valid keys, each once (even windows included); for odd windows the
+    pairs are the STA function's count; at 540p an interior tile takes 27
+    tiles x 2 boxes and a tile of the last frame row 27 boxes."""
+    plan = sta.plan_sta_ring(1, 1, 128, grid, tile, window, 7)
+    rows, bias = sta.ring_plan(grid, tile, window)
+    pg = sta._padded_grid(grid, tile)
+    s = int(np.prod(grid))
+    ids = torch.arange(1, s + 1, dtype=torch.float32).reshape(1, s, 1, 1)
+    token = sta._permute_tokens_cols(ids, grid, tile, pg)[0, :, 0].long()
+    token = token.numpy() - 1          # the token of each w-major row
+    pairs, n_tiles = 0, plan.blocks[0] // plan.subs
+    for qt in range(n_tiles):
+        chunks = sta.sta_ring_walk(grid, tile, window, plan, qt)
+        assert all(0 < len(c) <= plan.boxes for c in chunks)
+        keys = []
+        for kt, sub, row in (box for c in chunks for box in c):
+            tok = sta.sta_box_tokens(grid, tile, plan, kt, sub)
+            np.testing.assert_array_equal(
+                np.where(tok >= 0, tok, -1),
+                token[row:row + plan.rows])
+            keys.append(tok[tok >= 0])
+        keys = np.concatenate(keys)
+        assert np.unique(keys).size == keys.size
+        np.testing.assert_array_equal(
+            np.sort(keys), np.sort(token[rows[qt][bias[qt] == 0]]))
+        q_rows = sum(int((sta.sta_box_tokens(grid, tile, plan, qt, sub)
+                          >= 0).sum()) for sub in range(plan.subs))
+        pairs += q_rows * (keys.size + 7)
+    if window[0] % 2:
+        assert pairs == sta.sta_pair_count(grid, tile, window, 7)
+    if grid == (17, 34, 60):
+        walk = functools.partial(sta.sta_ring_walk, grid, tile, window, plan)
+        assert sum(map(len, walk((1 * 5 + 2) * 8 + 3))) == 54
+        assert sum(map(len, walk((4 * 5 + 2) * 8 + 3))) == 27
+
+
+def _ring_args(grid, window, seed, tile=TILE64, d=64, lt=24):
+    """sta_ring's operands from _inputs (fp32): q5, the w-major kp/vp, the
+    flattened text and its bias, the offset c and the scale."""
+    img, txt, tb, _ = _inputs(grid, seed=seed, d=d, lt=lt)
+    iq, ik, iv, _, tk, tv, tbt = _torch(*img, *txt, tb)
+    b, _, h, _ = iq.shape
+    pg = sta._padded_grid(grid, tile)
+    return (iq.reshape(b, *grid, h * d),
+            sta._permute_tokens_cols(ik, grid, tile, pg),
+            sta._permute_tokens_cols(iv, grid, tile, pg),
+            tk.reshape(b, lt, -1), tv.reshape(b, lt, -1), tbt.reshape(b, lt),
+            torch.full((b, h), 3.0), grid, tile, window, d ** -0.5)
+
+
+@pytest.mark.parametrize("grid,window", [(g, WINDOW) for g in GRIDS]
+                         + [((4, 16, 16), (2, 2, 2))],
+                         ids=GRID_IDS + ["even_window"])
+def test_sta_ring_emulation_matches_plain(grid, window):
+    """B10's walk with zero-filled boxes and the geometry bias
+    (sta_ring_emulate) is sta_ring_plain's function on the ring grids, a
+    text key bias masking some keys, for an even window too; fp32, sums in
+    another order."""
+    args = _ring_args(grid, window, seed=23)
+    args[5][1, 5:] = NEG_INF
+    _close(sta.sta_ring_emulate(*args), sta.sta_ring_plain(*args))
+
+
+@pytest.mark.parametrize("grid", [GRIDS[0], GRIDS[3]],
+                         ids=[GRID_IDS[0], GRID_IDS[3]])
+def test_sta_ring_emulation_matches_jax_kernel(grid):
+    """The walk against JAX's _sta_ring_kernel in interpret mode
+    (sta_joint_attention(ring=True), its Cauchy-Schwarz offset: the
+    static bound only shifts the exponent, so the port's formula of it
+    serves) on two ragged ring grids."""
+    want, _ = _jax_ring(grid, WINDOW, tile=TILE64, d=64)
+    img, txt, tb, _ = _inputs(grid, seed=2, d=64)
+    iq, ik, iv, _, tk, tv, tbt = _torch(*img, *txt, tb)
+    b, _, h, d = iq.shape
+    lt = tk.shape[1]
+    norm = lambda x: x.square().sum(-1).sqrt().amax(dim=1)  # noqa: E731
+    c = norm(iq) * torch.maximum(norm(ik), norm(tk)) * d ** -0.5
+    pg = sta._padded_grid(grid, TILE64)
+    got = sta.sta_ring_emulate(
+        iq.reshape(b, *grid, h * d),
+        sta._permute_tokens_cols(ik, grid, TILE64, pg),
+        sta._permute_tokens_cols(iv, grid, TILE64, pg), tk.reshape(b, lt, -1),
+        tv.reshape(b, lt, -1), tbt.reshape(b, lt), c, grid, TILE64, WINDOW,
+        d ** -0.5)
+    _close(got.reshape(want.shape), want)
