@@ -20,9 +20,9 @@ Phases, one line each (any failure raises and exits non-zero):
      kernels with their int8 arms and the ring kernel B10 at 540p (B=2, 24
      heads x 128, a 17x34x60 patch grid, 256 text keys of which 40 are
      valid, bf16; B4, its int8 arm and the ring kernel B10 are
-     csrc/sta_direct.cu, the running kernel B7 csrc/sta_permuted.cu, the
-     static permuted ones csrc/sta_attention.cu; B10 also against B4 on the
-     same inputs); K1/K2 again on their key-range split path at
+     csrc/sta_direct.cu, the running kernel B7, the static permuted ones
+     B6a/B6b and their int8 arm B6q csrc/sta_permuted.cu; B10 also against
+     B4 on the same inputs); K1/K2 again on their key-range split path at
      the STA text merge's shape (256 text queries over the 34,680 image
      keys), and one timed launch each of K1, the static int8 kernel B8a and
      SDPA at the headline 720x1280x129f shape (119,056 tokens) and of B4 at
@@ -153,9 +153,10 @@ from hunyuanvideo_efficiency_tpu_torch.ops.rope import get_nd_rotary_pos_embed
 from hunyuanvideo_efficiency_tpu_torch.ops.sta import (
     _padded_grid, _permute_tokens_cols, _unpermute_tokens, permuted_operands,
     set_sta_ring, sta_attention_plain, sta_direct, sta_direct_int8,
-    sta_joint_attention, sta_pair_count, sta_permuted_plain,
-    sta_permuted_running, sta_permuted_static, sta_permuted_static_int8,
-    sta_reference_mask, sta_ring, sta_ring_plain)
+    sta_joint_attention, sta_pair_count, sta_permuted_codes,
+    sta_permuted_plain, sta_permuted_running, sta_permuted_static,
+    sta_permuted_static_int8, sta_reference_mask, sta_ring, sta_ring_plain,
+    sta_tile_codes)
 from hunyuanvideo_efficiency_tpu_torch.probes import conv_probe
 from hunyuanvideo_efficiency_tpu_torch.probes.w8a8_bench import graph_ms
 from hunyuanvideo_efficiency_tpu_torch.training import (
@@ -896,9 +897,8 @@ def check_sta(dev, smi):
               tol="rel 2e-2 (bf16)", kernel_ms=ms, plain_ms=plain_ms,
               library_ms=lib_ms, library_rel_err=lib_err, bound_ms=bound_ms,
               tflops=flops / ms / 1e9, card=smi)
-        source = {"sta_direct": "sta_direct.cu",
-                  "sta_permuted_running": "sta_permuted.cu"}.get(
-                      name, "sta_attention.cu")
+        source = "sta_direct.cu" if name == "sta_direct" else \
+            "sta_permuted.cu"
         rows.append(dict(
             name=name, route="cuda", source=SRC + source,
             replaces=f"hunyuanvideo_efficiency_tpu/ops/sta.py:{line}",
@@ -954,7 +954,8 @@ def check_sta_int8(dev, smi, lib_ms):
     """The quant arms of B4 and B6 at the 540p inputs of check_sta, C
     inflated for int8 rounding, each against its plain version (the direct
     arm's text keys in bf16, the permuted arm's quantized), max relative
-    error 2e-2. Yardstick: the masked SDPA of check_sta. Bound: the image
+    error 2e-2; each with its quantizing pre-pass alone (quant_ms, part of
+    kernel_ms). Yardstick: the masked SDPA of check_sta. Bound: the image
     (direct) or all (permuted) Q.K^T pairs at the int8 rate, the rest and
     P.V at the bf16 rate."""
     (iq, ik, iv), (_, tk, tv), tb, c = sta_inputs(dev, 13)
@@ -973,14 +974,16 @@ def check_sta_int8(dev, smi, lib_ms):
          lambda: sta_direct_int8(iq, ik, iv, tk, tv, tb, c, grid, tile,
                                  window, scale),
          lambda: sta_attention_plain(iq, ik, iv, tk, tv, tb, grid, tile,
-                                     window, scale, c, qk_int8=True)),
+                                     window, scale, c, qk_int8=True),
+         lambda: sta_tile_codes(iq, ik, grid, tile)),
         ("sta_permuted_static_int8", 446, pairs,
          lambda: sta_permuted_static_int8(qp, kcat, vcat, kb, c, grid, tile,
                                           window, scale),
          lambda: sta_permuted_plain(qp, kcat, vcat, kb, grid, tile, window,
-                                    scale, c, qk_int8=True)))
+                                    scale, c, qk_int8=True),
+         lambda: sta_permuted_codes(qp, kcat, tile)))
     rows = []
-    for name, line, int8_pairs, fn, plain in kernels:
+    for name, line, int8_pairs, fn, plain, prepass in kernels:
         out, ref = fn(), plain()
         torch.cuda.synchronize()
         abs_err, rel_err = errors(out, ref)
@@ -988,18 +991,20 @@ def check_sta_int8(dev, smi, lib_ms):
         if rel_err > 2e-2:
             raise AssertionError(f"{name}: max rel error {rel_err} > 2e-2")
         ms = cuda_ms(fn, 5)
+        quant_ms = cuda_ms(prepass, 5)
         plain_ms = cuda_ms(plain, 2)
         bound_ms, by = bound(per_pair * (2 * pairs - int8_pairs), io_bytes,
                              int8_ops=per_pair * int8_pairs)
         phase("kernel", name=name, shape=f"[{b},{s},{h},{d}]bf16",
               grid=json.dumps(grid), tile=json.dumps(tile),
               text_keys=f"{lt}({txt_valid} valid)", max_abs_err=abs_err,
-              tol="rel 2e-2 (bf16)", kernel_ms=ms, plain_ms=plain_ms,
-              library_ms=lib_ms, bound_ms=bound_ms, card=smi)
+              tol="rel 2e-2 (bf16)", kernel_ms=ms, quant_ms=quant_ms,
+              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+              card=smi)
         rows.append(dict(
             name=name, route="cuda",
             source=SRC + ("sta_direct.cu" if name == "sta_direct_int8"
-                          else "sta_attention.cu"),
+                          else "sta_permuted.cu"),
             replaces=f"{JAX}sta.py:{line}", max_abs_err=abs_err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
             library_ms=lib_ms))

@@ -1,12 +1,12 @@
 // The warpgroup flash-attention pieces shared by flash_attention.cu (K1, K2,
 // B5f), flash_int8.cu (B8a, B8b), flash_backward.cu (B5q, B5kv) and, through
-// sta_wg.cuh, sta_direct.cu (B4, B4q, B10) and sta_permuted.cu (B7): the
-// block's tile sizes, the consumer warpgroups' turns, the static or online
-// softmax of one 64 x 128 score tile in log2 units (each kernel gives its
-// own score of an element; the bf16 and s8 score products S = Q.K^T with
-// their softmax), P packed from the accumulator layout into wgmma A
-// fragments, the rescale of O, and the P.V product with V MN-major in
-// shared memory.
+// sta_wg.cuh, sta_direct.cu (B4, B4q, B10) and sta_permuted.cu (B7, B6a/b,
+// B6q): the block's tile sizes, the consumer warpgroups' turns, the static
+// or online softmax of one 64 x 128 score tile in log2 units (each kernel
+// gives its own score of an element; the bf16 and s8 score products S =
+// Q.K^T with their softmax), P packed from the accumulator layout into
+// wgmma A fragments, the rescale of O, and the P.V product with V MN-major
+// in shared memory.
 //
 // A block of THREADS = 384 owns BM = 128 query rows of one (b, h):
 // warpgroup 0 is the producer (TMA), warpgroups 1 and 2 consume 64 rows

@@ -1,10 +1,11 @@
 // The consumer warpgroups of the STA kernels sta_direct.cu (B4, B4q, B10)
-// and sta_permuted.cu (B7): a ring slot's sizes, and the chunk loop over
-// it. Chunk j's S = Q.K^T is issued together with chunk j-1's P.V, so that
-// its softmax runs under that product (K1's loop, flash_attention.cu), and
-// the two warpgroups take turns to issue (B8's turns, flash_wg.cuh), so
-// that one's softmax runs under the other's products. The static softmax
-// (a per-key bias less the offset C) or, under RUNNING, the online softmax
+// and sta_permuted.cu (B7, B6a/B6b, B6q): a ring slot's sizes, and the
+// chunk loop over it. Chunk j's S = Q.K^T is issued together with chunk
+// j-1's P.V, so that its softmax runs under that product (K1's loop,
+// flash_attention.cu), and the two warpgroups take turns to issue (B8's
+// turns, flash_wg.cuh), so that one's softmax runs under the other's
+// products. The static softmax (a per-key bias less the offset C, or under
+// QUANT a per-key factor and bias) or, under RUNNING, the online softmax
 // with O rescaled once the previous chunk's P.V is done (K2's).
 #pragma once
 
@@ -27,8 +28,8 @@ struct StaSlot {
 };
 
 // The kinds of a chunk's products: 128 keys of 16-bit K (B4's chunks), of
-// int8 codes (B4q's image chunks), or a text chunk of 64 keys of 16-bit K
-// (B4q's).
+// int8 codes (B4q's image chunks, every chunk of B6q), or a text chunk of
+// 64 keys of 16-bit K (B4q's).
 enum class Kind { bf16, s8, txt64 };
 
 // S = Q.K^T for a text chunk of 64 keys: 64 query rows (A at q_addr) x 64

@@ -43,10 +43,6 @@ SIGNATURES = {
         "hv_conv3d_stride1_v2": (
             _I, [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     },
-    "sta_attention": {
-        "hv_sta_attention_fwd": (
-            _I, [_I] * 3 + [_P] * 9 + [_I] * 10 + [_LL] * 9 + [_F, _P]),
-    },
     "sta_direct": {
         "hv_sta_tile_codes": (
             _I, [_I, _I, _P, _LL, _LL, _P, _LL, _LL] + [_I] * 8 + [_P] * 5),
@@ -56,8 +52,10 @@ SIGNATURES = {
             _I, [_I] * 2 + [_P] * 8 + [_I] * 12 + [_LL] * 12 + [_F, _P]),
     },
     "sta_permuted": {
+        "hv_sta_permuted_codes": (
+            _I, [_I, _I, _P, _LL, _LL, _P, _LL, _LL] + [_I] * 5 + [_P] * 5),
         "hv_sta_permuted_fwd": (
-            _I, [_I] * 3 + [_P] * 7 + [_I] * 10 + [_LL] * 9 + [_F, _P]),
+            _I, [_I] * 4 + [_P] * 9 + [_I] * 10 + [_LL] * 9 + [_F, _P]),
     },
     "flash_int8": {
         "hv_quantize_groups": (

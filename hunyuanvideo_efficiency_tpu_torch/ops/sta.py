@@ -25,20 +25,22 @@ Six kernels, each a wrapper here with a `LAUNCHES` count:
   copies as whole window-column runs, validity from the geometry; B4's
   loop and query side (`plan_sta_ring`, `sta_ring_walk`,
   `sta_ring_emulate`).
-* `sta_permuted_static` (`csrc/sta_attention.cu`, QUANT=0) replaces
-  `_sta_nomax_fused_kernel` and `_sta_nomax_kernel`, which compute the same
-  function: static offset over tile-major permuted q and the concatenated
-  [img tiles | text] keys `kcat`, the text block(s) being extra slots of
-  the neighbour table.
-* `sta_permuted_running` (B7, `csrc/sta_permuted.cu`) replaces
-  `_sta_kernel`: the same layout with a running max, for models without
-  QK-norm; wgmma products on a TMA ring over the neighbour table's key
-  boxes (`plan_sta_permuted`, `sta_permuted_walk`,
-  `sta_permuted_emulate`).
-* `sta_permuted_static_int8` (`csrc/sta_attention.cu`, QUANT=1) is the
-  `quant=True` arm of the permuted static kernels: every key tile of kcat
-  quantized, text blocks included. The direct and permuted int8 arms
-  compute different functions, and each wrapper follows its JAX arm.
+* `sta_permuted_static` (B6a/B6b, `csrc/sta_permuted.cu`, RUNNING=0)
+  replaces `_sta_nomax_fused_kernel` and `_sta_nomax_kernel`, which
+  compute the same function: static offset over tile-major permuted q and
+  the concatenated [img tiles | text] keys `kcat`, the text block(s) being
+  extra slots of the neighbour table; wgmma products on a TMA ring over
+  the neighbour table's key boxes (`plan_sta_permuted`,
+  `sta_permuted_walk`, `sta_permuted_emulate`).
+* `sta_permuted_running` (B7, the same source, RUNNING=1) replaces
+  `_sta_kernel`: the same layout and walk with a running max, for models
+  without QK-norm.
+* `sta_permuted_static_int8` (B6q, the same source, QUANT=1) is the
+  `quant=True` arm of the permuted static kernels: a pre-pass
+  (`sta_permuted_codes`) writes int8 codes of qp and kcat with one scale
+  per (batch, head, tile), text blocks included, then every chunk's Q.K^T
+  runs on s8 wgmma. The direct and permuted int8 arms compute different
+  functions, and each wrapper follows its JAX arm.
 
 On CPU tensors each wrapper runs the plain version (`sta_attention_plain`,
 built on `sta_permuted_plain`; B10's `sta_ring_plain`): neighbour tiles gathered per chunk of query
@@ -507,19 +509,22 @@ def sta_ring_walk(grid, tile, window, plan: StaDirectPlan,
     return [boxes[i:i + plan.boxes] for i in range(0, len(boxes), plan.boxes)]
 
 
-PERMUTED_MAX_BOXES = 1024  # B7's marks of live key boxes a query tile
+PERMUTED_MAX_BOXES = 1024  # the permuted kernels' marks of live key boxes
+                           # a query tile
 
 
 @dataclasses.dataclass(frozen=True)
 class StaPermutedPlan:
-    """B7's launch (csrc/sta_permuted.cu) on one geometry: `rows` rows of a
-    tile a TMA box (a block's query rows: 128, or 64 when the tile's tokens
-    are not a multiple of 128), `subs` boxes a tile, `boxes` boxes a key
-    chunk of STA_CHUNK, `n_boxes` key boxes a query tile (slots x subs,
-    each marked live or not before the walk), the launch grid (box of a
-    query tile fastest, then heads, batch), the ring's slots and the
-    dynamic shared memory in bytes (Q; per slot K, V, the per-key bias and
-    the chunk's box rows; the barriers; the marks; 1024 to align)."""
+    """The launch of the permuted kernels B7, B6a/B6b and B6q
+    (csrc/sta_permuted.cu) on one geometry: `rows` rows of a tile a TMA box
+    (a block's query rows: 128, or 64 when the tile's tokens are not a
+    multiple of 128), `subs` boxes a tile, `boxes` boxes a key chunk of
+    STA_CHUNK, `n_boxes` key boxes a query tile (slots x subs, each marked
+    live or not before the walk), the launch grid (box of a query tile
+    fastest, then heads, batch), the ring's slots and the dynamic shared
+    memory in bytes (Q, or B6q's int8 codes of Q; per slot K (B6q: int8
+    codes), V, the per-key bias (B6q: (factor, bias) pairs) and the chunk's
+    box rows; the barriers; the marks; 1024 to align)."""
     rows: int
     subs: int
     boxes: int
@@ -530,9 +535,11 @@ class StaPermutedPlan:
 
 
 def sta_permuted_gate(tile, n_slots: int, d: int) -> Optional[str]:
-    """Why B7 (csrc/sta_permuted.cu) cannot take a geometry, or None:
-    head_dim 64 or 128, tile tokens a multiple of 64, at most
-    PERMUTED_MAX_BOXES key boxes a query tile."""
+    """Why the permuted kernels (csrc/sta_permuted.cu) cannot take a
+    geometry, or None: head_dim 64 or 128, tile tokens a multiple of 64, at
+    most PERMUTED_MAX_BOXES key boxes a query tile. The box limit is far
+    above any window the CLI gives: a 3x3x3 window of 256-token tiles with
+    one text block is 55 boxes."""
     block = tile[0] * tile[1] * tile[2]
     if d not in (64, 128):
         return f"head_dim {d} is not 64 or 128"
@@ -546,20 +553,23 @@ def sta_permuted_gate(tile, n_slots: int, d: int) -> Optional[str]:
 
 
 def plan_sta_permuted(b: int, heads: int, d: int, grid, tile, window,
-                      txt_pad: int) -> StaPermutedPlan:
-    """The plan of B7 for tile-major [b, S_pad, heads, d] queries over
-    `grid` with txt_pad padded text keys (whole tiles); raises ValueError
-    outside `sta_permuted_gate`."""
+                      txt_pad: int, quant: bool = False,
+                      name: str = "sta_permuted") -> StaPermutedPlan:
+    """The plan of the permuted kernels for tile-major [b, S_pad, heads, d]
+    queries over `grid` with txt_pad padded text keys (whole tiles); quant:
+    B6q's. Raises ValueError, naming the caller `name`, outside
+    `sta_permuted_gate`."""
     plan = tile_plan(tuple(grid), tuple(tile), tuple(window), txt_pad)
     err = sta_permuted_gate(tile, plan["n_slots"], d)
     if err:
-        raise ValueError(f"sta_permuted_running: {err}")
+        raise ValueError(f"{name}: {err}")
     block = plan["tokens_per_tile"]
     rows = STA_CHUNK if block % STA_CHUNK == 0 else 64
     stages, subs = 3, block // rows
-    smem = (STA_CHUNK * d * 2 + stages * (STA_CHUNK * d * 4 + STA_CHUNK * 4
-                                          + 8)
-            + (1 + 3 * stages) * 8 + PERMUTED_MAX_BOXES // 8 + 1024)
+    qk_bytes, w_bytes = (1, 8) if quant else (2, 4)   # Q and K; per key
+    slot = STA_CHUNK * d * (qk_bytes + 2) + STA_CHUNK * w_bytes + 8
+    smem = (STA_CHUNK * d * qk_bytes + stages * slot + (1 + 3 * stages) * 8
+            + PERMUTED_MAX_BOXES // 8 + 1024)
     return StaPermutedPlan(rows, subs, STA_CHUNK // rows,
                            plan["n_slots"] * subs,
                            (plan["n_tiles"] * subs, heads, b), stages, smem)
@@ -567,8 +577,8 @@ def plan_sta_permuted(b: int, heads: int, d: int, grid, tile, window,
 
 def sta_permuted_walk(plan: StaPermutedPlan, block: int, nbr_row,
                       kb_row) -> List[List[int]]:
-    """B7's key chunks of one query tile and batch entry, as the kernel
-    walks them: the boxes of the slots of `nbr_row` (its row of the
+    """The permuted kernels' key chunks of one query tile and batch entry,
+    as they walk them: the boxes of the slots of `nbr_row` (its row of the
     neighbour table) in slot order, each tile's `plan.subs` boxes in turn,
     a box none of whose keys is unmasked in `kb_row` (that batch entry's kb,
     host numpy) skipped; each box as the kcat row of its first key,
@@ -832,25 +842,34 @@ def sta_ring_emulate(q5, kp, vp, txt_k, txt_v, txt_bias, c, grid, tile,
 
 
 def sta_permuted_emulate(qp, kcat, vcat, kb, grid, tile, window,
-                         scale: float) -> torch.Tensor:
-    """B7's walk in plain PyTorch, for checking its plan on the CPU: per
-    block of `plan.rows` query rows of a tile, zeros if none of them is a
-    token or no key box is live; else the key chunks of `sta_permuted_walk`
-    (its all-masked boxes skipped, a short chunk's repeated box at bias
-    -1e30) folded in order by the online softmax: m' = max(m, max_k(s +
-    kb)), p = exp(s + kb - m') rounded to V's type before P.V, l and acc
-    rescaled by exp(m - m'); out = acc / max(l, 1e-37), padding rows zero.
-    Arguments as `sta_permuted_running`; returns [B, S_pad, H*D]."""
+                         scale: float, c: Optional[torch.Tensor] = None,
+                         quant: bool = False) -> torch.Tensor:
+    """The permuted kernels' walk in plain PyTorch, for checking their plan
+    on the CPU: per block of `plan.rows` query rows of a tile, zeros if none
+    of them is a token or no key box is live; else the key chunks of
+    `sta_permuted_walk` (its all-masked boxes skipped, a short chunk's
+    repeated box at bias -1e30) folded in order. c None (B7): the online
+    softmax m' = max(m, max_k(s + kb)), p = exp(s + kb - m'), l and acc
+    rescaled by exp(m - m'); c [B, H] (B6a/B6b): p = exp(s + kb - c). s =
+    Q.K^T * scale, or under quant (B6q, with c) s32 * (sq * sk * scale) on
+    `tile_codes` of qp and kcat, sk that of each key's own tile. p rounded
+    to V's type before P.V; out = acc / max(l, 1e-37), padding rows zero.
+    Arguments as `sta_permuted_static` (c None: `sta_permuted_running`);
+    returns [B, S_pad, H*D]."""
     grid, tile, window = tuple(grid), tuple(tile), tuple(window)
     b, s_pad, hh, d = qp.shape
     block = tile[0] * tile[1] * tile[2]
-    tplan = tile_plan(grid, tile, window, kcat.shape[1] - s_pad)
-    plan = plan_sta_permuted(b, hh, d, grid, tile, window,
-                             kcat.shape[1] - s_pad)
+    txt_pad = kcat.shape[1] - s_pad
+    tplan = tile_plan(grid, tile, window, txt_pad)
+    plan = plan_sta_permuted(b, hh, d, grid, tile, window, txt_pad, quant)
     row_ok = torch.from_numpy(
         _valid_tokens(grid, tplan["padded_grid"]).reshape(-1)[tplan["perm"]])
     kbf = kb.float()
     kb_np = kbf.cpu().numpy()
+    qs, ks = qp, kcat
+    if quant:
+        (qs, sq), (ks, sk) = (tile_codes(x, block) for x in (qp, kcat))
+        qs, ks = qs.reshape(qp.shape), ks.reshape(kcat.shape)
     out = torch.zeros((b, s_pad, hh * d), dtype=qp.dtype, device=qp.device)
     for qtile in range(tplan["n_tiles"]):
         for sub in range(plan.subs):
@@ -858,11 +877,13 @@ def sta_permuted_emulate(qp, kcat, vcat, kb, grid, tile, window,
             ok = row_ok[q0:q0 + plan.rows].to(qp.device)
             if not ok.any():
                 continue
-            q = qp[:, q0:q0 + plan.rows].float()
+            q = qs[:, q0:q0 + plan.rows].float()
             for bi in range(b):
                 chunks = sta_permuted_walk(plan, block, tplan["nbr"][qtile],
                                            kb_np[bi])
-                m = torch.full((hh, plan.rows), NEG_INF, device=qp.device)
+                m = (torch.full((hh, plan.rows), NEG_INF, device=qp.device)
+                     if c is None else
+                     c[bi].float()[:, None].expand(hh, plan.rows))
                 l = torch.zeros((hh, plan.rows), device=qp.device)
                 acc = torch.zeros((hh, plan.rows, d), device=qp.device)
                 for chunk in chunks:
@@ -873,9 +894,17 @@ def sta_permuted_emulate(qp, kcat, vcat, kb, grid, tile, window,
                     bias = kbf[bi, idx].clone()
                     bias[len(chunk) * plan.rows:] = NEG_INF
                     s = torch.einsum("qhd,khd->hqk", q[bi],
-                                     kcat[bi, idx].float()) * scale + bias
-                    m_new = torch.maximum(m, s.amax(-1))
-                    p = torch.exp(s - m_new[..., None])
+                                     ks[bi, idx].float())
+                    if quant:   # [H] x [H, K]: each key's own tile
+                        s = s * ((sq[bi, qtile][:, None, None]
+                                  * sk[bi, idx // block].T[:, None, :])
+                                 * scale)
+                    else:
+                        s = s * scale
+                    x = s + bias
+                    m_new = m if c is not None else torch.maximum(
+                        m, x.amax(-1))
+                    p = torch.exp(x - m_new[..., None])
                     corr = torch.exp(m - m_new)
                     l = l * corr + p.sum(-1)
                     acc = acc * corr[..., None] + torch.einsum(
@@ -1020,55 +1049,9 @@ def _check(name, tensors, dtype):
         raise TypeError(f"{name} takes bf16 or fp16, got {dtype}")
 
 
-def _geometry(name, grid, tile, d):
-    block = tile[0] * tile[1] * tile[2]
-    if d not in (64, 128):
-        raise ValueError(f"{name} takes head_dim 64 or 128, got {d}")
-    if block % 64:
-        raise ValueError(f"{name}: tile {tile} has {block} tokens, not a "
-                         f"multiple of 64")
-    return block
-
-
-def _launch_running(name, q, k, v, out, kb, nbr, grid, tile, scale):
-    """B7 of csrc/sta_permuted.cu on tile-major q and kcat/vcat (all
-    [B, S, H, D] row views TMA reads)."""
-    b, _, hh, d = q.shape
-    n_ktiles = k.shape[1] // (tile[0] * tile[1] * tile[2])
-    err = cuda_lib.library("sta_permuted").hv_sta_permuted_fwd(
-        _DTYPE_CODE[q.dtype], 1, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), kb.data_ptr(), None, nbr.data_ptr(), b, hh,
-        nbr.shape[1], n_ktiles, *grid, *tile, q.stride(0), q.stride(1),
-        k.stride(0), k.stride(1), v.stride(0), v.stride(1), out.stride(0),
-        out.stride(1), kb.stride(0), float(scale),
-        cuda_lib.stream_ptr(q.device))
-    cuda_lib.check(err, name)
-
-
-def _launch(name, q, k, v, out, kb, c, nbr, grid, tile, scale, quant):
-    """The static permuted kernels of csrc/sta_attention.cu on tile-major q
-    and kcat/vcat (all [B, S, H, D] row views)."""
-    b, _, hh, d = q.shape
-    block = tile[0] * tile[1] * tile[2]
-    n_qtiles = nbr.shape[0]
-    n_ktiles = k.shape[1] // block
-    sq = sk = None
-    if quant:   # scratch for the kernel's tile-scale pre-pass
-        sq = torch.empty((b, hh, n_qtiles), dtype=torch.float32,
-                         device=q.device)
-        sk = torch.empty((b, hh, n_ktiles), dtype=torch.float32,
-                         device=q.device)
-    lib = cuda_lib.library("sta_attention")
-    err = lib.hv_sta_attention_fwd(
-        _DTYPE_CODE[q.dtype], int(quant), d, q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), out.data_ptr(), kb.data_ptr(),
-        c.data_ptr(), nbr.data_ptr(),
-        sq.data_ptr() if quant else None, sk.data_ptr() if quant else None,
-        b, hh, nbr.shape[1], n_ktiles, *grid, *tile, q.stride(0),
-        q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        out.stride(0), out.stride(1), kb.stride(0), float(scale),
-        cuda_lib.stream_ptr(q.device))
-    cuda_lib.check(err, name)
+def _ptr(x):
+    """A tensor's address for a C argument, or None (a null pointer)."""
+    return x.data_ptr() if x is not None else None
 
 
 def _rows_for_tma(name, **views):
@@ -1148,14 +1131,10 @@ def _direct(name, quant, img_q, img_k, img_v, txt_k, txt_v, txt_bias, c,
     if quant:
         q8, k8, sq, sk = sta_tile_codes(q, k, grid, tile)
     out = torch.empty((b, s_img, hh * d), dtype=q.dtype, device=q.device)
-
-    def ptr(x):
-        return x.data_ptr() if x is not None else None
-
     err = cuda_lib.library("sta_direct").hv_sta_direct_fwd(
         _DTYPE_CODE[q.dtype], int(quant), d, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), tk.data_ptr(), tv.data_ptr(), ptr(kb),
-        ptr(tb), cc.data_ptr(), ptr(q8), ptr(k8), ptr(sq), ptr(sk), b, hh,
+        v.data_ptr(), out.data_ptr(), tk.data_ptr(), tv.data_ptr(), _ptr(kb),
+        _ptr(tb), cc.data_ptr(), _ptr(q8), _ptr(k8), _ptr(sq), _ptr(sk), b, hh,
         lt, *grid, *tile, *window, q.stride(0), q.stride(1), k.stride(0),
         k.stride(1), v.stride(0), v.stride(1), tk.stride(0), tk.stride(1),
         tv.stride(0), tv.stride(1), out.stride(0), out.stride(1),
@@ -1199,44 +1178,92 @@ def sta_direct_int8(img_q, img_k, img_v, txt_k, txt_v, txt_bias, c, grid,
 sta_direct_int8.LAUNCHES = 0
 
 
+def sta_permuted_codes(qp, kcat, tile):
+    """B6q's pre-pass (csrc/sta_permuted.cu:tile_codes_kernel): the int8
+    codes of tile-major qp [B, S_pad, H, D] and kcat [B, n_ktiles*block, H,
+    D], one scale per (batch, head, tile of `block` rows), padding rows
+    included: (q8 [B, S_pad, H*D], k8 [B, n_ktiles*block, H*D] int8, sq
+    [B, H, n_tiles], sk [B, H, n_ktiles] fp32), `tile_codes` in the kernel's
+    layout. Kernel on CUDA tensors, `tile_codes` on CPU tensors."""
+    block = tile[0] * tile[1] * tile[2]
+    b, s_pad, hh, d = qp.shape
+    if qp.device.type == "cpu":
+        (q8, sq), (k8, sk) = (tile_codes(x, block) for x in (qp, kcat))
+        return (q8.to(torch.int8).reshape(b, s_pad, hh * d),
+                k8.to(torch.int8).reshape(b, -1, hh * d),
+                sq.permute(0, 2, 1).contiguous(),
+                sk.permute(0, 2, 1).contiguous())
+    name = "sta_permuted_codes"
+    _check(name, (("qp", qp), ("kcat", kcat)), qp.dtype)
+    if d not in (64, 128) or block % 64 or s_pad % block \
+            or kcat.shape[1] % block or kcat.shape[0::2] != (b, hh) \
+            or kcat.shape[-1] != d:
+        raise ValueError(f"{name}: bad shapes qp {tuple(qp.shape)} kcat "
+                         f"{tuple(kcat.shape)} for tile {tuple(tile)}")
+    q, k = _rows_for_tma(name, qp=qp, kcat=kcat)
+    n_tiles, n_ktiles = s_pad // block, k.shape[1] // block
+    q8 = torch.empty((b, s_pad, hh * d), dtype=torch.int8, device=q.device)
+    k8 = torch.empty((b, k.shape[1], hh * d), dtype=torch.int8,
+                     device=q.device)
+    sq = torch.empty((b, hh, n_tiles), dtype=torch.float32, device=q.device)
+    sk = torch.empty((b, hh, n_ktiles), dtype=torch.float32, device=q.device)
+    err = cuda_lib.library("sta_permuted").hv_sta_permuted_codes(
+        _DTYPE_CODE[q.dtype], d, q.data_ptr(), q.stride(0), q.stride(1),
+        k.data_ptr(), k.stride(0), k.stride(1), b, hh, n_tiles, n_ktiles,
+        block, q8.data_ptr(), k8.data_ptr(), sq.data_ptr(), sk.data_ptr(),
+        cuda_lib.stream_ptr(q.device))
+    cuda_lib.check(err, name)
+    return q8, k8, sq, sk
+
+
 def _permuted(name, running, qp, kcat, vcat, kb, c, grid, tile, window,
               scale, quant=False):
+    """B7 (running), B6a/B6b or B6q (quant) of csrc/sta_permuted.cu on
+    tile-major qp and kcat/vcat [B, S, H, D], checked by the gate of
+    `plan_sta_permuted`; the plain version on CPU tensors."""
     grid, tile, window = tuple(grid), tuple(tile), tuple(window)
     if qp.device.type == "cpu":
         return sta_permuted_plain(qp, kcat, vcat, kb, grid, tile, window,
                                   scale, c, qk_int8=quant)
     _check(name, (("qp", qp), ("kcat", kcat), ("vcat", vcat)), qp.dtype)
     b, s_pad, hh, d = qp.shape
-    block = _geometry(name, grid, tile, d)
-    plan = tile_plan(grid, tile, window, kcat.shape[1] - s_pad)
-    if s_pad != plan["n_tiles"] * block or vcat.shape != kcat.shape \
+    txt_pad = kcat.shape[1] - s_pad
+    plan_sta_permuted(b, hh, d, grid, tile, window, txt_pad, quant, name)
+    block = tile[0] * tile[1] * tile[2]
+    tplan = tile_plan(grid, tile, window, txt_pad)
+    if s_pad != tplan["n_tiles"] * block or vcat.shape != kcat.shape \
             or kcat.shape[0::2] != (b, hh) or kcat.shape[-1] != d \
-            or (kcat.shape[1] - s_pad) % block \
-            or kb.shape != (b, kcat.shape[1]):
+            or txt_pad % block or kb.shape != (b, kcat.shape[1]):
         raise ValueError(f"{name}: bad shapes qp {tuple(qp.shape)} kcat "
                          f"{tuple(kcat.shape)} kb {tuple(kb.shape)} for "
                          f"grid {grid}, tile {tile}")
-    if running:   # B7 reads them through TMA
-        plan_sta_permuted(b, hh, d, grid, tile, window, kcat.shape[1] - s_pad)
-        q, k, v = _rows_for_tma(name, qp=qp, kcat=kcat, vcat=vcat)
-    else:
-        q, k, v = _as_rows(qp), _as_rows(kcat), _as_rows(vcat)
+    q, k, v = _rows_for_tma(name, qp=qp, kcat=kcat, vcat=vcat)
     kbf = kb.float().contiguous()
     cc = None if running else c.float().expand(b, hh).contiguous()
-    nbr = _device_nbr(grid, tile, window, kcat.shape[1] - s_pad, q.device)
-    out = torch.empty((b, s_pad, hh * d), dtype=q.dtype, device=q.device)
-    if running:
-        _launch_running(name, q, k, v, out, kbf, nbr, grid, tile, scale)
-    else:
-        _launch(name, q, k, v, out, kbf, cc, nbr, grid, tile, scale, quant)
+    nbr = _device_nbr(grid, tile, window, txt_pad, q.device)
+    sq = sk = None
+    if quant:   # the kernel reads the codes in place of q and k
+        q, k, sq, sk = sta_permuted_codes(q, k, tile)
+    out = torch.empty((b, s_pad, hh * d), dtype=v.dtype, device=v.device)
+    err = cuda_lib.library("sta_permuted").hv_sta_permuted_fwd(
+        _DTYPE_CODE[v.dtype], int(running), int(quant), d, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(), kbf.data_ptr(), _ptr(cc),
+        nbr.data_ptr(), _ptr(sq), _ptr(sk), b, hh, nbr.shape[1],
+        k.shape[1] // block, *grid, *tile, q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), v.stride(0), v.stride(1), out.stride(0),
+        out.stride(1), kbf.stride(0), float(scale),
+        cuda_lib.stream_ptr(v.device))
+    cuda_lib.check(err, name)
     return out
 
 
 def sta_permuted_static(qp, kcat, vcat, kb, c, grid, tile, window,
                         scale: float) -> torch.Tensor:
-    """B6a/B6b: static-offset STA on the tile-major layout of
-    `permuted_operands`; c [B, H] fp32. Returns [B, S_pad, H*D] tile-major,
-    padding rows zero. Kernel on CUDA tensors, plain version on CPU."""
+    """B6a/B6b (csrc/sta_permuted.cu, RUNNING=0): static-offset STA on
+    the tile-major layout of `permuted_operands`; c [B, H] fp32. Returns
+    [B, S_pad, H*D] tile-major, padding rows zero. Kernel on CUDA tensors
+    (inside `sta_permuted_gate`; it raises outside), plain version on
+    CPU."""
     out = _permuted("sta_permuted_static", False, qp, kcat, vcat, kb, c,
                     grid, tile, window, scale)
     if qp.device.type != "cpu":
@@ -1249,10 +1276,11 @@ sta_permuted_static.LAUNCHES = 0
 
 def sta_permuted_static_int8(qp, kcat, vcat, kb, c, grid, tile, window,
                              scale: float) -> torch.Tensor:
-    """B6's int8 arm: as `sta_permuted_static` with Q.K^T in int8, every
-    key tile of kcat (text blocks included) quantized with its own scale; c
-    must bound the int8 scores (inflated). Kernel on CUDA tensors, plain
-    version on CPU."""
+    """B6q (csrc/sta_permuted.cu, QUANT=1): as `sta_permuted_static` with
+    Q.K^T in int8, every key tile of kcat (text blocks included) quantized
+    with its own scale by the pre-pass `sta_permuted_codes`; c must bound
+    the int8 scores (inflated). Kernel on CUDA tensors (inside
+    `sta_permuted_gate`; it raises outside), plain version on CPU."""
     out = _permuted("sta_permuted_static_int8", False, qp, kcat, vcat, kb, c,
                     grid, tile, window, scale, quant=True)
     if qp.device.type != "cpu":
@@ -1265,10 +1293,10 @@ sta_permuted_static_int8.LAUNCHES = 0
 
 def sta_permuted_running(qp, kcat, vcat, kb, grid, tile, window,
                          scale: float) -> torch.Tensor:
-    """B7 (csrc/sta_permuted.cu): running-max STA on the tile-major layout
-    of `permuted_operands`. Returns [B, S_pad, H*D] tile-major, padding
-    rows zero. Kernel on CUDA tensors (inside `sta_permuted_gate`; it
-    raises outside), plain version on CPU."""
+    """B7 (csrc/sta_permuted.cu, RUNNING=1): running-max STA on the
+    tile-major layout of `permuted_operands`. Returns [B, S_pad, H*D]
+    tile-major, padding rows zero. Kernel on CUDA tensors (inside
+    `sta_permuted_gate`; it raises outside), plain version on CPU."""
     out = _permuted("sta_permuted_running", True, qp, kcat, vcat, kb, None,
                     grid, tile, window, scale)
     if qp.device.type != "cpu":
@@ -1445,9 +1473,8 @@ def sta_joint_attention(
     image and text queries alike. plain=True routes the image queries to
     `sta_attention_plain` (a reference for checks on the card).
     slot_block, head_block: accepted for signature parity with the JAX
-    function; the CUDA kernels fix their own tiles (B4, B4q, B10 and B7:
-    boxes of up to 128 query rows, key chunks of 128; the static permuted
-    kernels: 64 x 64).
+    function; the CUDA kernels fix their own tiles (B4, B4q, B10, B7, B6a/b
+    and B6q: boxes of up to 128 query rows, key chunks of 128).
     lane_rotate (a TPU DMA-elision plan) is not ported.
     """
     del head_block

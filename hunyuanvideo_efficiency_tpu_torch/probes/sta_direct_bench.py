@@ -1,6 +1,6 @@
 """Check and time the wgmma STA kernels: B4 and B4q (csrc/sta_direct.cu),
-the ring kernel B10 (its RING arm) and the running-max permuted kernel B7
-(csrc/sta_permuted.cu).
+the ring kernel B10 (its RING arm), the running-max permuted kernel B7 and
+the static permuted kernels B6a/B6b and B6q (csrc/sta_permuted.cu).
 
     python -m hunyuanvideo_efficiency_tpu_torch.probes.sta_direct_bench \\
         [--reps N] [--ptxas] [--no-check] [--against DIR]
@@ -9,22 +9,23 @@ At the STA main path's attention at 540p, [2, 34680, 24, 128] bf16 on the
 17x34x60 patch grid, tile (4, 8, 8), window (3, 3, 3), 256 text keys of
 which 40 are valid, q and k of unit RMS and v a column view of a fused
 [2, S, 3*H*D] projection, C the Cauchy-Schwarz bound sqrt(D) (B4q:
-inflated for the int8 rounding): each kernel against its plain version
-(max error relative to the output's scale 2e-2, two runs equal bit for
-bit; skipped with --no-check), its time (CUDA events over --reps launches)
-and its bound (4*D operations per valid query-key pair, sta_pair_count;
-B4q's image Q.K^T half at the int8 rate), and for B4q its pre-pass alone.
-B10 runs on its own operands (q as a 5-D view, K/V copied to w-major
-order), B7 on permuted_operands' (tile-major q, [img | text] keys and
-their bias, compared in tile-major order, padding rows zero). --against
+inflated for the int8 rounding; B6q likewise): each kernel against its
+plain version (max error relative to the output's scale 2e-2, two runs
+equal bit for bit; skipped with --no-check), its time (CUDA events over
+--reps launches) and its bound (4*D operations per valid query-key pair,
+sta_pair_count; the Q.K^T half of B4q's image pairs and of all B6q's pairs
+at the int8 rate), and for B4q and B6q their pre-pass alone. B10 runs on
+its own operands (q as a 5-D view, K/V copied to w-major order), B7, B6a
+and B6q on permuted_operands' (tile-major q, [img | text] keys and their
+bias, compared in tile-major order, padding rows zero). --against
 DIR runs the wrappers of the same names from the package copy under DIR
 (another checkout, such as a parent commit unpacked with `git archive`;
 its kernels build into its own build directory) on the same inputs:
 checked against this copy's plain version, and timed in turns with this
-copy's (this, other, other, this). One JSON line a kernel, with the card's name and power limit. With
---ptxas it first compiles csrc/sta_direct.cu and csrc/sta_permuted.cu with
-`-Xptxas -v,-warn-spills` and prints ptxas's lines and the SASS's counts
-(flash_bwd_bench.ptxas_report). Exits non-zero on a mismatch or without a
+copy's (this, other, other, this). One JSON line a kernel, with the card's
+name and power limit. With --ptxas it first compiles csrc/sta_direct.cu and
+csrc/sta_permuted.cu with `-Xptxas -v,-warn-spills` and prints ptxas's
+lines and the SASS's counts (flash_bwd_bench.ptxas_report). Exits non-zero on a mismatch or without a
 CUDA device.
 """
 import argparse
@@ -45,7 +46,8 @@ PEAK_FLOPS, PEAK_INT8 = 989e12, 1979e12
 GRID, TILE, WINDOW = (17, 34, 60), (4, 8, 8), (3, 3, 3)
 B, H, D, LT, LT_VALID = 2, 24, 128, 256, 40
 KERNELS = ("sta_direct", "sta_direct_int8", "sta_ring",
-           "sta_permuted_running")
+           "sta_permuted_running", "sta_permuted_static",
+           "sta_permuted_static_int8")
 
 
 def inputs(dev):
@@ -103,9 +105,29 @@ def calls(mod, name, q, k, v, tk, tv, tb, scale):
                 lambda: sta.sta_ring_plain(*args))
     _, qp, kcat, vcat, kb = sta.permuted_operands(q, k, v, tk, tv, tb, GRID,
                                                   TILE, WINDOW)
-    args = (qp, kcat, vcat, kb, GRID, TILE, WINDOW, scale)
-    return (lambda: mod.sta_permuted_running(*args),
-            lambda: sta.sta_permuted_plain(*args))
+    if name == "sta_permuted_running":
+        args = (qp, kcat, vcat, kb, GRID, TILE, WINDOW, scale)
+        return (lambda: mod.sta_permuted_running(*args),
+                lambda: sta.sta_permuted_plain(*args))
+    quant = name == "sta_permuted_static_int8"
+    if quant:
+        c = c * int8_bound_inflation(D)
+    fn = getattr(mod, name)
+    return (lambda: fn(qp, kcat, vcat, kb, c, GRID, TILE, WINDOW, scale),
+            lambda: sta.sta_permuted_plain(qp, kcat, vcat, kb, GRID, TILE,
+                                           WINDOW, scale, c, qk_int8=quant))
+
+
+def prepass(name, q, k, v, tk, tv, tb):
+    """The int8 arms' quantizing pre-pass alone on the operands its kernel
+    reads, or None."""
+    if name == "sta_direct_int8":
+        return lambda: sta.sta_tile_codes(q, k, GRID, TILE)
+    if name == "sta_permuted_static_int8":
+        _, qp, kcat, _, _ = sta.permuted_operands(q, k, v, tk, tv, tb, GRID,
+                                                  TILE, WINDOW)
+        return lambda: sta.sta_permuted_codes(qp, kcat, TILE)
+    return None
 
 
 def check(name, run, plain):
@@ -165,13 +187,13 @@ def main(argv=None):
         else:
             ms = cuda_ms(run, args.reps)
         per_pair = 4 * D * H * B
-        if name == "sta_direct_int8":
-            bound = (per_pair * (pairs - img_pairs / 2) / PEAK_FLOPS
-                     + per_pair * img_pairs / 2 / PEAK_INT8) * 1e3
-            row["prepass_ms"] = cuda_ms(
-                lambda: sta.sta_tile_codes(q, k, GRID, TILE), args.reps)
-        else:
-            bound = per_pair * pairs / PEAK_FLOPS * 1e3
+        int8_pairs = {"sta_direct_int8": img_pairs,
+                      "sta_permuted_static_int8": pairs}.get(name, 0)
+        codes = prepass(name, q, k, v, tk, tv, tb)
+        if codes:
+            row["prepass_ms"] = cuda_ms(codes, args.reps)
+        bound = (per_pair * (pairs - int8_pairs / 2) / PEAK_FLOPS
+                 + per_pair * int8_pairs / 2 / PEAK_INT8) * 1e3
         row.update(ms=ms, bound_ms=bound, share=bound / ms,
                    tflops=per_pair * pairs / ms / 1e9, card=card)
         print(json.dumps(row), flush=True)

@@ -78,10 +78,9 @@ def category(name: str) -> str:
     if RING_STA.search(low):
         return "STA ring (B10)"
     if any(k in low for k in ("sta_direct_kernel", "tile_codes_kernel",
-                              "sta_fwd_kernel", "tile_scales_kernel",
                               "sta_permuted_kernel")):
-        return "sliding-tile attention (STA)"   # B4/B4q and the pre-pass,
-                                                # B6/B7
+        return "sliding-tile attention (STA)"   # B4/B4q, B6/B6q/B7 and the
+                                                # int8 pre-passes
     if "conv3d_s1_kernel" in low:
         return "conv3d (K3)"
     if "conv3d_v2_kernel" in low:

@@ -629,6 +629,103 @@ def test_sta_permuted_running_edges(dev, dtype, d, case):
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=TOL)
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["static", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", PERMUTED_EDGE_CASES)
+def test_sta_permuted_static_edges(dev, dtype, d, case, quant):
+    """B6a/B6b and B6q (csrc/sta_permuted.cu, RUNNING=0 and QUANT=1)
+    against sta_permuted_plain's static arm (qk_int8: every key tile
+    quantized, text included) on the whole tile-major output (padding rows
+    zero), with an image key bias that masks some keys and vcat a column
+    view of a fused [B, S, 2, H, D] pair; two runs equal bit for bit; one
+    launch counted a call."""
+    from hunyuanvideo_efficiency_tpu_torch.ops import sta
+    from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
+        int8_bound_inflation)
+
+    grid, tile, window, lt, txt_valid = case
+    (iq, ik, iv), (_, tk, tv), tb, c = _sta_inputs(dev, dtype, grid, d, lt,
+                                                   txt_valid, seed=25)
+    if quant:
+        c = c * int8_bound_inflation(d)
+    ikb = torch.zeros(iq.shape[:2], device=dev)
+    ikb[1, ::5] = -1e30
+    ikb[0, 3::7] = -0.5
+    _, qp, kcat, vcat, kb = sta.permuted_operands(
+        iq, ik, iv, tk, tv, tb, grid, tile, window, ikb)
+    pair = torch.zeros(*vcat.shape[:2], 2, *vcat.shape[2:], dtype=dtype,
+                       device=dev)
+    pair[:, :, 1] = vcat
+    vcat = pair[:, :, 1]
+    assert not vcat.is_contiguous()
+    fn = sta.sta_permuted_static_int8 if quant else sta.sta_permuted_static
+    args = (qp, kcat, vcat, kb, c, grid, tile, window, d ** -0.5)
+    n0 = fn.LAUNCHES
+    out, again = (fn(*args) for _ in range(2))
+    ref = sta.sta_permuted_plain(qp, kcat, vcat, kb, grid, tile, window,
+                                 d ** -0.5, c, qk_int8=quant)
+    torch.cuda.synchronize()
+    assert fn.LAUNCHES == n0 + 2
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("grid,tile", [((5, 17, 30), (4, 8, 8)),
+                                       ((9, 10, 19), (2, 4, 8)),
+                                       ((17, 34, 60), (4, 8, 8))])
+def test_sta_permuted_codes_equal_tile_codes(dev, dtype, d, grid, tile):
+    """B6q's pre-pass (sta_permuted_codes) against tile_codes bit for bit:
+    the codes of qp and kcat in their tile-major rows (padding rows and the
+    text blocks included) and the scales; kcat a strided view."""
+    from hunyuanvideo_efficiency_tpu_torch.ops import sta
+
+    (iq, ik, iv), (_, tk, tv), tb, _ = _sta_inputs(dev, dtype, grid, d, 256,
+                                                   40, seed=26)
+    _, qp, kcat, _, _ = sta.permuted_operands(iq, ik, iv, tk, tv, tb, grid,
+                                              tile, (3, 3, 3))
+    pair = torch.zeros(*kcat.shape[:2], 2, *kcat.shape[2:], dtype=dtype,
+                       device=dev)
+    pair[:, :, 0] = kcat
+    kcat = pair[:, :, 0]
+    block = tile[0] * tile[1] * tile[2]
+    q8, k8, sq, sk = sta.sta_permuted_codes(qp, kcat, tile)
+    torch.cuda.synchronize()
+    for x, codes, scales in ((qp, q8, sq), (kcat, k8, sk)):
+        want, want_sc = sta.tile_codes(x, block)
+        assert codes.dtype == torch.int8
+        assert torch.equal(codes.float(), want.reshape(codes.shape))
+        assert torch.equal(scales, want_sc.permute(0, 2, 1))
+
+
+@pytest.mark.parametrize("kernel", ["sta_permuted_static",
+                                    "sta_permuted_static_int8",
+                                    "sta_permuted_running"])
+def test_sta_permuted_outside_the_gate_raises(dev, kernel):
+    """On the card a geometry outside sta_permuted_gate raises, naming the
+    wrapper, and launches nothing: tiles of 32 tokens, head_dim 32."""
+    from hunyuanvideo_efficiency_tpu_torch.ops import sta
+
+    fn = getattr(sta, kernel)
+    for d, tile, match in ((64, (2, 4, 4), "32 tokens"),
+                           (32, (2, 4, 8), "head_dim")):
+        grid, window = (4, 8, 16), (3, 3, 3)
+        (iq, ik, iv), (_, tk, tv), tb, c = _sta_inputs(
+            dev, torch.bfloat16, grid, d, 64, 64)
+        _, qp, kcat, vcat, kb = sta.permuted_operands(
+            iq, ik, iv, tk, tv, tb, grid, tile, window)
+        args = ((qp, kcat, vcat, kb) + (() if kernel.endswith("running")
+                                        else (c,))
+                + (grid, tile, window, d ** -0.5))
+        n0 = fn.LAUNCHES
+        with pytest.raises(ValueError, match=f"{kernel}: .*{match}"):
+            fn(*args)
+        assert fn.LAUNCHES == n0
+
+
 @pytest.mark.parametrize("kernel", ["sta_ring", "sta_permuted_running"])
 def test_sta_ring_and_running_at_the_540p_shape(dev, kernel):
     """B10 and B7 at the STA main path's shape, [2, 34680, 24, 128] bf16 on

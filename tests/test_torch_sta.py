@@ -308,6 +308,35 @@ def test_plan_sta_direct_pins(grid, tile, quant, want):
         assert max(box) <= 256
 
 
+# B6q's plan: the same launch with int8 codes of Q and K (half their bytes)
+# and (factor, bias) pairs a key
+@pytest.mark.parametrize("grid,tile,d,want", [
+    ((17, 34, 60), (4, 8, 8), 128,
+     dict(rows=128, subs=2, boxes=1, n_boxes=56, blocks=(400, 24, 2),
+          stages=3, smem=168168)),
+    ((5, 9, 13), (2, 4, 8), 128,
+     dict(rows=64, subs=1, boxes=2, n_boxes=31, blocks=(18, 24, 2),
+          stages=3, smem=168168)),
+    ((7, 16, 16), (3, 8, 8), 64,
+     dict(rows=64, subs=3, boxes=2, n_boxes=87, blocks=(36, 24, 2),
+          stages=3, smem=86248)),
+], ids=["540p", "tile64", "tile192_d64"])
+def test_plan_sta_permuted_int8_pins(grid, tile, d, want):
+    block = tile[0] * tile[1] * tile[2]
+    plan = sta.plan_sta_permuted(2, 24, d, grid, tile, (3, 3, 3),
+                                 sta._ceil(256, block) * block, quant=True)
+    assert dataclasses.asdict(plan) == want
+    assert plan.smem <= 232448      # the H100's shared memory a block
+
+
+def test_plan_sta_permuted_names_its_caller():
+    """Outside the gate the plan raises with the caller's name."""
+    for name in ("sta_permuted_static", "sta_permuted_static_int8"):
+        with pytest.raises(ValueError, match=f"^{name}: head_dim"):
+            sta.plan_sta_permuted(1, 2, 32, (4, 8, 16), (2, 4, 8), (3, 3, 3),
+                                  64, quant=name.endswith("int8"), name=name)
+
+
 @pytest.mark.parametrize("tile,window,d,match", [
     ((2, 4, 4), (3, 3, 3), 128, "32 tokens"),
     ((3, 8, 8), (3, 3, 3), 128, "192 tokens"),
@@ -452,6 +481,35 @@ def test_plan_sta_permuted_pins(grid, tile, want):
     assert plan.smem <= 232448      # the H100's shared memory a block
 
 
+# B6q's plan: the same launch with int8 codes of Q and K (half their bytes)
+# and (factor, bias) pairs a key
+@pytest.mark.parametrize("grid,tile,d,want", [
+    ((17, 34, 60), (4, 8, 8), 128,
+     dict(rows=128, subs=2, boxes=1, n_boxes=56, blocks=(400, 24, 2),
+          stages=3, smem=168168)),
+    ((5, 9, 13), (2, 4, 8), 128,
+     dict(rows=64, subs=1, boxes=2, n_boxes=31, blocks=(18, 24, 2),
+          stages=3, smem=168168)),
+    ((7, 16, 16), (3, 8, 8), 64,
+     dict(rows=64, subs=3, boxes=2, n_boxes=87, blocks=(36, 24, 2),
+          stages=3, smem=86248)),
+], ids=["540p", "tile64", "tile192_d64"])
+def test_plan_sta_permuted_int8_pins(grid, tile, d, want):
+    block = tile[0] * tile[1] * tile[2]
+    plan = sta.plan_sta_permuted(2, 24, d, grid, tile, (3, 3, 3),
+                                 sta._ceil(256, block) * block, quant=True)
+    assert dataclasses.asdict(plan) == want
+    assert plan.smem <= 232448      # the H100's shared memory a block
+
+
+def test_plan_sta_permuted_names_its_caller():
+    """Outside the gate the plan raises with the caller's name."""
+    for name in ("sta_permuted_static", "sta_permuted_static_int8"):
+        with pytest.raises(ValueError, match=f"^{name}: head_dim"):
+            sta.plan_sta_permuted(1, 2, 32, (4, 8, 16), (2, 4, 8), (3, 3, 3),
+                                  64, quant=name.endswith("int8"), name=name)
+
+
 @pytest.mark.parametrize("tile,window,d,match", [
     ((2, 4, 4), (3, 3, 3), 128, "32 tokens"),
     ((4, 8, 8), (3, 3, 3), 32, "head_dim"),
@@ -563,3 +621,88 @@ def test_sta_permuted_emulation_matches_jax_kernel():
     got = sta.sta_permuted_emulate(qp, kcat, vcat, kb, grid, tile, window,
                                    64 ** -0.5)
     _close(sta._unpermute_tokens(got, grid, plan), want)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["static", "int8"])
+@pytest.mark.parametrize("case", PERMUTED_EMULATED,
+                         ids=["ragged", "masked_txt", "main_tile"])
+def test_sta_permuted_static_emulation_matches_plain(case, quant):
+    """B6a/B6b's and B6q's walk (sta_permuted_emulate with c: the static
+    offset, under quant the codes of tile_codes with each key's own tile's
+    scale) is the function of sta_permuted_plain's static arm (and its
+    qk_int8 arm), padding rows included, with and without an image key
+    bias; fp32, sums in another order."""
+    grid, tile, window, lt, txt_valid = case
+    rng = np.random.default_rng(23)
+    b, h, d = 2, 2, 64
+    s = grid[0] * grid[1] * grid[2]
+    img = [torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(
+        np.float32) * 0.5) for _ in range(3)]
+    tk, tv = (torch.from_numpy(rng.standard_normal((b, lt, h, d)).astype(
+        np.float32) * 0.5) for _ in range(2))
+    tb = torch.zeros(b, 1, 1, lt)
+    tb[1, ..., txt_valid:] = NEG_INF
+    ikb = torch.from_numpy(np.where(rng.random((b, s)) > 0.2, 0.0, NEG_INF)
+                           .astype(np.float32))
+    c = torch.tensor([[3.0, 2.5], [2.0, 3.5]])
+    for kb_img in (None, ikb):
+        _, qp, kcat, vcat, kb = sta.permuted_operands(
+            *img, tk, tv, tb, grid, tile, window, kb_img)
+        got = sta.sta_permuted_emulate(qp, kcat, vcat, kb, grid, tile,
+                                       window, d ** -0.5, c, quant)
+        want = sta.sta_permuted_plain(qp, kcat, vcat, kb, grid, tile, window,
+                                      d ** -0.5, c, qk_int8=quant)
+        _close(got, want)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["static", "int8"])
+@pytest.mark.parametrize("arm", [dict(direct=False), dict(fused=False)],
+                         ids=["fused", "unfused"])
+def test_sta_permuted_static_emulation_matches_jax_kernel(arm, quant):
+    """The static walk against JAX's _sta_nomax_fused_kernel (direct=False)
+    and _sta_nomax_kernel (fused=False) in interpret mode, and their
+    quant=True arm, through sta_joint_attention(bound_mode="static"), on a
+    ragged grid of 64-token tiles, whose key chunks pair two boxes (under
+    quant of two tiles with their own scales), with an image key bias; the
+    int8 codes agree exactly, so the fp32 tolerance holds."""
+    grid, tile, window, lt, _ = PERMUTED_EMULATED[0]
+    img, txt, tb, ikb = _inputs(grid, seed=24, d=64, lt=lt, key_bias=True)
+    bound = 2.0
+    want, _ = jsta.sta_joint_attention(
+        *_jax(*img, *txt, tb), grid=grid, tile=tile, window=window,
+        bound_mode="static", qk_int8=quant, img_key_bias=_jax(ikb)[0],
+        score_bound=jnp.float32(bound), **arm)
+    c = torch.full((2, 2), bound * (int8_bound_inflation(64) if quant
+                                    else 1.0))
+    iq, ik, iv, _, tk, tv, tbt, kb_img = _torch(*img, *txt, tb, ikb)
+    plan, qp, kcat, vcat, kb = sta.permuted_operands(
+        iq, ik, iv, tk, tv, tbt, grid, tile, window, kb_img)
+    got = sta.sta_permuted_emulate(qp, kcat, vcat, kb, grid, tile, window,
+                                   64 ** -0.5, c, quant)
+    _close(sta._unpermute_tokens(got, grid, plan), want)
+
+
+def test_sta_permuted_codes_on_cpu_are_tile_codes():
+    """B6q's pre-pass wrapper on CPU tensors: tile_codes of qp and kcat in
+    the kernel's layout, codes [B, rows, H*D] int8 and scales [B, H,
+    tiles]; the text blocks are tiles of their own. Off the CPU it launches
+    the kernel or raises."""
+    grid, tile, window, lt, _ = PERMUTED_EMULATED[0]
+    img, txt, tb, _ = _inputs(grid, seed=25, d=64, lt=lt)
+    iq, ik, iv, _, tk, tv, tbt = _torch(*img, *txt, tb)
+    _, qp, kcat, _, _ = sta.permuted_operands(iq, ik, iv, tk, tv, tbt, grid,
+                                              tile, window)
+    q8, k8, sq, sk = sta.sta_permuted_codes(qp.bfloat16(), kcat.bfloat16(),
+                                            tile)
+    b, s_pad, h, d = qp.shape
+    assert q8.dtype == k8.dtype == torch.int8
+    assert q8.shape == (b, s_pad, h * d) and sq.shape == (b, h, s_pad // 64)
+    assert k8.shape == (b, kcat.shape[1], h * d)
+    assert sk.shape == (b, h, kcat.shape[1] // 64)
+    for x, codes, scales in ((qp, q8, sq), (kcat, k8, sk)):
+        want, want_sc = sta.tile_codes(x.bfloat16(), 64)
+        assert torch.equal(codes.float(), want.reshape(codes.shape))
+        assert torch.equal(scales, want_sc.permute(0, 2, 1))
+    meta = qp.bfloat16().to("meta")   # neither CPU nor CUDA: it raises
+    with pytest.raises(ValueError, match="CUDA"):
+        sta.sta_permuted_codes(meta, meta, tile)
