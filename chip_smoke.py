@@ -64,6 +64,21 @@ Phases, one line each (any failure raises and exits non-zero):
      int8 permuted arm against its plain version; then the conv probe
      (probes/conv_probe.py, one timed call a form): F.conv3d, K3 and B11 at
      the decoder's three heavy stages after a numerics check;
+ 12b. harness path (`[harness_path]`): the t-ops experiment harness as a
+     user runs it, on two seeded smooth 240x432x33 `.pt` videos and four
+     t-ops configs (all off, the first `pool` and the first `stride` config
+     of the enumeration, one decoder interpolation), each through the
+     sweep's steps, run_experiment (the full-width 884-16c-hy VAE in fp16,
+     random weights) and compute_metrics_dir (PSNR, SSIM and random-weight
+     LPIPS on the card), the ranking by PSNR, then the base config through
+     the `infer` entry with --enable-tiling; K3 launches exactly 20 times in
+     every Encoder call (an encode tile) and 31 times in every Decoder call
+     (a decode tile) under every config and the tiled run, timed by CUDA
+     events around those calls; each config's saved reconstruction of one
+     video against the same weights in fp32 (F.conv3d; relative L2 within
+     2e-2), every distinct K3 shape of those encodes and decodes against
+     F.conv3d (5e-3), and the metrics of two configs recomputed on the CPU
+     (PSNR and SSIM within 1e-9, LPIPS within 1e-4 relative);
  13. reference: the two 2+2-block DiTs, flash kernels vs plain attention,
      then under attn_mode="sta" on a 13x26x28 patch grid (4x4x4 ragged
      tiles) the STA kernels vs the same forward with plain=True, and for
@@ -131,6 +146,9 @@ import torch
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from hunyuanvideo_efficiency_tpu_torch.config import InferenceArgs
+from hunyuanvideo_efficiency_tpu_torch.experiments import (
+    ExperimentResult, base_config, rank_results, run_experiment,
+    write_configs)
 from hunyuanvideo_efficiency_tpu_torch.inference import HunyuanVideoSampler
 from hunyuanvideo_efficiency_tpu_torch.models import dit as dit_mod
 from hunyuanvideo_efficiency_tpu_torch.models.dit_config import DiTConfig
@@ -183,6 +201,10 @@ TRAIN_LATENT = (16, 9, 32, 56)       # 256x448x33f: a 9x16x28 patch grid
 ADAMW_STEPS, ADAMW_LR, ADAMW_BLOCKS = 3, 1e-4, (4, 8)
 ENTRY_STEPS, ENTRY_BLOCKS = 2, (1, 1)
 STA_TRAIN_LATENT = (16, 5, 32, 48)   # a 5x16x24 patch grid, 2x2x3 tiles
+# the t-ops harness: 240p short side as the reference's mp42tensor writes
+# it, 432 the multiple of 16 nearest 16:9
+HARNESS_HEIGHT, HARNESS_WIDTH, HARNESS_FRAMES = 240, 432, 33
+HARNESS_VIDEOS = 2
 KERNELS = (flash_static, flash_running, conv3d_stride1, sta_direct,
            sta_permuted_static, sta_permuted_running, w8a8_linear,
            flash_int8_static, flash_int8_running, sta_direct_int8,
@@ -1936,6 +1958,308 @@ def train_entry_path(smi):
                              "optimizer count, rounded master or EMA is off")
 
 
+def harness_video(g):
+    """A smooth video [3, F, H, W] in [-1, 1] drawn from `g` on its device:
+    low-frequency noise upsampled trilinearly, so that frames have
+    structure for SSIM to see."""
+    low = torch.randn(1, 3, 5, 8, 14, generator=g, device=g.device)
+    v = torch.nn.functional.interpolate(
+        low, size=(HARNESS_FRAMES, HARNESS_HEIGHT, HARNESS_WIDTH),
+        mode="trilinear", align_corners=False)[0]
+    return torch.tanh(v)
+
+
+def write_harness_videos(root, dev):
+    """HARNESS_VIDEOS seeded harness_video()s as `.pt`."""
+    g = torch.Generator(dev).manual_seed(70)
+    os.makedirs(root)
+    for i in range(HARNESS_VIDEOS):
+        torch.save(harness_video(g).cpu(), os.path.join(root, f"clip{i}.pt"))
+
+
+def write_harness_configs(root):
+    """The sweep's four t-ops configs, in the t_ops_config.json schema:
+    all off (the repo's t_ops_config.json), the first `pool` and the first
+    `stride` config of the enumeration, and one that only interpolates
+    (after the last resnet of up block 1)."""
+    interp = base_config()
+    interp["decoder"]["up_blocks"][1]["enable_t_interp_after_block"][2] = \
+        True
+    paths = []
+    for name, cfg in (("base", base_config()), ("interp_up1", interp)):
+        paths.append(os.path.join(root, f"{name}.json"))
+        with open(paths[-1], "w") as f:
+            json.dump(cfg, f, indent=2)
+    for mode in ("pool", "stride"):
+        first = write_configs(os.path.join(root, mode), mode, cap=1)[0]
+        paths.append(os.path.join(root, f"{mode}_1.json"))
+        os.replace(first, paths[-1])
+    return sorted(paths)
+
+
+def check_harness_k3(dev, shapes, smi):
+    """K3 against F.conv3d (fp16, with a bias, on the padded input as
+    causal_conv3d gives it) at each distinct K3 shape of the harness's
+    encodes and decodes, max relative error 5e-3 as in check_conv, one
+    timed call of each; `shapes` maps a shape to the side(s) that run it.
+    Returns {shape: (K3 ms, F.conv3d ms, bound ms)}."""
+    g = torch.Generator(dev).manual_seed(71)
+    out_ms = {}
+    for (b, t, hh, ww, cin, cout), side in sorted(shapes.items()):
+        xp = torch.randn(b, t + 2, hh + 2, ww + 2, cin, generator=g,
+                         device=dev).half()
+        w = (torch.randn(3, 3, 3, cin, cout, generator=g, device=dev)
+             / math.sqrt(27 * cin)).half()
+        bias = torch.randn(cout, generator=g, device=dev).half()
+        x_ncdhw = xp.permute(0, 4, 1, 2, 3)
+        w_oi = w.permute(4, 3, 0, 1, 2).contiguous()
+        ref = torch.nn.functional.conv3d(x_ncdhw, w_oi, bias).permute(
+            0, 2, 3, 4, 1)
+        abs_err, rel_err = errors(conv3d_stride1(xp, w, bias), ref)
+        if rel_err > 5e-3:
+            raise AssertionError(f"K3 at the {side} shape {(b, t, hh, ww)} "
+                                 f"{cin}->{cout}: max rel error {rel_err} "
+                                 f"> 5e-3 against F.conv3d")
+        ms = cuda_ms(lambda: conv3d_stride1(xp, w, bias), 1)
+        lib_ms = cuda_ms(lambda: torch.nn.functional.conv3d(x_ncdhw, w_oi,
+                                                            bias), 1)
+        flops = 2 * 27 * cin * cout * b * t * hh * ww
+        nbytes = (xp.numel() + w.numel() + b * t * hh * ww * cout) * 2 \
+            + cout * 2
+        bound_ms, _ = bound(flops, nbytes)
+        out_ms[(b, t, hh, ww, cin, cout)] = (ms, lib_ms, bound_ms)
+        phase("harness_k3", shape=f"[{b},{t},{hh},{ww},{cin}]->{cout}fp16",
+              side=side, max_abs_err=abs_err, max_rel_err=rel_err,
+              tol="rel 5e-3 vs F.conv3d", kernel_ms=ms, library_ms=lib_ms,
+              bound_ms=bound_ms, tflops=flops / ms / 1e9, card=smi)
+        del xp, x_ncdhw, w, w_oi, ref
+    return out_ms
+
+
+class VaeSpans:
+    """Every Encoder and Decoder call while open (torch's global module
+    forward hooks): its class name, CUDA events around it and the K3
+    launches inside it. One Encoder call encodes one tile, one Decoder
+    call decodes one."""
+
+    def __enter__(self):
+        from hunyuanvideo_efficiency_tpu_torch.models.vae import (
+            Decoder, Encoder)
+
+        self.kinds, self.calls, self.open = (Encoder, Decoder), [], None
+        hooks = torch.nn.modules.module
+        self.handles = (hooks.register_module_forward_pre_hook(self.enter),
+                        hooks.register_module_forward_hook(self.leave))
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+    def enter(self, module, args):
+        if isinstance(module, self.kinds):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self.open = (start, conv3d_stride1.LAUNCHES)
+
+    def leave(self, module, args, out):
+        if isinstance(module, self.kinds):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            start, k3 = self.open
+            self.calls.append((type(module).__name__, start, end,
+                               conv3d_stride1.LAUNCHES - k3))
+
+    def check(self, label, encode_tiles, decode_tiles):
+        """Each call's K3 launches (20 an encode tile, 31 a decode tile)
+        and the number of calls; returns the calls' milliseconds by side."""
+        torch.cuda.synchronize()
+        ms = {"Encoder": [], "Decoder": []}
+        for kind, start, end, k3 in self.calls:
+            if k3 != {"Encoder": 20, "Decoder": 31}[kind]:
+                raise AssertionError(f"{label}: {k3} K3 launches in one "
+                                     f"{kind} call; expected 20 an encode "
+                                     f"tile, 31 a decode tile")
+            ms[kind].append(start.elapsed_time(end))
+        if (len(ms["Encoder"]), len(ms["Decoder"])) != (encode_tiles,
+                                                        decode_tiles):
+            raise AssertionError(f"{label}: {len(ms['Encoder'])} encode and "
+                                 f"{len(ms['Decoder'])} decode calls; "
+                                 f"expected {encode_tiles} and "
+                                 f"{decode_tiles}")
+        return ms
+
+
+def harness_path(dev, smi):
+    """The t-ops experiment harness as a user runs it: seeded 240x432x33
+    `.pt` videos, four t-ops configs (write_harness_configs), each through
+    the sweep's two steps on the card, run_experiment (the full-width
+    884-16c-hy VAE in fp16, random weights from infer.RANDOM_INIT_SEED) and
+    compute_metrics_dir (PSNR / SSIM / random-weight LPIPS), the ranking by
+    PSNR, and the base config again through the `infer` entry with
+    --enable-tiling. K3 launches exactly 20 times in every encode tile and
+    31 times in every decode tile (counted on meta tensors by
+    conv_probe.roundtrip_k3_shapes, and on the card in each Encoder and
+    Decoder call, which CUDA events time). Then every K3 shape of those
+    round trips against F.conv3d, each config's saved reconstruction of one
+    video against the same weights in fp32 (F.conv3d: relative L2 within
+    2e-2), and the base and pool configs' metrics on the CPU against the
+    card's."""
+    from hunyuanvideo_efficiency_tpu_torch import infer
+    from hunyuanvideo_efficiency_tpu_torch.evaluation import (
+        compute_metrics_dir, random_lpips_params)
+    from hunyuanvideo_efficiency_tpu_torch.evaluation.lpips import (
+        lpips_from_state_dict)
+    from hunyuanvideo_efficiency_tpu_torch.models.vae_config import (
+        TOpsConfig)
+
+    size = (HARNESS_HEIGHT, HARNESS_WIDTH, HARNESS_FRAMES)
+    root = tempfile.mkdtemp(prefix="hv_harness_")
+    try:
+        tensors, novae = os.path.join(root, "tensors"), os.path.join(
+            root, "no_vae")
+        write_harness_videos(tensors, dev)
+        os.makedirs(os.path.join(root, "configs"))
+        configs = write_harness_configs(os.path.join(root, "configs"))
+        names = [os.path.splitext(os.path.basename(p))[0] for p in configs]
+        plans = {n: conv_probe.roundtrip_k3_shapes(
+            *size, TOpsConfig.from_json(p)) for n, p in zip(names, configs)}
+        tiled_plan = conv_probe.roundtrip_k3_shapes(
+            *size, TOpsConfig.from_json(configs[names.index("base")]),
+            tiling=True)
+        for n, (enc, dec, te, td) in [*plans.items(), ("tiled", tiled_plan)]:
+            if (sum(enc.values()), sum(dec.values())) != (20 * te, 31 * td):
+                raise AssertionError(f"{n}: K3 launches {sum(enc.values())} "
+                                     f"in {te} encode tiles, "
+                                     f"{sum(dec.values())} in {td} decode "
+                                     f"tiles; expected 20 and 31 a tile")
+        lpips_model = random_lpips_params(
+            torch.Generator(dev).manual_seed(72), device=dev)
+
+        out_base = os.path.join(root, "sweep")
+        results, runs = [], {}
+        for n, path in zip(names, configs):
+            enc, dec, te, td = plans[n]
+            out_dir = os.path.join(out_base, n)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            reset_counts()
+            with VaeSpans() as spans:
+                secs = run_experiment(path, tensors, out_dir, novae,
+                                      random_init=True, device=dev)
+            expect(f"harness {n}", read_counts(), dict(
+                conv3d_stride1=HARNESS_VIDEOS * (sum(enc.values())
+                                                 + sum(dec.values()))))
+            ms = spans.check(n, HARNESS_VIDEOS * te, HARNESS_VIDEOS * td)
+            peak = torch.cuda.max_memory_allocated()
+            t0 = time.time()
+            metrics = compute_metrics_dir(tensors, out_dir,
+                                          lpips_params=lpips_model,
+                                          device=dev)
+            results.append(ExperimentResult(n, path, metrics, secs))
+            runs[n] = dict(run_seconds=secs, metrics_seconds=time.time() - t0,
+                           encode_ms=ms["Encoder"], decode_ms=ms["Decoder"],
+                           peak_gib=peak / 2**30, held_before_gib=held / 2**30)
+        ranked = rank_results(results, "psnr")
+        phase("harness_sweep", configs=json.dumps(names),
+              videos=HARNESS_VIDEOS, size="x".join(map(str, size)),
+              seconds=sum(r.seconds for r in results),
+              ranking=json.dumps([(r.name, r.metrics.mean_psnr)
+                                  for r in ranked]), card=smi)
+
+        enc, dec, te, td = tiled_plan
+        reset_counts()
+        t0 = time.time()
+        with VaeSpans() as spans:
+            infer.main(["--tensor-dir", tensors, "--output-dir",
+                        os.path.join(root, "tiled"), "--config-json",
+                        configs[names.index("base")], "--enable-tiling",
+                        "--random-init", "--vae-path", novae, "--device",
+                        str(dev)])
+        torch.cuda.synchronize()
+        tiled_s = time.time() - t0
+        expect("harness tiled base", read_counts(), dict(
+            conv3d_stride1=HARNESS_VIDEOS * (sum(enc.values())
+                                             + sum(dec.values()))))
+        tiled_ms = spans.check("tiled base", HARNESS_VIDEOS * te,
+                               HARNESS_VIDEOS * td)
+
+        shapes = {}
+        for enc, dec, *_ in [*plans.values(), tiled_plan]:
+            for side, seen in (("encode", enc), ("decode", dec)):
+                for shape in seen:
+                    both = shapes.get(shape, side) != side
+                    shapes[shape] = "encode+decode" if both else side
+        k3_ms = check_harness_k3(dev, shapes, smi)
+
+        x = torch.load(os.path.join(tensors, "clip0.pt"),
+                       weights_only=True)[None].to(dev)
+        by_name = {r.name: r for r in results}
+        for n, path in zip(names, configs):
+            enc, dec, te, td = plans[n]
+            vae32 = infer.load_vae("884-16c-hy", "fp32", novae, path,
+                                   test=True, random_init=True,
+                                   device=dev)[0]
+            reset_counts()
+            rec32 = vae32(x)[0]
+            k3_fp32 = conv3d_stride1.LAUNCHES
+            del vae32
+            rec = torch.load(os.path.join(out_base, n, "clip0.pt"),
+                             weights_only=True).to(dev)
+            rel_l2 = ((rec - rec32).norm() / rec32.norm()).item()
+            if not torch.isfinite(rec).all() or not torch.isfinite(
+                    rec32).all() or rec.shape != rec32.shape or k3_fp32:
+                raise AssertionError(f"{n}: fp16 {tuple(rec.shape)} vs fp32 "
+                                     f"{tuple(rec32.shape)}, finite, K3 "
+                                     f"launches in fp32 {k3_fp32}")
+            if rel_l2 > 2e-2:
+                raise AssertionError(f"{n}: fp16 K3 round trip against fp32 "
+                                     f"F.conv3d: relative L2 {rel_l2} > 2e-2")
+            m, r = by_name[n].metrics, runs[n]
+            phase("harness_config", config=n, shape=json.dumps(
+                list(rec.shape)), encode_tiles=te, decode_tiles=td,
+                  k3_in_encode=sum(enc.values()),
+                  k3_in_decode=sum(dec.values()),
+                  **{f"{k}_in_encode_standalone": sum(
+                      c * k3_ms[s][i] for s, c in enc.items())
+                     for i, k in enumerate(("k3_ms", "f_conv3d_ms",
+                                            "k3_bound_ms"))},
+                  rel_l2_vs_fp32=rel_l2, psnr=m.mean_psnr, ssim=m.mean_ssim,
+                  lpips=m.mean_lpips, encode_ms=json.dumps(r["encode_ms"]),
+                  decode_ms=json.dumps(r["decode_ms"]),
+                  round_trip_ms=json.dumps([a + b for a, b in zip(
+                      r["encode_ms"], r["decode_ms"])]),
+                  run_seconds=r["run_seconds"],
+                  metrics_seconds=r["metrics_seconds"],
+                  peak_gib=r["peak_gib"],
+                  held_before_gib=r["held_before_gib"], card=smi)
+            del rec, rec32
+
+        cpu_lpips = lpips_from_state_dict(lpips_model.state_dict(), "cpu")
+        for n in ("base", "pool_1"):
+            cpu = compute_metrics_dir(
+                tensors, os.path.join(out_base, n),
+                lpips_params=cpu_lpips if n == "base" else None,
+                device="cpu", out_txt=os.path.join(root, f"{n}_cpu.txt"))
+            for p, q in zip(by_name[n].metrics.pairs, cpu.pairs):
+                checks = [(p.psnr, q.psnr, 1e-9), (p.ssim, q.ssim, 1e-9)]
+                if q.lpips is not None:
+                    checks.append((p.lpips, q.lpips, 1e-4))
+                if p.name != q.name or any(
+                        not abs(a - c) <= tol * abs(c) for a, c, tol in checks):
+                    raise AssertionError(f"{n} {p}: metrics on the card "
+                                         f"differ from the CPU's {q}")
+        phase("harness_path", tiled_seconds=tiled_s, tiled_tiles=json.dumps(
+            [tiled_plan[2], tiled_plan[3]]),
+              tiled_encode_ms=json.dumps(tiled_ms["Encoder"]),
+              tiled_decode_ms=json.dumps(tiled_ms["Decoder"]),
+              k3_shapes=len(k3_ms), metrics_cpu_check="psnr/ssim rel 1e-9 "
+              "(base, pool_1), lpips rel 1e-4 (base)", card=smi)
+    finally:
+        shutil.rmtree(root)
+
+
 def grad_reference_check(dev, model, tol=5e-2):
     """Flow-match loss gradients of the QK-norm 2+2-block DiT with the
     flash kernels (blocks checkpointed: K1, then B5f, B5q, B5kv) against the
@@ -2046,6 +2370,9 @@ def main():
         launches[name] = perm_launches[name]
     torch.cuda.empty_cache()
     launches["conv3d_stride1_v2"] = conv_probe_path(smi)["conv3d_stride1_v2"]
+    torch.cuda.empty_cache()
+    harness_path(dev, smi)
+    gc.collect()
     torch.cuda.empty_cache()
     k1_model = dit_mod.build_dit(
         dataclasses.replace(DiTConfig(), mm_double_blocks_depth=2,

@@ -8,12 +8,15 @@ so a reference `.pt` loads with `load_state_dict`. Compute is channels-last
 channels run the CUDA kernel K3; the public encode/decode take and return
 the reference's [B, C, T, H, W]. The mid-block attention is single-head and
 frame-causal. Decode (and encode) tile spatially and temporally with the
-reference's linear blending.
+reference's linear blending. The fork's temporal ops (pooling in the
+encoder, a downsampler stride override, nearest interpolation in the
+decoder) are read from a `TOpsConfig`, as the JAX forwards read it
+(models/vae.py:196-288).
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -21,9 +24,10 @@ import torch.nn.functional as F
 
 from ..ops.attention import (chunked_attention, frame_causal_block_bias,
                              sdpa_attention)
-from ..ops.conv3d import causal_conv3d, conv3d_1x1, upsample_nearest_causal_3d
+from ..ops.conv3d import (causal_avg_pool_t, causal_conv3d, conv3d_1x1,
+                          interpolate_nearest_t, upsample_nearest_causal_3d)
 from ..ops.norms import group_norm
-from .vae_config import VAEConfig
+from .vae_config import MidBlockTOps, TOpsConfig, VAEConfig
 
 
 class CausalConv3d(nn.Module):
@@ -35,9 +39,12 @@ class CausalConv3d(nn.Module):
         self.stride = tuple(stride)
         self.conv = nn.Conv3d(cin, cout, k, **fk)
 
-    def forward(self, x):
+    def forward(self, x, stride=None):
+        """`stride` overrides the constructed one (the t-ops downsampler
+        stride)."""
         return causal_conv3d(x, self.conv.weight.permute(2, 3, 4, 1, 0),
-                             self.conv.bias, stride=self.stride)
+                             self.conv.bias,
+                             stride=self.stride if stride is None else stride)
 
 
 class GroupNorm(nn.Module):
@@ -105,8 +112,13 @@ class MidAttention(nn.Module):
         return out.reshape(b, t, hh, ww, c)
 
 
+def _flag(flags: Sequence[bool], j: int) -> bool:
+    return j < len(flags) and bool(flags[j])
+
+
 class MidBlock(nn.Module):
-    """resnet0, then (attention, resnet) (reference:
+    """resnet0, then (attention, resnet), with optional temporal pooling
+    before and after each resnet (reference:
     unet_causal_3d_blocks.py:647-678)."""
 
     def __init__(self, c: int, cfg: VAEConfig, **fk):
@@ -117,11 +129,21 @@ class MidBlock(nn.Module):
         self.attentions = (nn.ModuleList([MidAttention(c, g, **fk)])
                            if cfg.mid_block_add_attention else None)
 
-    def forward(self, x):
-        x = self.resnets[0](x)
-        if self.attentions is not None:
-            x = self.attentions[0](x)
-        return self.resnets[1](x)
+    def forward(self, x, tops_mid: Optional[MidBlockTOps] = None):
+        for i, rn in enumerate(self.resnets):
+            if i > 0 and self.attentions is not None:
+                x = self.attentions[i - 1](x)
+            x = self._pool(x, tops_mid, "before", i)
+            x = rn(x)
+            x = self._pool(x, tops_mid, "after", i)
+        return x
+
+    @staticmethod
+    def _pool(x, conf: Optional[MidBlockTOps], where: str, i: int):
+        if conf is not None and _flag(
+                getattr(conf, f"enable_t_pool_{where}_block"), i):
+            x = causal_avg_pool_t(x, conf.pool_t_kernel, conf.pool_t_stride)
+        return x
 
 
 class Sampler(nn.Module):
@@ -168,14 +190,23 @@ class Encoder(nn.Module):
         self.conv_norm_out = GroupNorm(g, bo[-1], **fk)
         self.conv_out = CausalConv3d(bo[-1], 2 * cfg.latent_channels, **fk)
 
-    def forward(self, x):
+    def forward(self, x, tops: Optional[TOpsConfig] = None):
         x = self.conv_in(x)
-        for blk in self.down_blocks:
-            for rn in blk.resnets:
+        for i, blk in enumerate(self.down_blocks):
+            bt = tops.down(i) if tops is not None else None
+            for j, rn in enumerate(blk.resnets):
+                if bt is not None and _flag(bt.enable_t_pool_before_block, j):
+                    x = causal_avg_pool_t(x, bt.pool_t_kernel,
+                                          bt.pool_t_stride)
                 x = rn(x)
+                if bt is not None and _flag(bt.enable_t_pool_after_block, j):
+                    x = causal_avg_pool_t(x, bt.pool_t_kernel,
+                                          bt.pool_t_stride)
             if blk.downsamplers is not None:
-                x = blk.downsamplers[0].conv(x)
-        x = self.mid_block(x)
+                x = blk.downsamplers[0].conv(
+                    x, stride=bt.downsample_stride if bt is not None else None)
+        x = self.mid_block(x, tops.encoder_mid_block if tops is not None
+                           else None)
         return self.conv_out(F.silu(self.conv_norm_out(x)))
 
 
@@ -194,11 +225,18 @@ class Decoder(nn.Module):
         self.conv_norm_out = GroupNorm(g, bo[0], **fk)
         self.conv_out = CausalConv3d(bo[0], cfg.out_channels, **fk)
 
-    def forward(self, z):
-        x = self.mid_block(self.conv_in(z))
-        for blk in self.up_blocks:
-            for rn in blk.resnets:
+    def forward(self, z, tops: Optional[TOpsConfig] = None):
+        x = self.mid_block(self.conv_in(z), tops.decoder_mid_block
+                           if tops is not None else None)
+        for i, blk in enumerate(self.up_blocks):
+            bt = tops.up(i) if tops is not None else None
+            for j, rn in enumerate(blk.resnets):
+                if bt is not None and _flag(bt.enable_t_interp_before_block,
+                                            j):
+                    x = interpolate_nearest_t(x, bt.interp_t_scale_factor)
                 x = rn(x)
+                if bt is not None and _flag(bt.enable_t_interp_after_block, j):
+                    x = interpolate_nearest_t(x, bt.interp_t_scale_factor)
             if blk.upsamplers is not None:
                 x = blk.upsamplers[0].conv(
                     upsample_nearest_causal_3d(x, blk.factor))
@@ -222,6 +260,24 @@ class DiagonalGaussian:
 
     def mode(self) -> torch.Tensor:
         return self.mean
+
+    def kl(self, other: Optional["DiagonalGaussian"] = None) -> torch.Tensor:
+        """KL divergence to `other`, or to N(0, I); summed over all but the
+        batch axis."""
+        dims = tuple(range(1, self.mean.ndim))
+        if other is None:
+            return 0.5 * torch.sum(self.mean ** 2 + self.var - 1.0
+                                   - self.logvar, dim=dims)
+        return 0.5 * torch.sum(
+            (self.mean - other.mean) ** 2 / other.var
+            + self.var / other.var - 1.0 - self.logvar + other.logvar,
+            dim=dims)
+
+    def nll(self, sample: torch.Tensor, axes=(1, 2, 3)) -> torch.Tensor:
+        logtwopi = math.log(2.0 * math.pi)
+        return 0.5 * torch.sum(logtwopi + self.logvar
+                               + (sample - self.mean) ** 2 / self.var,
+                               dim=tuple(axes))
 
 
 def _blend(a: torch.Tensor, b: torch.Tensor, extent: int, dim: int
@@ -290,10 +346,12 @@ class AutoencoderKLCausal3D(nn.Module):
     tensors are [B, C, T, H, W] (reference:
     autoencoder_kl_causal_3d.py:135-214, 259-342, 543-578)."""
 
-    def __init__(self, cfg: VAEConfig, device=None, dtype=None):
+    def __init__(self, cfg: VAEConfig, tops: Optional[TOpsConfig] = None,
+                 device=None, dtype=None):
         super().__init__()
         fk = {"device": device, "dtype": dtype}
         self.cfg = cfg
+        self.tops = tops
         lc = cfg.latent_channels
         self.encoder = Encoder(cfg, **fk)
         self.decoder = Decoder(cfg, **fk)
@@ -303,11 +361,22 @@ class AutoencoderKLCausal3D(nn.Module):
         self.use_spatial_tiling = False
         self.use_temporal_tiling = False
 
+    def enable_spatial_tiling(self, on: bool = True):
+        self.use_spatial_tiling = on
+
+    def enable_temporal_tiling(self, on: bool = True):
+        self.use_temporal_tiling = on
+
     def enable_tiling(self, on: bool = True):
-        self.use_spatial_tiling = self.use_temporal_tiling = on
+        self.enable_spatial_tiling(on)
+        self.enable_temporal_tiling(on)
 
     def disable_tiling(self):
         self.enable_tiling(False)
+
+    def enable_slicing(self, on: bool = True):
+        """Encode and decode a batch one sample at a time."""
+        self.use_slicing = on
 
     @property
     def dtype(self):
@@ -320,11 +389,11 @@ class AutoencoderKLCausal3D(nn.Module):
 
     def _encode_tile(self, x):
         return self._pointwise(self.quant_conv,
-                               self.encoder(x.to(self.dtype)))
+                               self.encoder(x.to(self.dtype), self.tops))
 
     def _decode_tile(self, z):
         return self.decoder(self._pointwise(self.post_quant_conv,
-                                            z.to(self.dtype)))
+                                            z.to(self.dtype)), self.tops)
 
     def _encode_spatial(self, x):
         cfg = self.cfg
@@ -389,6 +458,23 @@ class AutoencoderKLCausal3D(nn.Module):
             return torch.cat([one(zs) for zs in z.split(1)])
         return one(z)
 
+    def forward(self, sample: torch.Tensor, sample_posterior: bool = False,
+                generator: Optional[torch.Generator] = None,
+                return_posterior: bool = False):
+        """Round trip [B, C, T, H, W] -> encode -> the posterior's mode (or
+        a sample drawn with `generator`) -> decode (reference:
+        autoencoder_kl_causal_3d.py:543-578)."""
+        posterior = self.encode(sample)
+        if sample_posterior:
+            if generator is None:
+                raise ValueError("sampling the posterior needs a "
+                                 "torch.Generator")
+            z = posterior.sample(generator)
+        else:
+            z = posterior.mode()
+        dec = self.decode(z.movedim(-1, 1))
+        return (dec, posterior) if return_posterior else dec
+
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator
                      ) -> "AutoencoderKLCausal3D":
@@ -407,12 +493,13 @@ class AutoencoderKLCausal3D(nn.Module):
 
 
 def build_vae(cfg: VAEConfig, device="cuda", dtype=torch.float16,
-              generator: Optional[torch.Generator] = None
-              ) -> AutoencoderKLCausal3D:
-    """A VAE with storage on `device`; random weights from `generator`
-    when given, else uninitialized (to be filled by load_state_dict)."""
+              generator: Optional[torch.Generator] = None,
+              tops: Optional[TOpsConfig] = None) -> AutoencoderKLCausal3D:
+    """A VAE with storage on `device` and the t-ops config `tops`; random
+    weights from `generator` when given, else uninitialized (to be filled
+    by load_state_dict)."""
     with torch.device("meta"):
-        vae = AutoencoderKLCausal3D(cfg, dtype=dtype)
+        vae = AutoencoderKLCausal3D(cfg, tops, dtype=dtype)
     vae = vae.to_empty(device=device).eval().requires_grad_(False)
     if generator is not None:
         vae.init_weights(generator)

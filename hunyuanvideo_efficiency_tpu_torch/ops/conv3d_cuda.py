@@ -79,16 +79,18 @@ def conv3d_stride1_plain(xp: torch.Tensor, kernel: torch.Tensor,
     t, h, w = tp - kt + 1, hp - kh + 1, wp - kw + 1
     xf = xp.float()
     wf = kernel.float()
-    out = torch.zeros((b, t, h, w, cout), dtype=torch.float32,
+    out = torch.zeros((b * t * h * w, cout), dtype=torch.float32,
                       device=xp.device)
     for dt in range(kt):
         for dh in range(kh):
             for dw in range(kw):
-                out += torch.matmul(xf[:, dt:dt + t, dh:dh + h, dw:dw + w],
-                                    wf[dt, dh, dw])
+                # one 2-D product a tap: a strided 5-D operand would make
+                # matmul batch over its leading axes, a copy each
+                out += xf[:, dt:dt + t, dh:dh + h, dw:dw + w].reshape(
+                    -1, cin) @ wf[dt, dh, dw]
     if bias is not None:
         out += bias.float()
-    return out.to(xp.dtype)
+    return out.reshape(b, t, h, w, cout).to(xp.dtype)
 
 
 def _launch(xp, kernel, bias, v2=False):

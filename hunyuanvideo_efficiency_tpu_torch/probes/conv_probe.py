@@ -10,10 +10,12 @@ bf16), the milliseconds and TFLOP/s of each, the replicate pad included as
 in causal_conv3d: the minimum over N timed calls after one warm-up, CUDA
 events. JAX's h_block sweep is a TPU tiling knob and is not carried over.
 Needs a CUDA device. `decode_k3_shapes` lists the K3 launches of one
-tiled decode by shape, from the decoder run on meta tensors (no device).
+tiled decode by shape, and `roundtrip_k3_shapes` those of an encode and a
+decode under a t-ops config, from the VAE run on meta tensors (no device).
 """
 import argparse
 import collections
+import contextlib
 
 import torch
 
@@ -28,19 +30,65 @@ SHAPES = ((61, 256, 256, 128, 128), (31, 128, 128, 256, 256),
           (16, 64, 64, 512, 512))
 
 
-def decode_k3_shapes(height, width, frames, vae="884-16c-hy"):
-    """{(B, T, H, W, Cin, Cout): launches} of K3 in one tiled VAE decode of
-    a height x width x frames video (B = 1), as the sampler decodes it.
-    The decoder runs on meta tensors (shapes only: no data, no device) with
-    causal_conv3d's K3 call replaced by a recorder for the duration."""
-    seen = collections.Counter()
-
+@contextlib.contextmanager
+def _k3_recorder(seen):
+    """Replace causal_conv3d's K3 call by one that counts its output shape
+    (B, T, H, W, Cin, Cout) in `seen` and returns an empty tensor."""
     def record(xp, kernel, bias=None):
         b, tp, hp, wp, cin = xp.shape
         shape = (b, tp - 2, hp - 2, wp - 2, cin, kernel.shape[4])
         seen[shape] += 1
         return xp.new_empty(shape[:4] + shape[5:])
 
+    real = conv3d_mod.conv3d_stride1
+    conv3d_mod.conv3d_stride1 = record
+    try:
+        yield
+    finally:
+        conv3d_mod.conv3d_stride1 = real
+
+
+def _count_calls(model, name, counter):
+    fn = getattr(model, name)
+
+    def counted(x):
+        counter[name] += 1
+        return fn(x)
+
+    setattr(model, name, counted)
+
+
+def roundtrip_k3_shapes(height, width, frames, tops=None, tiling=False,
+                        vae="884-16c-hy"):
+    """K3's launches in one VAE round trip of a height x width x frames
+    video (B = 1) under the t-ops config `tops`: ({shape: launches} of the
+    encode, the same of the decode, encode tiles, decode tiles), shapes as
+    (B, T, H, W, Cin, Cout). The VAE runs on meta tensors (shapes only: no
+    data, no device) with K3's call replaced by a recorder."""
+    cfg = load_vae_config(vae)
+    model = AutoencoderKLCausal3D(cfg, tops, device="meta",
+                                  dtype=torch.float16)
+    model.enable_tiling(tiling)
+    tiles = collections.Counter()
+    _count_calls(model, "_encode_tile", tiles)
+    _count_calls(model, "_decode_tile", tiles)
+    enc, dec = collections.Counter(), collections.Counter()
+    x = torch.empty(1, cfg.in_channels, frames, height, width, device="meta",
+                    dtype=torch.float16)
+    with _k3_recorder(enc):
+        z = model.encode(x).mode().movedim(-1, 1)
+    with _k3_recorder(dec):
+        model.decode(z)
+    return (dict(sorted(enc.items())), dict(sorted(dec.items())),
+            tiles["_encode_tile"], tiles["_decode_tile"])
+
+
+def decode_k3_shapes(height, width, frames, vae="884-16c-hy"):
+    """{(B, T, H, W, Cin, Cout): launches} of K3 in one tiled VAE decode of
+    a height x width x frames video (B = 1), as the sampler decodes it.
+    The decoder runs on meta tensors (shapes only: no data, no device) with
+    causal_conv3d's K3 call replaced by a recorder for the duration."""
+    seen = collections.Counter()
     cfg = load_vae_config(vae)
     model = AutoencoderKLCausal3D(cfg, device="meta", dtype=torch.float16)
     model.enable_tiling(True)
@@ -49,12 +97,8 @@ def decode_k3_shapes(height, width, frames, vae="884-16c-hy"):
                     height // cfg.spatial_compression_ratio,
                     width // cfg.spatial_compression_ratio, device="meta",
                     dtype=torch.float16)
-    real = conv3d_mod.conv3d_stride1
-    conv3d_mod.conv3d_stride1 = record
-    try:
+    with _k3_recorder(seen):
         model.decode(z)
-    finally:
-        conv3d_mod.conv3d_stride1 = real
     return dict(sorted(seen.items()))
 
 

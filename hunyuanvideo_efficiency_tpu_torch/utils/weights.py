@@ -2,6 +2,7 @@
 
 The inverse of the JAX package's checkpoint converters
 (utils/checkpoint.py:convert_dit_state_dict and convert_vae_state_dict,
+evaluation/lpips.py:convert_lpips_weights,
 models/text/llama.py:convert_llama_state_dict,
 models/text/clip.py:convert_clip_state_dict): a tree passed as nested
 dicts/lists of numpy arrays (stacked blocks along axis 0) becomes a
@@ -203,6 +204,21 @@ def vae_state_dict_from_jax(params: Tree) -> StateDict:
     _conv(sd, "decoder.conv_out.conv", dec["conv_out"])
     _pointwise(sd, "quant_conv", params["quant_conv"])
     _pointwise(sd, "post_quant_conv", params["post_quant_conv"])
+    return sd
+
+
+def lpips_state_dict_from_jax(params: Tree) -> StateDict:
+    """evaluation/lpips.py tree (conv kernels [kh, kw, cin, cout], heads
+    [1, 1, cin, 1]) -> LPIPS state dict (Conv2d weights [cout, cin, kh,
+    kw])."""
+    sd: StateDict = {}
+    for i, cp in enumerate(params["features"]):
+        sd[f"features.{i}.weight"] = _t(np.asarray(cp["kernel"]).transpose(
+            3, 2, 0, 1))
+        sd[f"features.{i}.bias"] = _t(cp["bias"])
+    for i, lp in enumerate(params["lins"]):
+        sd[f"lins.{i}.weight"] = _t(np.asarray(lp["kernel"]).transpose(
+            3, 2, 0, 1))
     return sd
 
 

@@ -9,6 +9,8 @@
     python3 scripts/torch_profile.py --train [--train-blocks 20 40]
     python3 scripts/torch_profile.py --train --adamw --train-blocks 4 8
 
+    python3 scripts/torch_profile.py --harness [--config-json exp_1.json]
+
 Builds the sampler as chip_smoke.py's main paths do (HYVideo-T/2 at full
 width, Llama-3-8B + CLIP-L, the 884-16c-hy VAE, random weights; by default
 dense bf16 attention at 256x448, 33 frames; the weight tiers and int8
@@ -27,6 +29,12 @@ at 256x448x33f latents; SGD, or AdamW + master + EMA with --adamw), as one
 stage whose categories split the attention kernels (K1, B5f, B5q, B5kv);
 a stage of the loss and backward pass alone comes first, so the step's time
 less that stage's is the optimizer's (its kernels are elementwise, "other").
+With --harness it profiles one video of chip_smoke.py's harness path
+instead (the full-width 884-16c-hy VAE in fp16 with random weights as
+`infer --random-init` builds it, a t-ops config or none, one smooth
+240x432x33 video): the encode, the decode of the posterior's mode, and the
+metrics of the pair on the card (PSNR, SSIM, random-weight LPIPS on the
+uint8 frames compute_metrics_dir scores), as three stages.
 Needs CUDA.
 """
 import argparse
@@ -169,6 +177,47 @@ def train_stage(a, out_dir):
           f"{torch.cuda.max_memory_allocated() / 2**30}", flush=True)
 
 
+def harness_stages(a, out_dir):
+    """One video's round trip and metrics on chip_smoke.py's harness
+    path, stage by stage."""
+    from chip_smoke import harness_video
+    from hunyuanvideo_efficiency_tpu_torch import infer
+    from hunyuanvideo_efficiency_tpu_torch.evaluation import (
+        lpips_video, psnr_video, random_lpips_params, ssim_video)
+
+    dev = torch.device("cuda")
+    vae = infer.load_vae("884-16c-hy", "fp16", str(out_dir / "no_vae"),
+                         a.config_json, test=True, random_init=True,
+                         device=dev)[0]
+    x = harness_video(torch.Generator(dev).manual_seed(70))[None]
+    lpips_model = random_lpips_params(torch.Generator(dev).manual_seed(72))
+    held = {}
+
+    def frames(v):   # [1, C, T, H, W] in [-1, 1] -> [T, H, W, C] uint8
+        v = v[0].float().permute(1, 2, 3, 0)
+        return ((v + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
+
+    def encode():
+        held["z"] = vae.encode(x).mode().movedim(-1, 1)
+
+    def decode():
+        held["rec"] = vae.decode(held["z"])
+
+    def metrics():   # cropped to the common frames, as compute_pair does
+        a8, b8 = frames(x), frames(held["rec"])
+        a8, b8 = a8[:len(b8)], b8[:len(a8)]
+        psnr_video(a8, b8), ssim_video(a8, b8)
+        lpips_video(lpips_model, a8, b8)
+
+    torch.cuda.reset_peak_memory_stats()
+    for label, fn in (("encode", encode), ("decode", decode),
+                      ("metrics", metrics)):
+        stage(f"harness_{label}", fn, out_dir)
+    print(f"[harness] config={a.config_json} latent={list(held['z'].shape)} "
+          f"recon={list(held['rec'].shape)} max_memory_allocated_gb="
+          f"{torch.cuda.max_memory_allocated() / 2**30}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--train", action="store_true",
@@ -177,6 +226,10 @@ def main():
                     help="with --train: AdamW + fp32 master + EMA")
     ap.add_argument("--train-blocks", type=int, nargs=2, default=(20, 40),
                     metavar=("DOUBLE", "SINGLE"))
+    ap.add_argument("--harness", action="store_true",
+                    help="profile one video of the t-ops harness instead")
+    ap.add_argument("--config-json", default=None,
+                    help="with --harness: the t-ops config (default none)")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--attn-mode", default="auto",
                     choices=["auto", "sta", "flash_int8", "sta_int8"])
@@ -198,14 +251,18 @@ def main():
     out_dir.mkdir(parents=True, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if a.train:
+    if a.train or a.harness:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip().splitlines()[0]
-        print(f"[env] card={smi} torch={torch.__version__} train=True "
-              f"adamw={a.adamw} blocks={list(a.train_blocks)}", flush=True)
-        train_stage(a, out_dir)
+        print(f"[env] card={smi} torch={torch.__version__} train={a.train} "
+              f"adamw={a.adamw} blocks={list(a.train_blocks)} "
+              f"harness={a.harness}", flush=True)
+        if a.train:
+            train_stage(a, out_dir)
+        else:
+            harness_stages(a, out_dir)
         return
 
     args = InferenceArgs(model="HYVideo-T/2", vae_tiling=True,

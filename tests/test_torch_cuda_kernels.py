@@ -154,6 +154,49 @@ def test_conv3d_kernel_matches_plain(dev, dtype, shape):
                                rtol=TOL)
 
 
+# The VAE encoder's K3 shapes at 240x432x33 (conv_probe.roundtrip_k3_shapes):
+# under the all-off t-ops config, under the first `pool` config (T halved in
+# down block 0), and T = 1 and 2 as stacked pools leave them.
+CONV_ENCODER_SHAPES = [(1, 33, 240, 432, 128, 128),
+                       (1, 33, 120, 216, 128, 256),
+                       (1, 33, 120, 216, 256, 256),
+                       (1, 17, 60, 108, 256, 512),
+                       (1, 17, 60, 108, 512, 512),
+                       (1, 9, 30, 54, 512, 512),
+                       (1, 17, 240, 432, 128, 128),
+                       (1, 17, 120, 216, 128, 256),
+                       (1, 17, 120, 216, 256, 256),
+                       (1, 9, 60, 108, 256, 512),
+                       (1, 9, 60, 108, 512, 512),
+                       (1, 5, 30, 54, 512, 512),
+                       (1, 1, 240, 432, 128, 128),
+                       (1, 2, 120, 216, 256, 256),
+                       (1, 1, 60, 108, 256, 512),
+                       (1, 2, 30, 54, 512, 512)]
+
+
+@pytest.mark.parametrize("shape", CONV_ENCODER_SHAPES)
+def test_conv3d_kernel_at_encoder_shapes(dev, shape):
+    """K3 (fp16, with a bias) against F.conv3d on the same padded input,
+    max relative error 5e-3 of the output's largest magnitude, as the
+    smoke's conv checks."""
+    b, t, h, w, cin, cout = shape
+    g = torch.Generator(dev).manual_seed(13)
+    xp = torch.randn(b, t + 2, h + 2, w + 2, cin, generator=g,
+                     device=dev).half()
+    kern = (torch.randn(3, 3, 3, cin, cout, generator=g, device=dev)
+            / (27 * cin) ** 0.5).half()
+    bias = torch.randn(cout, generator=g, device=dev).half()
+    n0 = conv3d_stride1.LAUNCHES
+    out = conv3d_stride1(xp, kern, bias).float()
+    ref = torch.nn.functional.conv3d(
+        xp.permute(0, 4, 1, 2, 3), kern.permute(4, 3, 0, 1, 2), bias
+    ).permute(0, 2, 3, 4, 1).float()
+    torch.cuda.synchronize()
+    assert conv3d_stride1.LAUNCHES == n0 + 1 and out.shape == ref.shape
+    assert (out - ref).abs().max() <= 5e-3 * ref.abs().max()
+
+
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 3, 8, 16, 128, 128),
                                    (2, 2, 13, 21, 256, 128),

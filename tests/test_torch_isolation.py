@@ -76,6 +76,24 @@ def test_probe_modules_are_covered():
         assert f"hunyuanvideo_efficiency_tpu_torch/{mod}" in names
 
 
+def test_harness_modules_are_covered():
+    """The modules of the t-ops experiment harness (the VAE round trip, the
+    metric suite, the sweep and their entries) are among the checked
+    sources."""
+    names = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    for mod in ("models/vae.py", "models/vae_config.py", "infer.py",
+                "compute_metrics.py", "run_experiments.py",
+                "dynamic_enumeration.py", "data/mp42tensor.py",
+                "data/yuv_tensor.py", "data/video_bit_rate.py",
+                "evaluation/__init__.py", "evaluation/metrics.py",
+                "evaluation/lpips.py", "evaluation/fvd.py",
+                "evaluation/fvmd.py", "evaluation/compute_metrics.py",
+                "evaluation/run_metrics.py", "experiments/__init__.py",
+                "experiments/enumeration.py", "experiments/runner.py",
+                "experiments/analysis.py"):
+        assert f"hunyuanvideo_efficiency_tpu_torch/{mod}" in names
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
