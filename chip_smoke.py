@@ -29,6 +29,16 @@ Phases, one line each (any failure raises and exits non-zero):
      its image queries (118,800 on the 33x45x80 grid; timings, not
      checks); B8a/B8b also show their quantization pre-pass alone and K1 on
      the same inputs;
+  3b. sequence-parallel rank math (`[sp_rank_math]`): each rank's
+     arithmetic of Ulysses x ring attention at full width through the
+     port's per-rank functions (parallel/sp_attention.py), ranks in turn:
+     ring hops r = 2, 4 (K1 with state a hop; under flash_int8 B8a with
+     state a hop, held to its plain version and to the exact call) and
+     Ulysses u = 4 (K1 on each
+     6-head group) on the dense path's 4,032 + 256 tokens, the ring x STA
+     halo r = 2, 4 on the 16x34x60 grid (B4 on each halo-extended slab
+     with an image key bias, the text queries by merged states); each
+     against one single-device call, rel 2e-2, exact launch counts;
   4. main path: HunyuanVideoSampler.from_pretrained at the full width of
      HYVideo-T/2 (bf16), Llama-3-8B + CLIP-L (fp16) and the 884-16c-hy VAE
      (fp16), random weights from fixed seeds, then predict() with CFG at
@@ -36,6 +46,12 @@ Phases, one line each (any failure raises and exits non-zero):
      are set to 0 just before each path's run and read just after it, and
      every predict() launches K3 exactly as often as its decode's shapes
      need (conv_probe.decode_k3_shapes: 186 at 256x448x33, 930 at 540p);
+  4b. serve path (`[serve_path]`): serve.make_handler over the main
+     path's sampler on 127.0.0.1: /healthz, a bad request (400), two
+     /generate requests at 256x448x33f, 2 steps, each exactly 60 K1
+     launches a step and the decode's K3 launches, the second under
+     --profile-dir (its chrome trace names flash_static); the answer mp4
+     bytes, or without an mp4 writer the 500 naming cv2;
   5. running-max path: the same predict() with the DiT swapped for a
      full-width one without QK-norm (2 double + 2 single blocks) whose
      scores exceed the static kernel's bound, so that flash_attention's
@@ -119,7 +135,9 @@ The three training kernels are checked in 3 at the shape the train path
 gives them (batch 1, 4,288 tokens, q and k contiguous, v a column view of
 the fused projection as in a single block: out and lse; dQ; dK and dV) with
 SDPA's forward and backward as their yardsticks.
-Then the total seconds, one JSON line of per-kernel numbers (launches of
+Then the total seconds, one JSON line of per-kernel numbers (with
+`path_launches`, each kernel's launches in `[sp_rank_math]` and
+`[serve_path]`; `launches` of
 each kernel from the path that runs it: K1 and K3 from 4, K2 from 5, the
 running int8 kernel from 6, W8A8 and the static int8 kernel from 7,
 sta_direct and sta_ring from 9, sta_permuted_running from 10,
@@ -140,11 +158,15 @@ import subprocess
 import sys
 import tempfile
 import time
-import types
+import threading
+import urllib.error
+import urllib.request
+from http.server import ThreadingHTTPServer
 
 import torch
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from hunyuanvideo_efficiency_tpu_torch import serve
 from hunyuanvideo_efficiency_tpu_torch.config import InferenceArgs
 from hunyuanvideo_efficiency_tpu_torch.experiments import (
     ExperimentResult, base_config, rank_results, run_experiment,
@@ -160,7 +182,8 @@ from hunyuanvideo_efficiency_tpu_torch.ops.flash_backward import (
     flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain,
     flash_fwd_lse, flash_fwd_lse_plain, row_delta)
 from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
-    flash_attention_plain, flash_int8_plain, flash_int8_running,
+    flash_attention_int8, flash_attention_plain, flash_int8_plain,
+    flash_int8_running,
     flash_int8_static, flash_running, flash_splits, flash_static,
     int8_bound_inflation, int8_key_group, pick_block, quantize_groups)
 from hunyuanvideo_efficiency_tpu_torch.ops.int8_matmul import (
@@ -168,6 +191,9 @@ from hunyuanvideo_efficiency_tpu_torch.ops.int8_matmul import (
 from hunyuanvideo_efficiency_tpu_torch.ops.quantization import (
     quantize_dit, quantize_tensor_int8)
 from hunyuanvideo_efficiency_tpu_torch.ops.rope import get_nd_rotary_pos_embed
+from hunyuanvideo_efficiency_tpu_torch.parallel.sp_attention import (
+    halo_key_bias, halo_slab_attention, halo_text_finish, halo_text_state,
+    ring_first_hop, ring_hop, ulysses_local_attention)
 from hunyuanvideo_efficiency_tpu_torch.ops.sta import (
     _padded_grid, _permute_tokens_cols, _unpermute_tokens, permuted_operands,
     set_sta_ring, sta_attention_plain, sta_direct, sta_direct_int8,
@@ -177,6 +203,10 @@ from hunyuanvideo_efficiency_tpu_torch.ops.sta import (
     sta_tile_codes)
 from hunyuanvideo_efficiency_tpu_torch.probes import conv_probe
 from hunyuanvideo_efficiency_tpu_torch.probes.w8a8_bench import graph_ms
+from hunyuanvideo_efficiency_tpu_torch.utils.profiling import (
+    device_ms_by_category)
+from hunyuanvideo_efficiency_tpu_torch.utils.seeded import (
+    analytic_bound, joint_inputs, randomize_modulation, rms_normed)
 from hunyuanvideo_efficiency_tpu_torch.training import (
     flow_match_loss, make_train_step, make_train_step_adamw)
 
@@ -205,6 +235,11 @@ STA_TRAIN_LATENT = (16, 5, 32, 48)   # a 5x16x24 patch grid, 2x2x3 tiles
 # it, 432 the multiple of 16 nearest 16:9
 HARNESS_HEIGHT, HARNESS_WIDTH, HARNESS_FRAMES = 240, 432, 33
 HARNESS_VIDEOS = 2
+# sequence parallelism, one rank's arithmetic at a time
+SP_RINGS = (2, 4)
+SP_ULYSSES = 4
+SP_STA_GRID = (16, 34, 60)    # 544x960x61f: ring*tile_t | T for r = 2, 4
+SERVE_STEPS = 2
 KERNELS = (flash_static, flash_running, conv3d_stride1, sta_direct,
            sta_permuted_static, sta_permuted_running, w8a8_linear,
            flash_int8_static, flash_int8_running, sta_direct_int8,
@@ -244,18 +279,6 @@ def bound(flops, nbytes, int8_ops=0):
 def errors(out, ref):
     diff = (out.float() - ref.float()).abs().max().item()
     return diff, diff / max(ref.float().abs().max().item(), 1e-30)
-
-
-def rms_normed(g, dev, *shape):
-    """bf16 rows of unit RMS, as after the DiT's QK-norm with unit scales."""
-    x = torch.randn(*shape, generator=g, device=dev)
-    return (x * torch.rsqrt(x.square().mean(-1, keepdim=True))).bfloat16()
-
-
-def analytic_bound(dev, b, h, d=128):
-    norm = dit_mod.RMSNorm(d, device=dev, dtype=torch.bfloat16)
-    c = dit_mod._analytic_score_bound(DiTConfig(), d, [(norm, norm)])
-    return c.expand(b, h).contiguous()
 
 
 def flash_inputs(dev, b=2):
@@ -827,20 +850,11 @@ def check_conv_v2(dev, smi):
     return [row]
 
 
-def sta_inputs(dev, seed):
+def sta_inputs(dev, seed, grid=STA_GRID):
     """The STA phases' inputs at 540p: RMS-normalized q/k (as after the
     DiT's QK-norm with unit scales), random v, 256 text keys of which the
     first 40 are valid, and C from the DiT's analytic bound."""
-    g = torch.Generator(dev).manual_seed(seed)
-    b, h, d, lt = 2, 24, 128, 256
-    s = STA_GRID[0] * STA_GRID[1] * STA_GRID[2]
-    img = (rms_normed(g, dev, b, s, h, d), rms_normed(g, dev, b, s, h, d),
-           torch.randn(b, s, h, d, generator=g, device=dev).bfloat16())
-    txt = (rms_normed(g, dev, b, lt, h, d), rms_normed(g, dev, b, lt, h, d),
-           torch.randn(b, lt, h, d, generator=g, device=dev).bfloat16())
-    tb = torch.zeros(b, 1, 1, lt, device=dev)
-    tb[..., 40:] = -1e30
-    return img, txt, tb, analytic_bound(dev, b, h, d)
+    return joint_inputs(dev, seed, grid[0] * grid[1] * grid[2])
 
 
 def check_sta(dev, smi):
@@ -1086,27 +1100,307 @@ def check_sta_ring(dev, smi, lib_ms):
                  library_ms=lib_ms)]
 
 
-def randomize_modulation(model, seed):
-    """init_weights zero-inits the adaLN and final layers (every block is
-    then the identity): give them random values, re-quantized in the tier
-    a layer holds."""
-    g = torch.Generator(model.img_in.proj.weight.device).manual_seed(seed)
-    with torch.no_grad():
-        for name, mod in model.named_modules():
-            if hasattr(mod, "in_features") and (
-                    name.endswith("mod.linear")
-                    or name.endswith("modulation.linear")
-                    or "adaLN_modulation" in name
-                    or name.startswith("final_layer")):
-                w = torch.empty(mod.out_features, mod.in_features,
-                                device=g.device).normal_(
-                    0.0, 0.5 / math.sqrt(mod.in_features), generator=g)
-                if isinstance(mod, torch.nn.Linear):
-                    mod.weight.copy_(w)
-                else:   # a weight tier: its own converter, same buffers
-                    tier = quantization.TIER_OF[type(mod)]
-                    mod.load_state_dict(tier(types.SimpleNamespace(
-                        weight=w, bias=mod.bias)).state_dict())
+def sp_case(label, r, ranks, ref, assemble, want, single_ms, smi,
+            exact=None, **info):
+    """Runs `ranks` (one callable a rank, each its local arithmetic
+    between two collectives) and `assemble` (what follows the collective:
+    the text merge of the halo case) with the counts at 0, checks the exact
+    launches `want`, holds the assembled outputs to `ref` (max relative
+    error 2e-2) and, for the int8 case, also to the exact single call's
+    outputs `exact` (3e-2, JAX's int8 tolerance), times each rank's
+    callable (CUDA events), splits one call of rank 0's by kernel category
+    (torch.profiler: attention kernels, copies and cat, the rest) and
+    prints one `[sp_rank_math]` line; returns the launches."""
+    reset_counts()
+    got = assemble([fn() for fn in ranks])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expect(f"sp_rank_math {label}", launches, want)
+
+    def worst_of(refs):
+        return max((errors(out, r_) for out, r_ in zip(got, refs)),
+                   key=lambda x: x[1])
+
+    worst = worst_of(ref)
+    if worst[1] > 2e-2:
+        raise AssertionError(f"sp_rank_math {label}: max rel error "
+                             f"{worst[1]} > 2e-2")
+    if exact is not None:
+        info["rel_err_vs_exact"] = worst_of(exact)[1]
+        if info["rel_err_vs_exact"] > 3e-2:
+            raise AssertionError(f"sp_rank_math {label}: max rel error "
+                                 f"{info['rel_err_vs_exact']} against the "
+                                 f"exact call > 3e-2")
+    ms = [cuda_ms(fn, 5) for fn in ranks]
+    phase("sp_rank_math", case=label, degree=r, max_abs_err=worst[0],
+          max_rel_err=worst[1], tol="rel 2e-2 (bf16)",
+          launches=json.dumps({k: n for k, n in launches.items() if n}),
+          rank_ms=json.dumps(ms), ranks_ms_sum=sum(ms),
+          rank0_device_ms=json.dumps(device_ms_by_category(ranks[0])),
+          single_call_ms=single_ms, note="timings are information",
+          card=smi, **info)
+    return launches
+
+
+def sp_rank_math(dev, smi):
+    """Each rank's arithmetic of sequence-parallel attention at full width
+    (24 heads x 128, bf16), one rank after another on the one card, the
+    inputs sliced as the collectives deliver them, through the port's own
+    per-rank functions (parallel/sp_attention.py), against one single-device
+    call of the same kernel:
+      ring r = 2, 4 over the dense main path's 4,032 + 256 tokens, B = 2:
+        ring_first_hop + ring_hop, K1 with state per hop (r*r launches)
+        against one K1 call over the whole joint sequence;
+      the same ring under flash_int8, r = 2, 4: B8a with state per hop, the
+        keys smoothed by the one mean of all keys (r*r launches), against
+        the same per-rank functions on B8a's plain version (its
+        quantization groups are the hops', not the single call's) and
+        against the exact K1 call (3e-2);
+      Ulysses u = 4 on the same tokens: ulysses_local_attention on each
+        6-head group (4 K1 launches);
+      ring x STA for r = 2, 4 on the 16x34x60 grid (544x960x61f): B4 on
+        each rank's halo-extended slab with the wrapped halo masked
+        (halo_slab_attention), the text queries from merged partial states
+        (halo_text_state, halo_text_finish): r B4 and 4r K1 launches (2r of
+        them the slab call's discarded text half; rank_ms leaves out the
+        merge after the gather), against one
+        sta_joint_attention call (B4 + the K1 text merge).
+    Multi-rank NCCL itself cannot run on one card (NCCL refuses two ranks
+    on one device); the collectives run under gloo in the CPU tests."""
+    q, k, v, kb, c, _, _ = flash_inputs(dev)
+    b, s, h, d = q.shape
+    n_img, scale = 4032, d ** -0.5
+    iq, ik, iv = (x[:, :n_img] for x in (q, k, v))
+    tq, tk, tv = (x[:, n_img:] for x in (q, k, v))
+    tb = kb[:, n_img:].reshape(b, 1, 1, -1)
+    kw = dict(scale=scale, bound_mode="static", score_bound=c)
+    ref = flash_static(q, k, v, kb, c, scale)
+    ref_parts = (ref[:, :n_img], ref[:, n_img:])
+    single_ms = cuda_ms(lambda: flash_static(q, k, v, kb, c, scale), 10)
+    k_mean = k.float().mean(dim=1, keepdim=True)   # ring_key_mean's value
+    # the int8 noise floor: one single-device B8a call against the exact K1
+    single8_err = errors(flash_attention_int8(
+        q, k, v, key_bias=kb, scale=scale, bound_mode="static",
+        score_bound=c), ref)[1]
+    total = {}
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+
+    for r in SP_RINGS:
+        n = n_img // r
+        shard = [slice(j * n, (j + 1) * n) for j in range(r)]
+
+        def rank(j, r=r, shard=shard):
+            qj = torch.cat([iq[:, shard[j]], tq], 1)
+            st = ring_first_hop(qj, ik[:, shard[j]], iv[:, shard[j]], tk, tv,
+                                tb, **kw)
+            for hop in range(1, r):
+                src = shard[(j - hop) % r]
+                st = ring_hop(st, qj, ik[:, src], iv[:, src], **kw)
+            return st[0]
+
+        def assemble(outs, n=n):
+            return ([torch.cat([o[:, :n] for o in outs], 1)]
+                    + [o[:, n:] for o in outs])
+
+        add(sp_case(f"ring r={r}", r,
+                    [functools.partial(rank, j) for j in range(r)],
+                    [ref_parts[0]] + [ref_parts[1]] * r, assemble,
+                    dict(flash_static=r * r, flash_running=0), single_ms,
+                    smi, tokens=f"{n_img}+{tq.shape[1]}", batch=b))
+
+        def rank8(j, r=r, shard=shard, plain=False):
+            kw8 = dict(kw, mode="flash_int8", key_mean=k_mean, plain=plain)
+            qj = torch.cat([iq[:, shard[j]], tq], 1)
+            st = ring_first_hop(qj, ik[:, shard[j]], iv[:, shard[j]], tk, tv,
+                                tb, **kw8)
+            for hop in range(1, r):
+                src = shard[(j - hop) % r]
+                st = ring_hop(st, qj, ik[:, src], iv[:, src], **kw8)
+            return st[0]
+
+        ref8 = assemble([rank8(j, plain=True) for j in range(r)])
+        add(sp_case(f"ring flash_int8 r={r}", r,
+                    [functools.partial(rank8, j) for j in range(r)], ref8,
+                    assemble, dict(flash_int8_static=r * r, flash_static=0,
+                                   flash_int8_running=0), single_ms, smi,
+                    exact=[ref_parts[0]] + [ref_parts[1]] * r,
+                    single_b8a_rel_err_vs_exact=single8_err,
+                    reference="the per-rank functions, plain=True",
+                    tokens=f"{n_img}+{tq.shape[1]}", batch=b))
+        del ref8
+
+    u = SP_ULYSSES
+    hl = h // u
+    heads = [slice(i * hl, (i + 1) * hl) for i in range(u)]
+
+    def head_group(i):
+        hs = heads[i]
+        return ulysses_local_attention(
+            iq[:, :, hs], ik[:, :, hs], iv[:, :, hs], tq[:, :, hs],
+            tk[:, :, hs], tv[:, :, hs], tb, mode="flash", scale=scale,
+            bound_mode="static", score_bound=c[:, hs])
+
+    def by_heads(outs):
+        return [torch.cat([o[j].reshape(b, -1, hl, d) for o in outs],
+                          2).reshape(b, -1, h * d) for j in range(2)]
+
+    add(sp_case(f"ulysses u={u}", u,
+                [functools.partial(head_group, i) for i in range(u)],
+                ref_parts, by_heads, dict(flash_static=u, flash_running=0),
+                single_ms, smi, tokens=f"{n_img}+{tq.shape[1]}",
+                heads_per_rank=hl, batch=b))
+    del q, k, v, ref, ref_parts
+
+    (iq, ik, iv), (tq, tk, tv), tb, c = sta_inputs(dev, 21, SP_STA_GRID)
+    kw = dict(scale=scale, bound_mode="static", score_bound=c)
+    t_all, hh, ww = SP_STA_GRID
+    geom = dict(tile=STA_TILE, window=STA_WINDOW)
+    ref = sta_joint_attention(iq, ik, iv, tq, tk, tv, tb, grid=SP_STA_GRID,
+                              **geom, **kw)
+    single_ms = cuda_ms(lambda: sta_joint_attention(
+        iq, ik, iv, tq, tk, tv, tb, grid=SP_STA_GRID, **geom, **kw), 5)
+    halo_p = (STA_WINDOW[0] // 2) * STA_TILE[0]
+    halo_s = halo_p * hh * ww
+    for r in SP_RINGS:
+        t_loc = t_all // r
+        s_loc = t_loc * hh * ww
+
+        def slab(x, j, s_loc=s_loc):
+            return x[:, j * s_loc:(j + 1) * s_loc]
+
+        def ext(x, j, r=r):
+            return torch.cat([slab(x, (j - 1) % r)[:, -halo_s:], slab(x, j),
+                              slab(x, (j + 1) % r)[:, :halo_s]], 1)
+
+        def rank(j, r=r, t_loc=t_loc, s_loc=s_loc):
+            img = halo_slab_attention(
+                ext(iq, j), ext(ik, j), ext(iv, j), tq, tk, tv, tb,
+                halo_key_bias(b, halo_s, s_loc, j, r, dev),
+                grid_ext=(t_loc + 2 * halo_p, hh, ww), halo_s=halo_s,
+                s_loc=s_loc, **geom, **kw)
+            return img, halo_text_state(tq, slab(ik, j), slab(iv, j), **kw)
+
+        def assemble(outs):
+            states = [o[1] for o in outs]
+            txt = [halo_text_finish(states, tq, tk, tv, tb, **kw)
+                   for _ in outs]     # every rank merges the same states
+            return [torch.cat([o[0] for o in outs], 1)] + txt
+
+        add(sp_case(f"ring x STA halo r={r}", r,
+                    [functools.partial(rank, j) for j in range(r)],
+                    [ref[0]] + [ref[1]] * r, assemble,
+                    dict(sta_direct=r, flash_static=4 * r, flash_running=0,
+                         sta_ring=0), single_ms, smi,
+                    grid=json.dumps(SP_STA_GRID), slab_planes=t_loc,
+                    halo_planes=halo_p, tokens=f"{t_all * hh * ww}+"
+                    f"{tq.shape[1]}", batch=b))
+    return total
+
+
+def post_json(url, body: bytes):
+    req = urllib.request.Request(url, data=body, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def mp4_writer():
+    """The module save_videos_grid would write with, or None."""
+    for mod in ("imageio", "cv2"):
+        try:
+            __import__(mod)
+            return mod
+        except ImportError:
+            continue
+    return None
+
+
+def serve_path(sampler, smi):
+    """The port's HTTP server (serve.make_handler) on 127.0.0.1 over the
+    main path's sampler: /healthz, a bad request (400), then two
+    /generate requests at 256x448x33f, 2 steps, CFG, the second under
+    --profile-dir. Each must run predict on the card: exactly 60 K1
+    launches a step and the decode's K3 launches. Without an mp4 writer
+    (the card's machine has neither imageio nor cv2) the answer is the
+    structured 500 naming cv2; with one, mp4 bytes. The profiled request's
+    chrome trace must name flash_static."""
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(sampler))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    prof_dir = tempfile.mkdtemp(prefix="serve_trace_")
+    writer = mp4_writer()
+    total = {}
+    try:
+        with urllib.request.urlopen(f"{url}/healthz") as r:
+            health = json.loads(r.read())
+        if health["status"] != "ok" or health["devices"] != \
+                torch.cuda.device_count():
+            raise AssertionError(f"/healthz answered {health}")
+        code, _, body = post_json(f"{url}/generate", b'{"no_prompt": 1}')
+        if code != 400:
+            raise AssertionError(f"a bad request answered {code}: {body!r}")
+        for i, prof in enumerate((None, prof_dir)):
+            sampler.args.profile_dir = prof
+            req = dict(prompt="A cat walks on the grass, realistic style.",
+                       height=HEIGHT, width=WIDTH, video_length=FRAMES,
+                       infer_steps=SERVE_STEPS, seed=7 + i,
+                       guidance_scale=6.0, flow_shift=7.0)
+            reset_counts()
+            t0 = time.time()
+            code, headers, data = post_json(f"{url}/generate",
+                                            json.dumps(req).encode())
+            seconds = time.time() - t0
+            launches = read_counts()
+            expect(f"serve request {i}", launches, dict(
+                flash_static=60 * SERVE_STEPS, flash_running=0,
+                conv3d_stride1=decode_k3_launches((FRAMES, HEIGHT, WIDTH))))
+            for name, n in launches.items():
+                total[name] = total.get(name, 0) + n
+            if code == 200:
+                ok = (headers.get("Content-Type") == "video/mp4"
+                      and headers.get("X-Seed") == str(7 + i)
+                      and len(data) > 500)
+                answer = f"200 mp4 {len(data)} bytes, X-Gen-Time " \
+                         f"{headers.get('X-Gen-Time')}"
+            else:
+                err = json.loads(data).get("error", "")
+                ok = (code == 500 and writer is None
+                      and "No module named 'cv2'" in err)
+                answer = f"{code} {err}"
+            if not ok:
+                raise AssertionError(f"serve request {i}: {answer} "
+                                     f"(mp4 writer: {writer})")
+            trace = {}
+            if prof:
+                files = os.listdir(prof_dir)
+                text = open(os.path.join(prof_dir, files[0])).read()
+                if len(files) != 1 or '"flash_static"' not in text:
+                    raise AssertionError(f"--profile-dir wrote {files}, "
+                                         f"flash_static named: "
+                                         f"{'flash_static' in text}")
+                trace = dict(trace_mb=len(text) / 2**20,
+                             trace_flash_static_events=text.count(
+                                 '"name": "flash_static"'))
+            phase("serve_request", request=i, size=f"{HEIGHT}x{WIDTH}x"
+                  f"{FRAMES}", steps=SERVE_STEPS, answer=json.dumps(answer),
+                  round_trip_s=seconds, profiled=bool(prof),
+                  launches=json.dumps({k: n for k, n in launches.items()
+                                       if n}), card=smi, **trace)
+        phase("serve_path", healthz=json.dumps(health), bad_request=400,
+              requests=2, mp4_writer=writer, card=smi)
+    finally:
+        sampler.args.profile_dir = None
+        httpd.shutdown()
+        httpd.server_close()
+        shutil.rmtree(prof_dir)
+    return total
 
 
 def build_sampler(**flags):
@@ -2341,7 +2635,10 @@ def main():
     rows += sta_rows + check_sta_int8(dev, smi, sta_rows[0]["library_ms"])
     rows += check_sta_ring(dev, smi, sta_rows[0]["library_ms"])
     torch.cuda.empty_cache()
+    path_launches = {"sp_rank_math": sp_rank_math(dev, smi)}
+    torch.cuda.empty_cache()
     sampler, launches = main_path(smi)
+    path_launches["serve_path"] = serve_path(sampler, smi)
     k2_model, k2_launches = running_max_path(sampler, smi)
     launches["flash_running"] = k2_launches["flash_running"]
     launches["flash_int8_running"] = int8_running_path(
@@ -2402,8 +2699,11 @@ def main():
     train_entry_path(smi)
     for r in rows:
         r["launches"] = launches[r["name"]]
+        r["path_launches"] = {p: n[r["name"]] for p, n in
+                              path_launches.items() if n.get(r["name"])}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "path_launches")
     phase("total", seconds=time.time() - t_start)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi)

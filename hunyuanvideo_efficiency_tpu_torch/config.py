@@ -7,9 +7,12 @@ sta_int8`, `--sta-window`, `--sta-dense-blocks` and the weight tiers
 `--use-fp8`, `--use-int8`, `--use-int4-modulation` and
 `--text-encoder-quant int8`, and `--use-cpu-offload` (sequential offload
 in diffusion/pipeline.py). `--disable-autocast` and `--reproduce` are
-parsed and stored, and change nothing, as in the JAX package. Flags of
-sequence parallelism, not ported yet, are still parsed, and rejected with
-a clear error instead of being ignored.
+parsed and stored, and change nothing, as in the JAX package.
+`--ulysses-degree`, `--ring-degree` and `--mesh-shape` set the sequence-
+parallel layout (parallel/mesh.py:parallel_config), run under torchrun;
+`--profile-dir` writes a torch.profiler trace of each `predict`
+(utils/profiling.py). `--shard-dit-weights` (the sharded-weight tier) is
+parsed and rejected: it is not ported yet.
 """
 from __future__ import annotations
 
@@ -128,10 +131,15 @@ class InferenceArgs:
     use_int8: bool = False
     use_int4_modulation: bool = False
     text_encoder_quant: Optional[str] = None   # None | "int8" (the LLM)
-    # not ported yet: parsed so that they fail loudly
+    # sequence parallelism (reference config.py:364-381; JAX mesh_shape
+    # "dp:2,ulysses:2,ring:2", sp an alias of ulysses)
     ulysses_degree: int = 1
     ring_degree: int = 1
     mesh_shape: Optional[str] = None
+    # a torch.profiler chrome trace of each predict (utils/profiling.py)
+    profile_dir: Optional[str] = None
+    # not ported yet: parsed so that it fails loudly
+    shard_dit_weights: bool = False
 
     def __post_init__(self):
         self.vae_info = parse_vae_name(self.vae)
@@ -146,10 +154,14 @@ class InferenceArgs:
         if self.text_encoder_quant not in TEXT_ENCODER_QUANTS:
             raise ValueError(f"text encoder quant must be int8|None: "
                              f"{self.text_encoder_quant}")
-        if self.ulysses_degree > 1 or self.ring_degree > 1 or self.mesh_shape:
-            raise ValueError("not ported to the PyTorch package yet: "
-                             "sequence parallelism (--ulysses-degree, "
-                             "--ring-degree, --mesh-shape)")
+        if self.shard_dit_weights:
+            raise ValueError("not ported yet: --shard-dit-weights (the "
+                             "sharded-weight tier, ROADMAP A5b)")
+        from .parallel.mesh import parallel_config
+
+        pcfg = parallel_config(self)
+        if min(pcfg.dp_degree, pcfg.ulysses_degree, pcfg.ring_degree) < 1:
+            raise ValueError(f"parallel degrees must be >= 1: {pcfg}")
 
 
 def _add_bool_flag(parser, name, default, help_=""):
@@ -248,6 +260,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--ulysses-degree", type=int, default=d.ulysses_degree)
     g.add_argument("--ring-degree", type=int, default=d.ring_degree)
     g.add_argument("--mesh-shape", type=str, default=None)
+    _add_bool_flag(p, "shard-dit-weights", d.shard_dit_weights)
+    g.add_argument("--profile-dir", type=str, default=None)
     return p
 
 

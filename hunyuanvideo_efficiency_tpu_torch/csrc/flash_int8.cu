@@ -175,8 +175,9 @@ flash_int8_kernel(const __grid_constant__ CUtensorMap tm_q,
                   T* __restrict__ o, const float* __restrict__ kb,
                   const float* __restrict__ cb,
                   const float* __restrict__ sq_g,
-                  const float* __restrict__ sk64, int B, int H, int Sq,
-                  int Sk, int gq, int nq, float scale) {
+                  const float* __restrict__ sk64, float* __restrict__ m_out,
+                  float* __restrict__ l_out, int B, int H, int Sq, int Sk,
+                  int gq, int nq, float scale) {
   using L = Smem<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -391,6 +392,11 @@ flash_int8_kernel(const __grid_constant__ CUtensorMap tm_q,
         store_row<T, D>(
             o + ((long long)w.b * Sq + r) * H * D + (long long)w.h * D, acc,
             j, t, 1.f / fmaxf(l, 1e-37f));
+        if (m_out != nullptr && t == 0) {  // the partial-softmax state
+          const long long idx = ((long long)w.b * Sq + r) * H + w.h;
+          m_out[idx] = RUNNING ? m_r[j] * LN2 : cb[(long long)w.b * H + w.h];
+          l_out[idx] = l;
+        }
       }
     }
   }
@@ -400,6 +406,7 @@ struct Args {
   const void *q8, *k8, *v;
   void* o;
   const float *kb, *c, *sq, *sk64;
+  float *m_out, *l_out;
   int B, H, Sq, Sk, gq;
   long long v_bs, v_rs;
   float scale;
@@ -431,8 +438,8 @@ cudaError_t launch(const Args& a) {
   const long long items = (long long)((a.Sq + BM - 1) / BM) * a.H * a.B;
   const int grid = (int)(items < sms ? items : sms);
   kern<<<grid, THREADS, smem, a.stream>>>(
-      tq, tk, tv, static_cast<T*>(a.o), a.kb, a.c, a.sq, a.sk64, a.B, a.H,
-      a.Sq, a.Sk, a.gq, nq, a.scale);
+      tq, tk, tv, static_cast<T*>(a.o), a.kb, a.c, a.sq, a.sk64, a.m_out,
+      a.l_out, a.B, a.H, a.Sq, a.Sk, a.gq, nq, a.scale);
   return cudaGetLastError();
 }
 
@@ -489,18 +496,22 @@ extern "C" int hv_quantize_groups(int dtype, int head_dim, const void* q,
 // [B, S, H*D], sq [B, H, ceil(Sq/gq)], sk64 [B, H, ceil(Sk/64)], v [B, Sk,
 // H*D] of type dtype (0 = bf16, 1 = fp16; row and batch strides in
 // elements), o [B, Sq, H*D]. running: 0 = static offset c [B, H], 1 =
-// running max. kb may be null (no key bias). Returns the cudaError_t of the
-// launch.
+// running max. kb may be null (no key bias). m_out and l_out, both null or
+// both [B, Sq, H] fp32, take the partial-softmax state (m in natural units,
+// = C for the static offset; l the row sums), what merge_flash_states
+// folds. Returns the cudaError_t of the launch.
 extern "C" int hv_flash_int8_fwd(
     int dtype, int running, int head_dim, const void* q8, const void* k8,
     const void* v, void* o, const float* kb, const float* c, const float* sq,
-    const float* sk64, int B, int H, int Sq, int Sk, int gq, long long v_bs,
-    long long v_rs, float scale, void* stream) {
+    const float* sk64, float* m_out, float* l_out, int B, int H, int Sq,
+    int Sk, int gq, long long v_bs, long long v_rs, float scale,
+    void* stream) {
   if (gq % 64 != 0 || gq <= 0 || Sk <= 0 || sk64 == nullptr)
     return cudaErrorInvalidValue;
   if (!running && c == nullptr) return cudaErrorInvalidValue;
-  const Args a{q8, k8, v, o, kb, c, sq, sk64, B, H, Sq, Sk, gq, v_bs, v_rs,
-               scale, static_cast<cudaStream_t>(stream)};
+  if ((m_out == nullptr) != (l_out == nullptr)) return cudaErrorInvalidValue;
+  const Args a{q8, k8, v, o, kb, c, sq, sk64, m_out, l_out, B, H, Sq, Sk,
+               gq, v_bs, v_rs, scale, static_cast<cudaStream_t>(stream)};
   if (dtype == 0)
     return running ? dispatch_d<__nv_bfloat16, true>(head_dim, a)
                    : dispatch_d<__nv_bfloat16, false>(head_dim, a);

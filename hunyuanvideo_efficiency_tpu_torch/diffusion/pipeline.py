@@ -9,11 +9,17 @@ embedding = embedded_cfg_scale * 1000 (:976-985), rescale_noise_cfg
 (arXiv 2305.08891 §3.4, :56-71), latents / scaling_factor (+ shift_factor)
 before decode (:1060-1069) and video = clamp(image / 2 + 0.5, 0, 1)
 (:1090).
+
+Under sequence parallelism (`sp`, this rank's parallel.mesh.SPGroups) the
+denoise loop is `_denoise_sharded` (JAX diffusion/pipeline.py:299-420): the
+latent stays token-sharded for every step and is gathered once before the
+decode; the text towers and the decode run on every rank.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import List, Optional, Tuple, Union
+from typing import Callable, List, Optional, Tuple, Union
 
 import torch
 
@@ -22,13 +28,21 @@ from ..models.vae import AutoencoderKLCausal3D
 from .scheduler import FlowMatchDiscreteScheduler, euler_step
 
 
+def sample_mean(x: torch.Tensor) -> torch.Tensor:
+    """Each sample's mean over all but the batch dim, kept as [B, 1, ...]."""
+    return x.mean(dim=tuple(range(1, x.ndim)), keepdim=True)
+
+
 def rescale_noise_cfg(noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor,
-                      guidance_rescale: float) -> torch.Tensor:
-    """(reference: pipeline_hunyuan_video.py:56-71)."""
-    dims = tuple(range(1, noise_pred_text.ndim))
-    std_text = noise_pred_text.std(dim=dims, keepdim=True, correction=0)
-    std_cfg = noise_cfg.std(dim=dims, keepdim=True, correction=0)
-    rescaled = noise_cfg * (std_text / std_cfg)
+                      guidance_rescale: float,
+                      mean: Callable = sample_mean) -> torch.Tensor:
+    """(reference: pipeline_hunyuan_video.py:56-71). `mean` takes each
+    sample's mean; on a token shard (sequence parallelism) it is the mean
+    over the whole sequence of the sp group."""
+    def std(x):
+        return mean((x - mean(x)).square()).sqrt()
+
+    rescaled = noise_cfg * (std(noise_pred_text) / std(noise_cfg))
     return guidance_rescale * rescaled + (1 - guidance_rescale) * noise_cfg
 
 
@@ -38,8 +52,14 @@ def denoise_step(transformer: HYVideoDiT, latents: torch.Tensor,
                  prompt_embeds, prompt_mask, prompt_embeds_2,
                  freqs_cos, freqs_sin, do_cfg: bool, guidance_scale: float,
                  embedded_guidance_scale: Optional[float],
-                 guidance_rescale: float) -> torch.Tensor:
-    """One flow-match Euler step with classifier-free guidance."""
+                 guidance_rescale: float, sp=None,
+                 token_grid=None) -> torch.Tensor:
+    """One flow-match Euler step with classifier-free guidance. Under
+    sequence parallelism (`sp`, this rank's parallel.mesh.SPGroups)
+    `latents` is this rank's flat token shard of the `token_grid` patch
+    grid, the DiT runs `forward_tokens`, and the guidance rescale's moments
+    are means over the sp group; dp shards hold other samples and are not
+    mixed."""
     latent_in = torch.cat([latents] * 2) if do_cfg else latents
     n = latent_in.shape[0]
     dev = latents.device
@@ -48,13 +68,22 @@ def denoise_step(transformer: HYVideoDiT, latents: torch.Tensor,
     if transformer.cfg.guidance_embed:
         guidance = torch.full((n,), (embedded_guidance_scale or 0.0) * 1000.0,
                               dtype=torch.float32, device=dev)
-    v = transformer(latent_in, t_expand, prompt_embeds, prompt_mask,
-                    prompt_embeds_2, freqs_cos, freqs_sin, guidance).float()
+    inputs = (latent_in, t_expand, prompt_embeds, prompt_mask,
+              prompt_embeds_2, freqs_cos, freqs_sin, guidance)
+    mean = sample_mean
+    if sp is None:
+        v = transformer(*inputs).float()
+    else:
+        from ..parallel.sp_dit import sp_mean
+
+        v = transformer.forward_tokens(*inputs, token_grid=token_grid,
+                                       sp=sp).float()
+        mean = functools.partial(sp_mean, g=sp)
     if do_cfg:
         v_uncond, v_text = v.chunk(2)
         v = v_uncond + guidance_scale * (v_text - v_uncond)
         if guidance_rescale > 0.0:
-            v = rescale_noise_cfg(v, v_text, guidance_rescale)
+            v = rescale_noise_cfg(v, v_text, guidance_rescale, mean)
     return euler_step(latents, v, sigma, sigma_next)
 
 
@@ -79,13 +108,14 @@ class HunyuanVideoPipeline:
     def __init__(self, vae: AutoencoderKLCausal3D, text_encoder,
                  text_encoder_2, transformer: HYVideoDiT,
                  scheduler: FlowMatchDiscreteScheduler,
-                 cpu_offload: bool = False, device=None):
+                 cpu_offload: bool = False, device=None, sp=None):
         self.vae = vae
         self.text_encoder = text_encoder
         self.text_encoder_2 = text_encoder_2
         self.transformer = transformer
         self.scheduler = scheduler
         self.cpu_offload = cpu_offload
+        self.sp = sp
         self.device = torch.device(
             device if device is not None
             else next(transformer.parameters()).device)
@@ -141,6 +171,45 @@ class HunyuanVideoPipeline:
             mask = torch.cat([nmask, mask])
             pe2 = torch.cat([npe2, pe2])
         return pe, mask, pe2
+
+    def _denoise_sharded(self, latents, sigmas, timesteps, pe, mask, pe2,
+                         freqs_cis, do_cfg: bool, guidance_scale: float,
+                         embedded_guidance_scale: Optional[float],
+                         guidance_rescale: float, progress_callback=None):
+        """The denoise loop on this rank's shard: its dp slice of the batch
+        (and of each CFG half) and its ring-major token block as flat patch
+        tokens, with the RoPE rows of those tokens, conditioned on rank 0's
+        text embeddings (every rank runs the towers); one gather over sp
+        and dp at the end returns the whole [B, C, T, H, W] latent on every
+        rank. progress_callback gets the local token shard."""
+        from ..models.dit import patchify_raw, unpatchify
+        from ..parallel.sp_dit import (cfg_local, check_sp_compat,
+                                       from_rank0, gather_tokens)
+
+        g = self.sp
+        cfg = self.transformer.cfg
+        b, _, lt_, lh, lw = latents.shape
+        pt, ph, pw = cfg.patch_size
+        grid = (lt_ // pt, lh // ph, lw // pw)
+        check_sp_compat(cfg, g.pcfg, grid, b)
+        tokens = patchify_raw(latents, cfg.patch_size)
+        rows, toks = g.batch_range(b), g.token_range(tokens.shape[1])
+        local = tokens[rows, toks].contiguous()
+        f_cos, f_sin = (f[toks] for f in freqs_cis)
+        pe, mask, pe2 = (None if x is None else cfg_local(x, g) if do_cfg
+                         else x[rows]
+                         for x in map(from_rank0, (pe, mask, pe2)))
+        for i in range(len(timesteps)):
+            local = denoise_step(
+                self.transformer, local, float(sigmas[i]),
+                float(sigmas[i + 1]), float(timesteps[i]), pe, mask, pe2,
+                f_cos, f_sin, do_cfg, guidance_scale,
+                embedded_guidance_scale, guidance_rescale, sp=g,
+                token_grid=grid)
+            if progress_callback is not None:
+                progress_callback(i, local)
+        return unpatchify(gather_tokens(local, g), *grid, cfg.out_channels,
+                          cfg.patch_size)
 
     @torch.no_grad()
     def __call__(
@@ -220,14 +289,20 @@ class HunyuanVideoPipeline:
         egs = (float(embedded_guidance_scale)
                if embedded_guidance_scale is not None else None)
         self._place("dit")
-        for i in range(len(timesteps)):
-            latents = denoise_step(
-                self.transformer, latents, float(sigmas[i]),
-                float(sigmas[i + 1]), float(timesteps[i]), pe, mask, pe2,
-                freqs_cis[0], freqs_cis[1], do_cfg, float(guidance_scale),
-                egs, float(guidance_rescale))
-            if progress_callback is not None:
-                progress_callback(i, latents)
+        if self.sp is not None:
+            latents = self._denoise_sharded(
+                latents, sigmas, timesteps, pe, mask, pe2, freqs_cis, do_cfg,
+                float(guidance_scale), egs, float(guidance_rescale),
+                progress_callback)
+        else:
+            for i in range(len(timesteps)):
+                latents = denoise_step(
+                    self.transformer, latents, float(sigmas[i]),
+                    float(sigmas[i + 1]), float(timesteps[i]), pe, mask,
+                    pe2, freqs_cis[0], freqs_cis[1], do_cfg,
+                    float(guidance_scale), egs, float(guidance_rescale))
+                if progress_callback is not None:
+                    progress_callback(i, latents)
 
         if output_type == "latent":
             return HunyuanVideoPipelineOutput(videos=latents)

@@ -57,9 +57,13 @@ def euler_step(sample: torch.Tensor, model_output: torch.Tensor,
 
 
 class FlowMatchDiscreteScheduler:
-    """The reference scheduler's schedule: `set_timesteps` fills `sigmas`
-    [N+1] and `timesteps` [N]; the pipeline steps with `euler_step`."""
+    """The reference scheduler: `set_timesteps` fills `sigmas` [N+1] and
+    `timesteps` [N]; the pipeline steps with `euler_step`, and `step` is the
+    reference's stateful API over the same update (JAX
+    diffusion/scheduler.py:106-147): a loop of `step` over `timesteps`
+    equals the pipeline's Euler loop."""
 
+    order = 1
     supported_solver = ("euler",)
 
     def __init__(self, num_train_timesteps: int = 1000, shift: float = 1.0,
@@ -82,6 +86,11 @@ class FlowMatchDiscreteScheduler:
         self.sigmas = sigmas
         self.timesteps = (sigmas[:-1] * num_train_timesteps).astype(np.float32)
         self.num_inference_steps = None
+        self._step_index = None
+
+    @property
+    def step_index(self) -> Optional[int]:
+        return self._step_index
 
     def set_timesteps(self, num_inference_steps: int, device=None,
                       n_tokens: Optional[int] = None):
@@ -96,3 +105,32 @@ class FlowMatchDiscreteScheduler:
             self.sigmas, self.timesteps = get_sigmas(
                 num_inference_steps, self.shift, self.reverse,
                 self.num_train_timesteps)
+        self._step_index = None
+
+    def scale_model_input(self, sample, timestep=None):
+        return sample
+
+    def index_for_timestep(self, timestep) -> int:
+        """The exact match where one exists (the second of two, as the
+        reference), else the nearest timestep: a reduced-precision scalar
+        (a bf16 device value) still finds its step."""
+        t = float(timestep)
+        idx = np.nonzero(self.timesteps == t)[0]
+        if len(idx) == 0:
+            return int(np.argmin(np.abs(np.asarray(self.timesteps) - t)))
+        return int(idx[1 if len(idx) > 1 else 0])
+
+    def step(self, model_output: torch.Tensor, timestep,
+             sample: torch.Tensor, return_dict: bool = False):
+        """One Euler step from `timestep`'s sigma to the next; returns
+        (prev_sample,) in fp32 and advances `step_index`."""
+        if self._step_index is None:
+            self._step_index = self.index_for_timestep(timestep)
+        prev = euler_step(sample, model_output,
+                          float(self.sigmas[self._step_index]),
+                          float(self.sigmas[self._step_index + 1]))
+        self._step_index += 1
+        return (prev,)
+
+    def __len__(self) -> int:
+        return self.num_train_timesteps

@@ -15,7 +15,14 @@ LLM tower.
 `HunyuanVideoSampler.predict` keeps the reference semantics: seeds
 (int / list / None -> one torch.Generator per video, :534-566), H/W
 aligned to 16 (:584-585), a fresh scheduler with the runtime flow_shift
-(:609-614), the RoPE tables (:450-495) and the pipeline call (:645-664).
+(:609-614), the RoPE tables (:450-495) and the pipeline call (:645-664),
+traced by torch.profiler under `--profile-dir` (JAX inference.py:324-327).
+
+Sequence parallelism (JAX inference.py:105-121): the args' layout
+(`--ulysses-degree`, `--ring-degree`, `--mesh-shape`) must span the whole
+process group; its subgroups are built when the sampler is, and every rank
+runs `predict` in lockstep on the same arguments (the text towers and the
+decode replicated, the denoise loop token-sharded).
 """
 from __future__ import annotations
 
@@ -37,9 +44,11 @@ from .models.vae import build_vae
 from .models.vae_config import load_vae_config
 from .ops.quantization import quantize_dit
 from .ops.rope import get_nd_rotary_pos_embed
+from .parallel.mesh import make_groups, parallel_config
 from .utils.checkpoint import (fp8_map_path, load_fp8_dit_checkpoint,
                                load_params_npz, load_torch_state_dict,
                                load_tower_state_dict)
+from .utils.profiling import maybe_trace
 from .utils.weights import clip_state_dict_from_jax, llama_state_dict_from_jax
 
 
@@ -99,6 +108,12 @@ class Inference:
         # where the modules run (under --use-cpu-offload they may rest on
         # the host between calls)
         self.device = self.transformer.img_in.proj.weight.device
+        pcfg = parallel_config(args)
+        world = (torch.distributed.get_world_size()
+                 if torch.distributed.is_initialized() else 1)
+        # make_groups raises unless the layout spans the process group
+        self.sp_groups = (make_groups(pcfg) if max(pcfg.world_size, world)
+                          > 1 else None)
 
     @staticmethod
     def resolve_dit_weight(args: InferenceArgs) -> Optional[Path]:
@@ -196,7 +211,8 @@ class HunyuanVideoSampler(Inference):
             vae=self.vae, text_encoder=self.text_encoder,
             text_encoder_2=self.text_encoder_2, transformer=self.transformer,
             scheduler=self._scheduler(self.args.flow_shift),
-            cpu_offload=self.args.use_cpu_offload, device=self.device)
+            cpu_offload=self.args.use_cpu_offload, device=self.device,
+            sp=self.sp_groups)
         self.default_negative_prompt = NEGATIVE_PROMPT
 
     def _scheduler(self, shift: float) -> FlowMatchDiscreteScheduler:
@@ -259,20 +275,22 @@ class HunyuanVideoSampler(Inference):
             target_w, device=dev)
 
         start = time.time()
-        samples = self.pipeline(
-            prompt=prompt, height=target_h, width=target_w,
-            video_length=video_length, num_inference_steps=infer_steps,
-            guidance_scale=guidance_scale, negative_prompt=negative_prompt,
-            num_videos_per_prompt=num_videos_per_prompt,
-            generator=gens if len(gens) > 1 else gens[0],
-            embedded_guidance_scale=embedded_guidance_scale,
-            freqs_cis=(cos, sin), n_tokens=tt * th * tw,
-            vae_ver=self.args.vae, enable_tiling=self.args.vae_tiling,
-            data_type="video" if video_length > 1 else "image",
-            progress_callback=progress_callback,
-            output_dtype=output_dtype).videos
-        if samples.is_cuda:
-            torch.cuda.synchronize(samples.device)
+        with maybe_trace(self.args.profile_dir):
+            samples = self.pipeline(
+                prompt=prompt, height=target_h, width=target_w,
+                video_length=video_length, num_inference_steps=infer_steps,
+                guidance_scale=guidance_scale,
+                negative_prompt=negative_prompt,
+                num_videos_per_prompt=num_videos_per_prompt,
+                generator=gens if len(gens) > 1 else gens[0],
+                embedded_guidance_scale=embedded_guidance_scale,
+                freqs_cis=(cos, sin), n_tokens=tt * th * tw,
+                vae_ver=self.args.vae, enable_tiling=self.args.vae_tiling,
+                data_type="video" if video_length > 1 else "image",
+                progress_callback=progress_callback,
+                output_dtype=output_dtype).videos
+            if samples.is_cuda:
+                torch.cuda.synchronize(samples.device)
         gen_time = time.time() - start
         if self.logger:
             self.logger.info(f"Success, time: {gen_time}")

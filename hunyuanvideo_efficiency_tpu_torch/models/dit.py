@@ -21,6 +21,11 @@ stays image-only, both block types split q/k/v into image and text parts
 (JAX models/dit.py:1003-1024). attn_mode="flash_int8" runs int8 Q.K^T flash
 attention (ops/flash_attention.py:flash_attention_int8).
 
+Sequence parallelism: `forward_tokens(..., sp=groups)` runs one rank's
+token shard (parallel/sp_dit.py); both blocks' joint attention then goes
+through `parallel.sp_attention.usp_joint_attention`, with image-only RoPE
+rows (the split path, as JAX models/dit.py:880-900 under its axes).
+
 Training: `forward_tokens` is the JAX `dit_forward_tokens` (raw patch tokens
 in, output patch tokens out), `build_dit(trainable=True)` leaves the
 parameters differentiable, and `cfg.remat_blocks` checkpoints every block
@@ -261,6 +266,18 @@ def _bound_mode(cfg: DiTConfig) -> str:
     return "static" if cfg.qk_norm else "auto"
 
 
+def _joint(cfg: DiTConfig, sp, *qkv, mode, sbound, token_grid, plain):
+    """Joint attention of a block: on one device, or over the sp groups."""
+    kw = dict(bound_mode=_bound_mode(cfg), score_bound=sbound,
+              token_grid=token_grid, sta_tile=cfg.sta_tile,
+              sta_window=cfg.sta_window, plain=plain)
+    if sp is not None:
+        from ..parallel.sp_attention import usp_joint_attention
+
+        return usp_joint_attention(*qkv, sp, attn_mode=mode, **kw)
+    return joint_attention(*qkv, mode=mode, **kw)
+
+
 class DoubleBlock(nn.Module):
     """(reference: models.py:132-252)."""
 
@@ -287,10 +304,12 @@ class DoubleBlock(nn.Module):
         return q, k, v
 
     def forward(self, img, txt, vec, txt_bias, freqs_cis, token_grid=None,
-                attn_mode: Optional[str] = None, plain: bool = False):
+                attn_mode: Optional[str] = None, plain: bool = False,
+                sp=None):
         """attn_mode overrides cfg.attn_mode (the dense anchors under STA);
         token_grid reaches joint_attention; plain=True runs the W8A8, int8
-        attention and STA image queries on their plain versions."""
+        attention and STA image queries on their plain versions; sp (the
+        rank's SPGroups) sends the attention over the sp groups."""
         cfg = self.cfg
         b, img_len, _ = img.shape
         i_sh1, i_sc1, i_g1, i_sh2, i_sc2, i_g2 = self.img_mod(
@@ -320,11 +339,10 @@ class DoubleBlock(nn.Module):
             cfg, cfg.head_dim,
             [(self.img_attn_q_norm, self.img_attn_k_norm),
              (self.txt_attn_q_norm, self.txt_attn_k_norm)])
-        img_attn, txt_attn = joint_attention(
-            img_q, img_k, img_v, txt_q, txt_k, txt_v, txt_bias,
-            mode=attn_mode or cfg.attn_mode, bound_mode=_bound_mode(cfg),
-            score_bound=sbound, token_grid=token_grid,
-            sta_tile=cfg.sta_tile, sta_window=cfg.sta_window, plain=plain)
+        img_attn, txt_attn = _joint(
+            cfg, sp, img_q, img_k, img_v, txt_q, txt_k, txt_v, txt_bias,
+            mode=attn_mode or cfg.attn_mode, sbound=sbound,
+            token_grid=token_grid, plain=plain)
 
         img = img + apply_gate(
             linear(self.img_attn_proj, img_attn, plain=plain), i_g1)
@@ -357,10 +375,10 @@ class SingleBlock(nn.Module):
 
     def forward(self, x, vec, txt_len: int, txt_bias, freqs_cis,
                 token_grid=None, attn_mode: Optional[str] = None,
-                plain: bool = False):
-        """As DoubleBlock.forward for attn_mode, token_grid and plain.
+                plain: bool = False, sp=None):
+        """As DoubleBlock.forward for attn_mode, token_grid, plain and sp.
         A joint [img | txt] RoPE table rotates q/k in place; an image-only
-        table (STA) takes the split path of JAX models/dit.py:758-778."""
+        table (STA, sp) takes the split path of JAX models/dit.py:758-778."""
         cfg = self.cfg
         mode = attn_mode or cfg.attn_mode
         b, l, h = x.shape
@@ -375,8 +393,8 @@ class SingleBlock(nn.Module):
         sbound = _analytic_score_bound(cfg, cfg.head_dim,
                                        [(self.q_norm, self.k_norm)])
         img_len = l - txt_len
-        if mode.startswith("sta") or (freqs_cis is not None
-                                      and freqs_cis[0].shape[0] != l):
+        if sp is not None or mode.startswith("sta") or (
+                freqs_cis is not None and freqs_cis[0].shape[0] != l):
             iq, ik, iv = (u[:, :img_len] for u in (q, k, v))
             tq, tk, tv = (u[:, img_len:] for u in (q, k, v))
             if freqs_cis is not None:
@@ -386,11 +404,9 @@ class SingleBlock(nn.Module):
                 iq, ik = pre_q(iq), pre_k(ik)
             if cfg.qk_norm:
                 tq, tk = pre_q(tq), pre_k(tk)
-            img_attn, txt_attn = joint_attention(
-                iq, ik, iv, tq, tk, tv, txt_bias, mode=mode,
-                bound_mode=_bound_mode(cfg), score_bound=sbound,
-                token_grid=token_grid, sta_tile=cfg.sta_tile,
-                sta_window=cfg.sta_window, plain=plain)
+            img_attn, txt_attn = _joint(
+                cfg, sp, iq, ik, iv, tq, tk, tv, txt_bias, mode=mode,
+                sbound=sbound, token_grid=token_grid, plain=plain)
             attn = torch.cat([img_attn, txt_attn], dim=1)
         else:
             if freqs_cis is not None:
@@ -508,12 +524,14 @@ class HYVideoDiT(nn.Module):
 
     def forward_tokens(self, x_tokens, t, text_states, text_mask,
                        text_states_2, freqs_cos, freqs_sin, guidance=None,
-                       token_grid=None, plain: bool = False):
+                       token_grid=None, plain: bool = False, sp=None):
         """Token-form forward (JAX `dit_forward_tokens`): raw patch tokens
         [B, L, C*pt*ph*pw] in, output patch tokens [B, L, pt*ph*pw*out_c]
         out; the other arguments as `forward`. token_grid is the (T', H',
         W') patch grid, needed under attn_mode "sta". With
-        cfg.remat_blocks and grad mode on, every block is checkpointed."""
+        cfg.remat_blocks and grad mode on, every block is checkpointed.
+        With sp (the rank's SPGroups), x_tokens and the RoPE rows are this
+        rank's token shard and token_grid the GLOBAL grid."""
         cfg = self.cfg
         dtype = self.img_in.proj.weight.dtype
 
@@ -536,7 +554,7 @@ class HYVideoDiT(nn.Module):
 
         sta = cfg.attn_mode.startswith("sta")
         freqs = None
-        if freqs_cos is not None and sta:
+        if freqs_cos is not None and (sta or sp is not None):
             freqs = (freqs_cos, freqs_sin)  # image-only: blocks split
         elif freqs_cos is not None:
             # identity rows (cos 1, sin 0) over the text segment: the joint
@@ -555,9 +573,9 @@ class HYVideoDiT(nn.Module):
             def fn(v, *ys):
                 if len(ys) == 2:
                     return blk(*ys, v, txt_bias, freqs, token_grid, mode,
-                               plain)
+                               plain, sp)
                 return blk(*ys, v, txt_len, txt_bias, freqs, token_grid,
-                           mode, plain)
+                           mode, plain, sp)
 
             if remat:
                 return checkpoint(fn, vec, *xs, use_reentrant=True,

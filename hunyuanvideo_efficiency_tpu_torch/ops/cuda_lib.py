@@ -62,7 +62,7 @@ SIGNATURES = {
             _I, [_I, _I, _P, _LL, _LL, _I, _I, _P, _LL, _LL, _I, _I, _I, _I,
                  _P, _P, _P, _P, _P, _P]),
         "hv_flash_int8_fwd": (
-            _I, [_I] * 3 + [_P] * 8 + [_I] * 5 + [_LL] * 2 + [_F, _P]),
+            _I, [_I] * 3 + [_P] * 10 + [_I] * 5 + [_LL] * 2 + [_F, _P]),
     },
     "w8a8_linear": {
         "hv_w8a8_quantize": (

@@ -14,7 +14,7 @@ one CUDA source (`csrc/flash_attention.cu`, template flag RUNNING):
 Each wrapper runs its kernel on CUDA tensors and its plain PyTorch version
 (`flash_attention_plain`, fp32 scores, the same offset and rounding points)
 on CPU tensors; any other device raises. `LAUNCHES` on each wrapper counts
-kernel launches.
+kernel launches; under a profiler each call is a range named after it.
 
 Bound on the H100: 4*B*H*Sq*Sk*D tensor-core operations (989 TFLOP/s
 bf16), far above the bytes moved at the main path's lengths, so both are
@@ -47,6 +47,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiling import annotate
 from . import cuda_lib
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
@@ -166,10 +167,11 @@ def flash_static(q, k, v, key_bias, c, scale: float,
     """K1: static-offset softmax attention. q/k/v [B, S, H, D], key_bias
     [B, Sk] fp32 (entries <= 0) or None, c [B, H] fp32 bounding |s|*scale.
     Kernel on CUDA tensors, plain version on CPU tensors."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, key_bias, c, scale, False,
-                                     return_state)
-    out = _launch(q, k, v, key_bias, c, scale, False, return_state)
+    with annotate("flash_static"):
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, key_bias, c, scale, False,
+                                         return_state)
+        out = _launch(q, k, v, key_bias, c, scale, False, return_state)
     flash_static.LAUNCHES += 1
     return out
 
@@ -181,10 +183,11 @@ def flash_running(q, k, v, key_bias, scale: float,
                   return_state: bool = False):
     """K2: running-max online-softmax attention, same layout as K1.
     Kernel on CUDA tensors, plain version on CPU tensors."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, key_bias, None, scale, True,
-                                     return_state)
-    out = _launch(q, k, v, key_bias, None, scale, True, return_state)
+    with annotate("flash_running"):
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, key_bias, None, scale, True,
+                                         return_state)
+        out = _launch(q, k, v, key_bias, None, scale, True, return_state)
     flash_running.LAUNCHES += 1
     return out
 
@@ -381,13 +384,14 @@ def quantize_groups(q, k, q_group: int, k_group: int):
 
 
 def flash_int8_plain(q, k, v, key_bias, c, scale: float, running: bool,
-                     q_group: int, k_group: int) -> torch.Tensor:
+                     q_group: int, k_group: int, return_state: bool = False):
     """Both int8 kernels in plain PyTorch, on `quantize_groups_plain`'s
     codes and scales. q/k/v [B, S, H, D]; key_bias [B, Sk] fp32 or None; c
     [B, H] fp32 static offset (unused when running). s = s32(q8.k8^T) *
     (sq*sk*scale) (the codes' product is exact in fp32 for D <= 1040), then
     the static p = exp(s + (kb - c)) or the exact softmax, p rounded to v's
-    type before P.V. One head at a time. Returns [B, Sq, H*D]."""
+    type before P.V. One head at a time. Returns [B, Sq, H*D] (and (m, l)
+    [B, Sq, H] fp32, m = c when static, as `flash_attention_plain`)."""
     b, sq_len, h, d = q.shape
     sk_len = k.shape[1]
     q8, sq = quantize_groups_plain(q, q_group)
@@ -399,21 +403,28 @@ def flash_int8_plain(q, k, v, key_bias, c, scale: float, running: bool,
     kb = (key_bias.reshape(b, sk_len).float() if key_bias is not None
           else torch.zeros((b, sk_len), device=q.device))[:, None, :]
     out = torch.empty((b, sq_len, h, d), dtype=q.dtype, device=q.device)
+    m_st = torch.empty((b, sq_len, h), dtype=torch.float32, device=q.device)
+    l_st = torch.empty_like(m_st)
     for hi in range(h):
         s32 = torch.matmul(q8[:, :, hi], k8[:, :, hi].transpose(-1, -2))
         s = s32 * ((sq[:, hi, :, None] * sk[:, hi, None, :]) * scale)
         if running:
             x = s + kb
-            p = torch.exp(x - x.amax(dim=-1, keepdim=True))
+            m = x.amax(dim=-1, keepdim=True)
+            p = torch.exp(x - m)
         else:
-            p = torch.exp(s + (kb - c.float()[:, hi, None, None]))
+            m = c.float()[:, hi, None, None].expand(b, sq_len, 1)
+            p = torch.exp(s + (kb - m))
         pv = torch.matmul(p.to(v.dtype).float(), v[:, :, hi].float())
-        o = pv / p.sum(dim=-1).clamp_min(1e-37)[..., None]
-        out[:, :, hi] = o.to(q.dtype)
-    return out.reshape(b, sq_len, h * d)
+        l = p.sum(dim=-1)
+        out[:, :, hi] = (pv / l.clamp_min(1e-37)[..., None]).to(q.dtype)
+        m_st[:, :, hi], l_st[:, :, hi] = m[..., 0], l
+    out = out.reshape(b, sq_len, h * d)
+    return (out, m_st, l_st) if return_state else out
 
 
-def _launch_int8(q, k, v, key_bias, c, scale, running, q_group, k_group):
+def _launch_int8(q, k, v, key_bias, c, scale, running, q_group, k_group,
+                 return_state=False):
     _check_int8_launch(q, k, v, q_group, k_group)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -423,26 +434,33 @@ def _launch_int8(q, k, v, key_bias, c, scale, running, q_group, k_group):
           if key_bias is not None else None)
     cc = None if running else c.to(torch.float32).expand(b, h).contiguous()
     out = torch.empty((b, sq, h * d), dtype=q.dtype, device=q.device)
+    m = l = None
+    if return_state:
+        m = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
     err = cuda_lib.library("flash_int8").hv_flash_int8_fwd(
         _DTYPE_CODE[q.dtype], int(running), d, q8.data_ptr(), k8.data_ptr(),
         v.data_ptr(), out.data_ptr(),
         kb.data_ptr() if kb is not None else None,
         cc.data_ptr() if cc is not None else None, sq_s.data_ptr(),
-        sk64.data_ptr(), b, h, sq, sk, q_group, v.stride(0), v.stride(1),
-        float(scale), cuda_lib.stream_ptr(q.device))
+        sk64.data_ptr(), m.data_ptr() if m is not None else None,
+        l.data_ptr() if l is not None else None, b, h, sq, sk, q_group,
+        v.stride(0), v.stride(1), float(scale), cuda_lib.stream_ptr(q.device))
     cuda_lib.check(err, "flash int8 attention")
-    return out
+    return (out, m, l) if return_state else out
 
 
 def flash_int8_static(q, k, v, key_bias, c, scale: float, q_group: int,
-                      k_group: int) -> torch.Tensor:
+                      k_group: int, return_state: bool = False):
     """B8a: int8 Q.K^T with the static offset c [B, H] (already inflated
-    for int8 rounding). q/k/v [B, S, H, D] -> [B, Sq, H*D]. Kernel on CUDA
-    tensors, plain version on CPU tensors."""
+    for int8 rounding). q/k/v [B, S, H, D] -> [B, Sq, H*D] (and the state
+    (m, l) with return_state). Kernel on CUDA tensors, plain version on
+    CPU tensors."""
     if q.device.type == "cpu":
         return flash_int8_plain(q, k, v, key_bias, c, scale, False, q_group,
-                                k_group)
-    out = _launch_int8(q, k, v, key_bias, c, scale, False, q_group, k_group)
+                                k_group, return_state)
+    out = _launch_int8(q, k, v, key_bias, c, scale, False, q_group, k_group,
+                       return_state)
     flash_int8_static.LAUNCHES += 1
     return out
 
@@ -451,14 +469,14 @@ flash_int8_static.LAUNCHES = 0
 
 
 def flash_int8_running(q, k, v, key_bias, scale: float, q_group: int,
-                       k_group: int) -> torch.Tensor:
+                       k_group: int, return_state: bool = False):
     """B8b: int8 Q.K^T with the running-max online softmax. Kernel on CUDA
     tensors, plain version on CPU tensors."""
     if q.device.type == "cpu":
         return flash_int8_plain(q, k, v, key_bias, None, scale, True,
-                                q_group, k_group)
+                                q_group, k_group, return_state)
     out = _launch_int8(q, k, v, key_bias, None, scale, True, q_group,
-                       k_group)
+                       k_group, return_state)
     flash_int8_running.LAUNCHES += 1
     return out
 
@@ -478,14 +496,20 @@ def flash_attention_int8(
     bound_mode: str = "running",
     score_bound: Optional[torch.Tensor] = None,
     plain: bool = False,
-) -> torch.Tensor:
+    key_mean: Optional[torch.Tensor] = None,
+    return_state: bool = False,
+):
     """Flash attention with int8 Q.K^T; q/k/v [B, S, H, D] -> [B, Sq, H*D]
     (the JAX signature and semantics).
 
     smooth_k subtracts the per-(batch, head, channel) key mean over the whole
     key axis (masked text padding included), taken in fp32 and cast back:
     softmax cancels the per-query constant it changes, and the int8 error
-    shrinks. bound_mode "static" -> B8a with the bound inflated by
+    shrinks. key_mean [B, 1, H, D] fp32 replaces this call's own mean: calls
+    over disjoint key sets whose states are merged (the ring's hops) must
+    subtract one mean, that of all their keys, for the per-query constant
+    to cancel across them. return_state also returns (m, l) [B, Sq, H]
+    fp32 of the smoothed scores, as `flash_attention` does. bound_mode "static" -> B8a with the bound inflated by
     `int8_bound_inflation` (score_bound, or the Cauchy-Schwarz bound of the
     smoothed q/k); anything else -> B8b. Unlike `flash_attention`, there is
     no fallback to the running kernel for a large bound. block_q/block_k
@@ -499,13 +523,16 @@ def flash_attention_int8(
     q_group = pick_block(block_q, sq_len)
     k_group = int8_key_group(pick_block(block_k, sk_len), static)
     if smooth_k:
-        k = k - k.float().mean(dim=1, keepdim=True).to(k.dtype)
+        mean = (key_mean if key_mean is not None
+                else k.float().mean(dim=1, keepdim=True))
+        k = k - mean.to(k.dtype)
     kb = key_bias.reshape(b, sk_len) if key_bias is not None else None
     if not static:
         if plain:
             return flash_int8_plain(q, k, v, kb, None, scale, True, q_group,
-                                    k_group)
-        return flash_int8_running(q, k, v, kb, scale, q_group, k_group)
+                                    k_group, return_state)
+        return flash_int8_running(q, k, v, kb, scale, q_group, k_group,
+                                  return_state)
     if score_bound is not None:
         c = torch.as_tensor(score_bound, dtype=torch.float32,
                             device=q.device).expand(b, hh)
@@ -514,5 +541,6 @@ def flash_attention_int8(
     c = c * int8_bound_inflation(d)
     if plain:
         return flash_int8_plain(q, k, v, kb, c, scale, False, q_group,
-                                k_group)
-    return flash_int8_static(q, k, v, kb, c, scale, q_group, k_group)
+                                k_group, return_state)
+    return flash_int8_static(q, k, v, kb, c, scale, q_group, k_group,
+                             return_state)

@@ -53,8 +53,10 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from chip_smoke import (FRAMES, HEIGHT, TRAIN_LATENT,  # noqa: E402
-                        TRAIN_LR, WIDTH, randomize_modulation, train_setup)
+                        TRAIN_LR, WIDTH, train_setup)
 from hunyuanvideo_efficiency_tpu_torch.config import InferenceArgs  # noqa: E402
+from hunyuanvideo_efficiency_tpu_torch.utils.seeded import (  # noqa: E402
+    randomize_modulation)
 from hunyuanvideo_efficiency_tpu_torch.inference import (  # noqa: E402
     HunyuanVideoSampler, get_rotary_pos_embed)
 from hunyuanvideo_efficiency_tpu_torch.ops import sta  # noqa: E402
@@ -114,7 +116,8 @@ def stage(label, fn, out_dir, top=12):
     kernels = sorted(((e.key, e.self_device_time_total / 1e6, e.count)
                       for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA
-                      and e.self_device_time_total > 0),
+                      and e.self_device_time_total > 0
+                      and not getattr(e, "is_user_annotation", False)),
                      key=lambda r: -r[1])
     if not kernels:
         raise RuntimeError(f"{label}: the profiler recorded no device time")

@@ -1,0 +1,303 @@
+"""Sequence-parallel sampling of the PyTorch port across ranks, one GPU a
+rank over NCCL (or one CPU process a rank over gloo with --device cpu).
+
+    torchrun --nproc_per_node 4 scripts/torch_sp_nccl.py
+    torchrun --nproc_per_node 4 scripts/torch_sp_nccl.py --device cpu --tiny
+
+Every rank draws the same full inputs from fixed seeds and keeps its shard,
+so rank 0 can hold the gathered result to one single-device call:
+
+1. attention: `usp_joint_attention` at full width (24 heads x 128, bf16)
+   for every (ulysses, ring) factorization of the world size, on the dense
+   main path's 4,032 + 256 tokens (B = 2, the flash kernels: K1, with state
+   on the ring; and under flash_int8, B8a, with state on the ring) and
+   under STA on the 16x34x60 grid (B4 on each rank's head group, or on its
+   halo-extended slab); the image output all-gathered and put back in
+   token order, the text output of every rank, against the single-device
+   `joint_attention` on rank 0 (max relative error 2e-2; flash_int8
+   against the exact K1 call, 3e-2, JAX's int8 tolerance). Times: the
+   median over ITERS calls of the slowest rank's CUDA-event time of a call
+   (collectives included), beside the single call's median; then one call
+   under torch.profiler, rank 0's device time by category (attention
+   kernels, NCCL kernels with their waits for the peers, copies and cat,
+   the rest: the state merges and other elementwise work).
+2. predict: HunyuanVideoSampler at the full width and depth of HYVideo-T/2
+   (random weights, the adaLN layers randomized), two videos of
+   256x448x33f, 2 steps, CFG 6.0, under several layouts (dp x ulysses x
+   ring), each against the same predict on rank 0 alone (relative L2 of
+   the float video 2e-2), with the median of PREDICT_ITERS runs' seconds
+   per run (the slowest rank's); then one request in lockstep as serve.py
+   runs it (rank 0 broadcasting the arguments).
+One line per check; the last line is {"ok": true, ...} on rank 0.
+`--tiny` shrinks every shape (a CPU rehearsal).
+"""
+import argparse
+import json
+import math
+import os
+import statistics
+import sys
+import time
+
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from hunyuanvideo_efficiency_tpu_torch import serve  # noqa: E402
+from hunyuanvideo_efficiency_tpu_torch.config import InferenceArgs  # noqa
+from hunyuanvideo_efficiency_tpu_torch.inference import (  # noqa: E402
+    HunyuanVideoSampler)
+from hunyuanvideo_efficiency_tpu_torch.models.dit_config import (  # noqa
+    DiTConfig)
+from hunyuanvideo_efficiency_tpu_torch.ops import cuda_lib  # noqa: E402
+from hunyuanvideo_efficiency_tpu_torch.ops.attention import (  # noqa: E402
+    joint_attention)
+from hunyuanvideo_efficiency_tpu_torch.parallel import (  # noqa: E402
+    ParallelConfig, initialize_multihost, make_groups, usp_joint_attention)
+from hunyuanvideo_efficiency_tpu_torch.utils.profiling import (  # noqa
+    PhaseTimer, device_ms_by_category)
+from hunyuanvideo_efficiency_tpu_torch.utils.seeded import (  # noqa: E402
+    joint_inputs, randomize_modulation)
+
+ITERS = 10          # timed calls of each attention layout
+PREDICT_ITERS = 5   # timed predict runs of each layout
+
+
+def log(rank, tag, **fields):
+    if rank == 0:
+        print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
+              flush=True)
+
+
+def rel_err(out, ref):
+    return ((out.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+def timed(fn, dev):
+    """fn's result and its time in ms (CUDA events, or the host clock)."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize(dev)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return out, start.elapsed_time(end)
+
+
+_GROUPS = {}
+
+
+def groups_of(layout):
+    """The subgroups of a (dp, ulysses, ring) layout, built once for the
+    run (every rank reaches the layouts in the same order)."""
+    if layout not in _GROUPS:
+        _GROUPS[layout] = make_groups(ParallelConfig(*layout))
+    return _GROUPS[layout]
+
+
+def median_ms(fn, dev, iters, every_rank=True):
+    """fn's result and the median over `iters` calls (after one warm-up)
+    of a call's time in ms: the slowest rank's when every rank calls it,
+    else this rank's."""
+    out = fn()
+    ms = []
+    for _ in range(iters):
+        out, t = timed(fn, dev)
+        ms.append(t)
+    ms = torch.tensor(ms, device=dev)
+    if every_rank:
+        dist.all_reduce(ms, op=dist.ReduceOp.MAX)
+    return out, statistics.median(ms.tolist())
+
+
+def check_attention(dev, dtype, world, rank, tiny):
+    heads, d = (4, 64) if tiny else (24, 128)
+    cases = [("dense", "auto", 4032 if not tiny else 96, None),
+             ("dense", "flash_int8", 4032 if not tiny else 96, None),
+             ("sta", "sta", None, (16, 8, 8) if tiny else (16, 34, 60))]
+    tile, window = ((4, 4, 4), (3, 3, 3)) if tiny else ((4, 8, 8), (3, 3, 3))
+    exact = {}
+    for name, mode, n_img, grid in cases:
+        n_img = n_img or math.prod(grid)
+        img, txt, tb, c = joint_inputs(dev, 31, n_img, h=heads, d=d,
+                                       dtype=dtype)
+        kw = dict(attn_mode=mode, bound_mode="static", score_bound=c,
+                  token_grid=grid, sta_tile=tile, sta_window=window)
+        ref = single_ms = None
+        if rank == 0:
+            ref, single_ms = median_ms(lambda: joint_attention(
+                *img, *txt, tb, mode=mode, bound_mode="static",
+                score_bound=c, token_grid=grid, sta_tile=tile,
+                sta_window=window), dev, ITERS, every_rank=False)
+        tol = 2e-2
+        if mode == "flash_int8":    # int8 Q.K^T: held to the exact call
+            ref, tol = exact[name], 3e-2
+        exact[name] = ref
+        for u in (d_ for d_ in (1, 2, 4, 8) if world % d_ == 0):
+            r = world // u
+            pcfg = ParallelConfig(1, u, r)
+            if heads % u or (name == "sta" and r > 1 and (
+                    grid[0] % (r * tile[0]) or grid[0] // r < tile[0])):
+                continue
+            g = groups_of((1, u, r))
+            toks = g.token_range(n_img)
+            local = [x[:, toks] for x in img]
+
+            def call():
+                return usp_joint_attention(*local, *txt, tb, g, **kw)
+
+            (img_out, txt_out), ms = median_ms(call, dev, ITERS)
+            cats = (device_ms_by_category(call) if dev.type == "cuda"
+                    else None)
+            parts = [torch.empty_like(img_out) for _ in range(world)]
+            dist.all_gather(parts, img_out.contiguous())
+            txts = [torch.empty_like(txt_out) for _ in range(world)]
+            dist.all_gather(txts, txt_out.contiguous())
+            if rank == 0:
+                blocks = [None] * world
+                for k, part in enumerate(parts):
+                    _, i, j = pcfg.coords(k)
+                    blocks[pcfg.token_block(i, j)] = part
+                err = max([rel_err(torch.cat(blocks, 1), ref[0])]
+                          + [rel_err(t, ref[1]) for t in txts])
+                if err > tol:
+                    raise AssertionError(f"attention {name} {mode} u={u} "
+                                         f"r={r}: max rel error {err} > "
+                                         f"{tol}")
+                log(rank, "sp_attention", case=name, mode=mode, ulysses=u,
+                    ring=r, tokens=f"{n_img}+256", heads=heads,
+                    max_rel_err=err, tol=f"rel {tol}",
+                    sp_ms_median=ms, single_ms_median=single_ms,
+                    iters=ITERS, rank0_device_ms=json.dumps(cats),
+                    grid=json.dumps(grid))
+            dist.barrier()
+
+
+def check_predict(device, world, rank, tiny):
+    layouts = [(1, world, 1), (1, world // 2, 2), (2, world // 2, 1)]
+    if tiny:
+        layouts = [(1, 2, world // 2), (2, 1, world // 2)]
+    layouts = [lay for lay in layouts if math.prod(lay) == world]
+    over = {}
+    if tiny:
+        over = dict(precision="fp32", vae_precision="fp32",
+                    text_encoder_precision="fp32", text_states_dim=64,
+                    text_states_dim_2=48)
+    args = InferenceArgs(model="HYVideo-T/2", vae_tiling=not tiny,
+                         model_base="ckpts-not-present", device=device,
+                         mesh_shape="dp:{},ulysses:{},ring:{}".format(
+                             *layouts[0]), **over)
+    kw = {}
+    if tiny:
+        from hunyuanvideo_efficiency_tpu_torch import inference
+        from hunyuanvideo_efficiency_tpu_torch.models.text import (
+            CLIPTextConfig, LlamaConfig)
+        from hunyuanvideo_efficiency_tpu_torch.models.vae_config import (
+            VAEConfig)
+
+        inference.load_dit_config = lambda name, **o: DiTConfig(
+            hidden_size=128, heads_num=4, mm_double_blocks_depth=1,
+            mm_single_blocks_depth=1, rope_dim_list=(8, 12, 12),
+            text_states_dim=64, text_states_dim_2=48, **o)
+        inference.load_vae_config = lambda name: VAEConfig(
+            block_out_channels=(32, 32, 64, 64), layers_per_block=1)
+        kw = dict(llm_config=LlamaConfig(
+            vocab_size=256, hidden_size=64, intermediate_size=96,
+            num_hidden_layers=2, num_attention_heads=4,
+            num_key_value_heads=2), clip_config=CLIPTextConfig(
+            vocab_size=96, hidden_size=48, intermediate_size=96,
+            num_hidden_layers=2, num_attention_heads=4,
+            max_position_embeddings=77, eos_token_id=95))
+    sampler = HunyuanVideoSampler.from_pretrained(
+        args=args, allow_random_init=True, **kw)
+    randomize_modulation(sampler.transformer, 3)
+    size = dict(height=32, width=64, video_length=5) if tiny else dict(
+        height=256, width=448, video_length=33)
+    req = dict(prompt="A cat walks on the grass, realistic style.", seed=42,
+               infer_steps=2, guidance_scale=6.0, flow_shift=7.0,
+               num_videos_per_prompt=2, **size)
+    dev = torch.device(sampler.device)
+
+    ref = single_s = None
+    if rank == 0:
+        sampler.pipeline.sp = None
+        single = sampler.predict(**req)              # warm-up
+        ref = single["samples"]
+        single_s = statistics.median(sampler.predict(**req)["gen_time"]
+                                     for _ in range(PREDICT_ITERS))
+    dist.barrier()
+    for lay in layouts:
+        sampler.pipeline.sp = groups_of(tuple(lay))
+        out = sampler.predict(**req)                 # warm-up
+        secs = torch.tensor([sampler.predict(**req)["gen_time"]
+                             for _ in range(PREDICT_ITERS)], device=dev)
+        dist.all_reduce(secs, op=dist.ReduceOp.MAX)
+        if rank == 0:
+            err = ((out["samples"] - ref).norm() / ref.norm()).item()
+            if not err <= 2e-2 or ref.std().item() == 0:
+                raise AssertionError(f"predict {lay}: rel L2 {err} > 2e-2")
+            log(rank, "sp_predict", layout="dp:{},ulysses:{},ring:{}".format(
+                *lay), size="{height}x{width}x{video_length}".format(**size),
+                steps=2, rel_l2_vs_single=err,
+                sp_gen_s_median=statistics.median(secs.tolist()),
+                single_gen_s_median=single_s, runs=PREDICT_ITERS)
+        dist.barrier()
+    # one request as serve.py runs it: rank 0 broadcasts, the others follow
+    if rank == 0:
+        out = serve.run_predict(sampler, serve.request_kwargs(
+            {"prompt": req["prompt"], "seed": 42, "infer_steps": 2,
+             "guidance_scale": 6.0, "num_videos": 2, **size}))
+        serve._broadcast(None, sampler)
+        err = ((out["samples"] - ref).norm() / ref.norm()).item()
+        if not err <= 2e-2:
+            raise AssertionError(f"lockstep request: rel L2 {err}")
+        log(rank, "sp_serve_lockstep", ranks=world, rel_l2_vs_single=err,
+            gen_s=out["gen_time"])
+    else:
+        serve.follow(sampler)
+    dist.barrier()
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--tiny", action="store_true")
+    a = p.parse_args(argv)
+    device = initialize_multihost(a.device)
+    if not dist.is_initialized():
+        raise SystemExit("run under torchrun --nproc_per_node N (N > 1)")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = torch.device(device)
+    t0 = time.time()
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if rank == 0:
+            cuda_lib.build()
+        dist.barrier()
+    log(rank, "env", world=world, backend=dist.get_backend(),
+        device=torch.cuda.get_device_name(dev) if dev.type == "cuda"
+        else "cpu", torch=torch.__version__)
+    dtype = torch.float32 if a.tiny else torch.bfloat16
+    timer = PhaseTimer()
+    with torch.no_grad():
+        with timer.phase("attention"):
+            check_attention(dev, dtype, world, rank, a.tiny)
+        with timer.phase("predict"):
+            check_predict(device, world, rank, a.tiny)
+    log(rank, "total", seconds=time.time() - t0, phases=json.dumps(
+        timer.summary()))
+    if rank == 0:
+        print(json.dumps({"ok": True, "world": world,
+                          "backend": dist.get_backend()}))
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

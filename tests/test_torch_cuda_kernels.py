@@ -984,6 +984,37 @@ def test_flash_int8_kernels_match_plain(dev, dtype, d, s, running):
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=TOL)
 
 
+@pytest.mark.parametrize("running", [False, True])
+def test_flash_int8_state_matches_plain(dev, running):
+    """B8a/B8b with return_state (what a ring hop calls): the output and
+    the state (m, l) against flash_int8_plain's, batch 1 with a masked
+    tail."""
+    from hunyuanvideo_efficiency_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(dev).manual_seed(8)
+    b, h, s, d = 2, 3, 1280, 128
+    q, k = (torch.nn.functional.normalize(torch.randn(
+        b, s, h, d, generator=g, device=dev), dim=-1).mul(4).bfloat16()
+        for _ in range(2))
+    v = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
+    kb = torch.zeros(b, s, device=dev)
+    kb[1, s - 13:] = -1e30
+    scale = d ** -0.5
+    c = torch.full((b, h), 16.0 * scale * fa.int8_bound_inflation(d),
+                   device=dev)
+    qg, kg = 256, 640
+    if running:
+        got = fa.flash_int8_running(q, k, v, kb, scale, qg, kg, True)
+    else:
+        got = fa.flash_int8_static(q, k, v, kb, c, scale, qg, kg, True)
+    want = fa.flash_int8_plain(q, k, v, kb, c, scale, running, qg, kg, True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=TOL,
+                               rtol=TOL)
+    torch.testing.assert_close(got[1], want[1], atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(got[2], want[2], atol=1e-2, rtol=1e-2)
+
+
 # (query rows, keys, query group, key group or None for the wrapper's pick,
 # head_dim, v a column view of a fused [B, S, 3*H*D] projection)
 INT8_CASES = [

@@ -173,6 +173,29 @@ def test_flash_int8_plain_with_64_row_groups(running):
     torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("bound_mode", ["static", "running"])
+def test_states_over_key_halves_merge_to_one_call(bound_mode):
+    """return_state with one key_mean for all calls (what the ring's hops
+    do): the states of two calls over the key halves, each half whole key
+    groups of 128, merge to the one call over every key; the static offsets
+    differ between the halves (each its own Cauchy-Schwarz bound)."""
+    q, k, v, kb = (torch.from_numpy(a) for a in _inputs(6, 512))
+    mean = k.float().mean(dim=1, keepdim=True)
+    kw = dict(block_k=256, bound_mode=bound_mode, key_mean=mean,
+              return_state=True)
+    full = fa.flash_attention_int8(q, k, v, key_bias=kb, **kw)
+    halves = [fa.flash_attention_int8(q, k[:, i:i + 256], v[:, i:i + 256],
+                                      key_bias=kb[..., i:i + 256], **kw)
+              for i in (0, 256)]
+    o, m, l = fa.merge_flash_states(*halves)
+    torch.testing.assert_close(o, full[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l * torch.exp(m - full[1]), full[2],
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(full[0], fa.flash_attention_int8(
+        q, k, v, key_bias=kb, block_k=256, bound_mode=bound_mode), rtol=0,
+        atol=0)
+
+
 @pytest.mark.parametrize("d,q_group,k_group,what", [
     (64, 96, 128, "groups 96/128 are not multiples of 64"),
     (64, 128, 32, "groups 128/32 are not multiples of 64"),

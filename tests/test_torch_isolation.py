@@ -94,6 +94,20 @@ def test_harness_modules_are_covered():
         assert f"hunyuanvideo_efficiency_tpu_torch/{mod}" in names
 
 
+def test_serving_and_parallel_modules_are_covered():
+    """The modules of sequence-parallel sampling and of the serving entries
+    and tools are among the checked sources."""
+    names = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    for mod in ("parallel/__init__.py", "parallel/mesh.py",
+                "parallel/multihost.py", "parallel/sp_attention.py",
+                "parallel/sp_dit.py", "diffusion/scheduler.py",
+                "diffusion/pipeline.py", "serve.py", "gradio_server.py",
+                "cli.py", "prompt_rewrite.py", "utils/profiling.py",
+                "utils/logging.py", "utils/collect_env.py",
+                "sample_video.py"):
+        assert f"hunyuanvideo_efficiency_tpu_torch/{mod}" in names
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"

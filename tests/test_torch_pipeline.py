@@ -77,20 +77,24 @@ def _randomize_modulation(tree, rng):
     return walk(tree, False)
 
 
-def build_pipelines(**dit_overrides):
+def jit_init(fn, seed, *args):
+    """The JAX initializer's own draw, as a numpy tree."""
+    return _np_tree(jax.jit(fn, static_argnums=tuple(range(1, len(args)
+                                                             + 1)))(
+        jax.random.PRNGKey(seed), *args))
+
+
+def build_pipelines(init=jit_init, **dit_overrides):
     """(JAX pipeline, port pipeline) of the tiny towers, DiT and VAE, with
-    identical random weights; `dit_overrides` go to both DiT configs."""
+    identical random weights drawn by `init(fn, seed, *args)`;
+    `dit_overrides` go to both DiT configs."""
     jdit_cfg = JDiTCfg(**{"attn_mode": "flash", **DIT, **dit_overrides})
     dit_p = _randomize_modulation(
-        _np_tree(jax.jit(init_dit_params, static_argnums=(1, 2))(
-            jax.random.PRNGKey(0), jdit_cfg, jnp.float32)),
+        init(init_dit_params, 0, jdit_cfg, jnp.float32),
         np.random.default_rng(0))
-    llama_p = _np_tree(jax.jit(init_llama_params, static_argnums=(1, 2))(
-        jax.random.PRNGKey(1), JLlamaCfg(**LLAMA), jnp.float32))
-    clip_p = _np_tree(jax.jit(init_clip_params, static_argnums=(1, 2))(
-        jax.random.PRNGKey(2), JClipCfg(**CLIP), jnp.float32))
-    vae_p = _np_tree(jax.jit(init_vae_params, static_argnums=1)(
-        jax.random.PRNGKey(3), JVAECfg(**VAE)))
+    llama_p = init(init_llama_params, 1, JLlamaCfg(**LLAMA), jnp.float32)
+    clip_p = init(init_clip_params, 2, JClipCfg(**CLIP), jnp.float32)
+    vae_p = init(init_vae_params, 3, JVAECfg(**VAE))
 
     jpipe = JPipeline(
         vae=JVAE(JVAECfg(**VAE), jax.tree.map(jnp.asarray, vae_p)),
@@ -188,16 +192,21 @@ def test_predict_rejects_bad_inputs(sampler):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (dict(ring_degree=2, use_fp8=True), "sequence parallelism"),
-    (dict(ulysses_degree=2), "sequence parallelism"),
-    (dict(mesh_shape="dp:2", attn_mode="sta_int8"), "sequence parallelism"),
+    (dict(ring_degree=2, use_fp8=True, shard_dit_weights=True),
+     "not ported yet"),
+    (dict(ulysses_degree=2, shard_dit_weights=True), "not ported yet"),
+    (dict(mesh_shape="dp:2", attn_mode="sta_int8", shard_dit_weights=True),
+     "not ported yet"),
 ], ids=["flags0-weight tiers", "flags1-sequence parallelism",
         "flags2-attn-mode sta"])
 def test_unported_flags_rejected(flags, match):
-    """Only sequence parallelism is still rejected, with or without the
-    weight tiers and int8 attention modes that are ported now."""
+    """Only the sharded-weight tier (--shard-dit-weights) is still
+    rejected; the sequence-parallel flags, the weight tiers and the int8
+    attention modes parse without it."""
     with pytest.raises(ValueError, match=match):
         InferenceArgs(**flags)
+    flags.pop("shard_dit_weights")
+    InferenceArgs(**flags)
 
 
 def test_from_pretrained_random_and_pt(monkeypatch, tmp_path, pipelines):
