@@ -39,6 +39,15 @@ Phases, one line each (any failure raises and exits non-zero):
      halo r = 2, 4 on the 16x34x60 grid (B4 on each halo-extended slab
      with an image key bias, the text queries by merged states); each
      against one single-device call, rel 2e-2, exact launch counts;
+  3c. sequence-parallel training rank math (`[sp_train_rank_math]`): the
+     same per-rank functions under grad, forward and backward, B = 1 (the
+     train path's batch) on the same 4,032 + 256 tokens: ring r = 2, 4
+     (flash_attention_state: K1 with state a hop, r*r launches, the plain
+     chunked transpose backward) and Ulysses u = 4 (the flash VJP on each
+     head group: u launches each of B5f, B5q, B5kv); the collectives'
+     adjoints as index moves (the ranks slice the same leaves); the
+     gathered output and dQ/dK/dV against one flash_attention_vjp call over
+     the whole joint sequence, rel 2e-2, exact launch counts;
   4. main path: HunyuanVideoSampler.from_pretrained at the full width of
      HYVideo-T/2 (bf16), Llama-3-8B + CLIP-L (fp16) and the 884-16c-hy VAE
      (fp16), random weights from fixed seeds, then predict() with CFG at
@@ -136,8 +145,8 @@ gives them (batch 1, 4,288 tokens, q and k contiguous, v a column view of
 the fused projection as in a single block: out and lse; dQ; dK and dV) with
 SDPA's forward and backward as their yardsticks.
 Then the total seconds, one JSON line of per-kernel numbers (with
-`path_launches`, each kernel's launches in `[sp_rank_math]` and
-`[serve_path]`; `launches` of
+`path_launches`, each kernel's launches in `[sp_rank_math]`,
+`[sp_train_rank_math]` and `[serve_path]`; `launches` of
 each kernel from the path that runs it: K1 and K3 from 4, K2 from 5, the
 running int8 kernel from 6, W8A8 and the static int8 kernel from 7,
 sta_direct and sta_ring from 9, sta_permuted_running from 10,
@@ -179,8 +188,8 @@ from hunyuanvideo_efficiency_tpu_torch.ops.conv3d import replicate_pad
 from hunyuanvideo_efficiency_tpu_torch.ops.conv3d_cuda import (
     conv3d_stride1, conv3d_stride1_plain, conv3d_stride1_v2)
 from hunyuanvideo_efficiency_tpu_torch.ops.flash_backward import (
-    flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain,
-    flash_fwd_lse, flash_fwd_lse_plain, row_delta)
+    flash_attention_vjp, flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq,
+    flash_bwd_dq_plain, flash_fwd_lse, flash_fwd_lse_plain, row_delta)
 from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
     flash_attention_int8, flash_attention_plain, flash_int8_plain,
     flash_int8_running,
@@ -1297,6 +1306,131 @@ def sp_rank_math(dev, smi):
                     grid=json.dumps(SP_STA_GRID), slab_planes=t_loc,
                     halo_planes=halo_p, tokens=f"{t_all * hh * ww}+"
                     f"{tq.shape[1]}", batch=b))
+    return total
+
+
+@torch.enable_grad()    # main() runs under no_grad
+def sp_train_rank_math(dev, smi):
+    """Each rank's arithmetic of sequence-parallel TRAINING attention, the
+    forward and the backward, at full width (24 heads x 128, bf16) on the
+    dense main path's 4,032 + 256 tokens, B = 1 (the train path's batch),
+    one rank after another on the one card, through the port's per-rank
+    functions under grad:
+      ring r = 2, 4: ring_first_hop + ring_hop, each hop K1 with state
+        through flash_attention_state (r*r K1 launches in the forward; its
+        backward is the plain chunked transpose, no kernel);
+      Ulysses u = 4: ulysses_local_attention on each 6-head group, the
+        flash VJP (u launches each of B5f, B5q and B5kv).
+    The collectives and their adjoints are index moves on the one card:
+    every rank slices the same full q/k/v leaves (the image rows of its
+    shard or the rotated shards, its head group), so autograd sums the
+    ranks' cotangents into the leaves as the reverse collectives would; the
+    text output's cotangent goes to rank 0's copy. The gathered output and
+    dQ, dK, dV are held against one flash_attention_vjp call over the whole
+    joint sequence (B5f, then B5q + B5kv), max relative error 2e-2, and the
+    launches counted exactly. NCCL refuses two ranks on one device; the
+    collectives' own adjoints run under gloo in the CPU tests."""
+    q0, k0, v0, kb, c, _, _ = flash_inputs(dev, b=1)
+    b, s, h, d = q0.shape
+    n_img, scale = 4032, d ** -0.5
+    tb = kb[:, n_img:].reshape(b, 1, 1, -1)
+    g = torch.Generator(dev).manual_seed(3)
+    g_out = torch.randn(b, s, h * d, generator=g, device=dev).bfloat16()
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q0, k0, v0)]
+
+    def single():
+        out = flash_attention_vjp(*leaves, kb.reshape(b, 1, 1, s), c, scale,
+                                  bound_mode="static")
+        torch.autograd.backward(out, g_out)
+        return out
+
+    def run(ranks, assemble):
+        """The outputs and the leaves' gradients, copied (a timed call
+        after this one accumulates into the same .grad tensors)."""
+        for x in leaves:
+            x.grad = None
+        got = assemble([fn() for fn in ranks])
+        return [got] + [x.grad.clone() for x in leaves]
+
+    ref = run([single], lambda outs: outs[0])
+    single_ms = cuda_ms(single, 5)
+    total = {}
+    for r in SP_RINGS + (None,):
+        if r is None:       # Ulysses
+            u = SP_ULYSSES
+            hl = h // u
+            heads = [slice(i * hl, (i + 1) * hl) for i in range(u)]
+
+            def rank(i, heads=heads, hl=hl):
+                q, k, v = (x[:, :, heads[i]] for x in leaves)
+                img, txt = ulysses_local_attention(
+                    q[:, :n_img], k[:, :n_img], v[:, :n_img], q[:, n_img:],
+                    k[:, n_img:], v[:, n_img:], tb, mode="flash",
+                    scale=scale, bound_mode="static",
+                    score_bound=c[:, heads[i]])
+                out = torch.cat([img, txt], 1).reshape(b, s, hl, d)
+                torch.autograd.backward(out, g_out.reshape(
+                    b, s, h, d)[:, :, heads[i]])
+                return out.detach()
+
+            def assemble(outs, u=u):
+                return torch.cat(outs, 2).reshape(b, s, h * d)
+
+            label, degree, fns = f"ulysses u={u}", u, [
+                functools.partial(rank, i) for i in range(u)]
+            want = dict(flash_fwd_lse=u, flash_bwd_dq=u, flash_bwd_dkv=u,
+                        flash_static=0, flash_running=0)
+        else:
+            n = n_img // r
+            shard = [slice(j * n, (j + 1) * n) for j in range(r)]
+            kw = dict(scale=scale, bound_mode="static", score_bound=c)
+
+            def rank(j, r=r, shard=shard, n=n):
+                q, k, v = leaves
+                qj = torch.cat([q[:, shard[j]], q[:, n_img:]], 1)
+                st = ring_first_hop(qj, k[:, shard[j]], v[:, shard[j]],
+                                    k[:, n_img:], v[:, n_img:], tb, **kw)
+                for hop in range(1, r):
+                    src = shard[(j - hop) % r]
+                    st = ring_hop(st, qj, k[:, src], v[:, src], **kw)
+                g_txt = g_out[:, n_img:] if j == 0 else torch.zeros_like(
+                    g_out[:, n_img:])
+                torch.autograd.backward(st[0], torch.cat(
+                    [g_out[:, shard[j]], g_txt], 1))
+                return st[0].detach()
+
+            def assemble(outs, n=n):
+                return torch.cat([o[:, :n] for o in outs]
+                                 + [outs[0][:, n:]], 1)
+
+            label, degree, fns = f"ring r={r}", r, [
+                functools.partial(rank, j) for j in range(r)]
+            want = dict(flash_static=r * r, flash_running=0,
+                        flash_fwd_lse=0, flash_bwd_dq=0, flash_bwd_dkv=0)
+        reset_counts()
+        got = run(fns, assemble)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        expect(f"sp_train_rank_math {label}", launches, want)
+        errs = {name: errors(a, r_) for name, a, r_ in zip(
+            ("out", "dq", "dk", "dv"), got, ref)}
+        worst = max(e[1] for e in errs.values())
+        if worst > 2e-2:
+            raise AssertionError(f"sp_train_rank_math {label}: max rel "
+                                 f"error {errs} > 2e-2")
+        ms = [cuda_ms(fn, 3) for fn in fns]
+        phase("sp_train_rank_math", case=label, degree=degree,
+              max_rel_err=json.dumps({k: e[1] for k, e in errs.items()}),
+              max_abs_err=max(e[0] for e in errs.values()),
+              tol="rel 2e-2 (bf16)",
+              launches=json.dumps({k: v for k, v in launches.items() if v}),
+              rank_fwd_bwd_ms=json.dumps(ms), ranks_ms_sum=sum(ms),
+              single_vjp_ms=single_ms, tokens=f"{n_img}+{s - n_img}",
+              batch=b, note="timings are information", card=smi)
+        for name, cnt in launches.items():
+            total[name] = total.get(name, 0) + cnt
+    for x in leaves:
+        x.grad = None
     return total
 
 
@@ -2636,6 +2770,8 @@ def main():
     rows += check_sta_ring(dev, smi, sta_rows[0]["library_ms"])
     torch.cuda.empty_cache()
     path_launches = {"sp_rank_math": sp_rank_math(dev, smi)}
+    torch.cuda.empty_cache()
+    path_launches["sp_train_rank_math"] = sp_train_rank_math(dev, smi)
     torch.cuda.empty_cache()
     sampler, launches = main_path(smi)
     path_launches["serve_path"] = serve_path(sampler, smi)

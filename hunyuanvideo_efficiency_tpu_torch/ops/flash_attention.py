@@ -25,6 +25,12 @@ tens of thousands of keys), `flash_splits` splits each tile's keys over
 several blocks and a second kernel of the same source merges the parts;
 the wrapper still counts one launch.
 
+`flash_attention_state` (JAX :535) is K1 with state made differentiable
+for the ring hops of sequence-parallel training: the forward is K1, the
+backward the autograd of a plain, chunked replica of K1's state
+(`state_reference`, JAX `_state_reference` :473), as JAX's custom VJP
+transposes a plain reference; no kernel computes that backward.
+
 int8 Q.K^T (`flash_attention_int8`, JAX :816-906; `csrc/flash_int8.cu`):
 
 * `flash_int8_static` (B8a) replaces `_flash_int8_nomax_kernel`, the
@@ -46,6 +52,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..utils.profiling import annotate
 from . import cuda_lib
@@ -267,6 +274,93 @@ def merge_flash_states(s1, s2):
         return o.reshape(b, sq, hd).to(o1.dtype), m, l
     o = o1.float() * w1[..., None] + o2.float() * w2[..., None]
     return o.to(o1.dtype), m, l
+
+
+# --------------------------------------------------------------------------
+# differentiable state-returning flash (ring sequence-parallel training)
+# --------------------------------------------------------------------------
+
+def _state_fold(acc, l, qf, k, v, kb, c):
+    """One key chunk of `state_reference`: acc += p.v, l += rowsum p."""
+    s = torch.matmul(qf, k.float().permute(0, 2, 3, 1))
+    p = torch.exp(s + (kb[:, None, None, :] - c[:, :, None, None]))
+    return (acc + torch.matmul(p, v.float().transpose(1, 2)),
+            l + p.sum(dim=-1))
+
+
+def state_reference(q, k, v, key_bias, c, scale: float, k_chunk: int = 2048):
+    """Plain, differentiable replica of K1's partial-softmax state (JAX
+    `_state_reference`): p = exp(s*scale + key_bias - C), l = rowsum p,
+    out = p.v / max(l, 1e-37), m = C. q/k/v [B, S, H, D]; key_bias [B, Sk]
+    (or [B, 1, 1, Sk]) or None; c [B, H]. Keys fold `k_chunk` at a time,
+    each chunk under torch.utils.checkpoint, so neither pass holds more
+    than one [B, H, Sq, k_chunk] fp32 score block. Returns (out [B, Sq,
+    H*D] in q's dtype, m, l [B, Sq, H] fp32)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qf = q.float().transpose(1, 2) * scale
+    kb = (key_bias.reshape(b, sk).float() if key_bias is not None
+          else torch.zeros((b, sk), device=q.device))
+    c = c.float()
+    acc = torch.zeros((b, h, sq, d), device=q.device)
+    l = torch.zeros((b, h, sq), device=q.device)
+    for k0 in range(0, sk, k_chunk):
+        ks = slice(k0, k0 + k_chunk)
+        acc, l = checkpoint(_state_fold, acc, l, qf, k[:, ks], v[:, ks],
+                            kb[:, ks], c, use_reentrant=False)
+    out = acc / l.clamp_min(1e-37)[..., None]
+    out = out.transpose(1, 2).reshape(b, sq, h * d).to(q.dtype)
+    return out, c[:, None, :].expand(b, sq, h), l.transpose(1, 2)
+
+
+class _FlashState(torch.autograd.Function):
+    """K1 with state forward, the autograd of `state_reference` backward
+    (JAX `_flash_state_diff`'s custom VJP). c takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, c, scale, k_chunk):
+        ctx.save_for_backward(q, k, v, key_bias, c)
+        ctx.scale, ctx.k_chunk = scale, k_chunk
+        b, sk = k.shape[:2]
+        kb = key_bias.reshape(b, sk) if key_bias is not None else None
+        out, m, l = flash_static(q, k, v, kb, c, scale, return_state=True)
+        ctx.mark_non_differentiable(m)
+        return out, m, l
+
+    @staticmethod
+    def backward(ctx, g_out, g_m, g_l):
+        q, k, v, key_bias, c = ctx.saved_tensors
+        want = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            ins = [x.detach().requires_grad_(w) if x is not None else None
+                   for x, w in zip((q, k, v, key_bias), want)]
+            out, _, l = state_reference(*ins, c, ctx.scale, ctx.k_chunk)
+            wrt = [x for x, w in zip(ins, want) if w]
+            got = iter(torch.autograd.grad((out, l), wrt, (g_out, g_l)))
+        return (*(next(got) if w else None for w in want), None, None, None)
+
+
+def flash_attention_state(q, k, v, key_bias=None, scale=None,
+                          score_bound=None, k_chunk: int = 2048):
+    """Differentiable `flash_attention(..., bound_mode="static",
+    return_state=True)` (JAX `flash_attention_state`): K1 runs the forward
+    (its plain version on CPU tensors), the backward transposes the chunked
+    plain replica `state_reference`. Returns (out [B, Sq, H*D], m, l
+    [B, Sq, H] fp32) for `merge_flash_states`.
+
+    The offset C (score_bound, broadcast to [B, H], or the Cauchy-Schwarz
+    bound of the row norms) is detached, as JAX's stop_gradient: the merged
+    softmax is exactly invariant to it. Static-offset regime only (QK-norm);
+    running-max rings differentiate through the plain recurrence."""
+    b, _, h, d = q.shape
+    scale = float(scale if scale is not None else d ** -0.5)
+    if score_bound is None:
+        c = score_bound_from_norms(q, k, scale)
+    else:
+        c = torch.as_tensor(score_bound, dtype=torch.float32,
+                            device=q.device).expand(b, h)
+    return _FlashState.apply(q, k, v, key_bias, c.detach().contiguous(),
+                             scale, k_chunk)
 
 
 # --------------------------------------------------------------------------

@@ -1551,13 +1551,16 @@ def sta_joint_attention(
 
 def sta_gathered_attention(img_q, img_k, img_v, txt_q, txt_k, txt_v, txt_bias,
                            *, grid, tile=(4, 8, 8), window=(3, 3, 3),
-                           scale=None, tile_chunk: int = 32):
+                           scale=None, tile_chunk: int = 32,
+                           img_key_bias=None):
     """Differentiable plain-PyTorch STA with the tile plan of the kernels
     (JAX `sta_gathered_attention`): per query tile the neighbour key/value
     tiles are gathered into one key set, the text keys appended, and an
     fp32 softmax runs per tile, so autograd derives the sparse backward (the
     gather's transpose scatter-adds dK/dV). `tile_chunk` query tiles are
-    processed per step. Returns (img_out [B, S_img, H*D], txt_out
+    processed per step. img_key_bias, optional fp32 [B, S_img], is added to
+    the image keys for every query, as the kernels add it (the ring x STA
+    halo's wrap mask). Returns (img_out [B, S_img, H*D], txt_out
     [B, Lt, H*D]); the text queries keep full attention over [img | txt]."""
     from .attention import chunked_attention, sdpa_attention
 
@@ -1581,6 +1584,9 @@ def sta_gathered_attention(img_q, img_k, img_v, txt_q, txt_k, txt_v, txt_bias,
     valid = _valid_tokens(grid, plan["padded_grid"]).reshape(-1)[plan["perm"]]
     tok_bias = torch.from_numpy(np.where(valid, 0.0, NEG_INF).astype(
         np.float32)).to(dev).reshape(n_tiles, block)
+    ikb = (None if img_key_bias is None else _permute_tokens(
+        img_key_bias.reshape(b, s_img).float()[..., None, None], grid, tile,
+        plan).reshape(b, n_tiles, block))
     slot_bias = torch.where(nbr >= 0, 0.0, NEG_INF).to(dev)
     idx = nbr.clamp_min(0)
     tb_row = (txt_bias.reshape(b, lt).float() if txt_bias is not None
@@ -1597,6 +1603,8 @@ def sta_gathered_attention(img_q, img_k, img_v, txt_q, txt_k, txt_v, txt_bias,
             cn, n_slots * block)
         s_i = torch.einsum("bcqhd,bckhd->bchqk", q_c, kg.float()) * scale
         s_i = s_i + kb[None, :, None, None, :]
+        if ikb is not None:
+            s_i = s_i + ikb[:, nb].reshape(b, cn, 1, 1, n_slots * block)
         s_t = torch.einsum("bcqhd,blhd->bchql", q_c, txt_k.float()) * scale
         s_t = s_t + tb_row[:, None, None, None, :]
         p = torch.softmax(torch.cat([s_i, s_t], dim=-1), dim=-1)
@@ -1608,8 +1616,10 @@ def sta_gathered_attention(img_q, img_k, img_v, txt_q, txt_k, txt_v, txt_bias,
     out_t = torch.cat(outs, dim=1).reshape(b, n_tiles * block, hh * d)
     img_out = _unpermute_tokens(out_t, grid, plan, tile)
 
-    full_kb = torch.cat([torch.zeros((b, s_img), device=dev), tb_row],
-                        dim=1)[:, None, None, :]
+    ib_row = (img_key_bias.reshape(b, s_img).float()
+              if img_key_bias is not None
+              else torch.zeros((b, s_img), device=dev))
+    full_kb = torch.cat([ib_row, tb_row], dim=1)[:, None, None, :]
     k_all = torch.cat([img_k, txt_k], dim=1)
     v_all = torch.cat([img_v, txt_v], dim=1)
     if s_img > 8192:
@@ -1624,38 +1634,43 @@ def sta_gathered_attention(img_q, img_k, img_v, txt_q, txt_k, txt_v, txt_bias,
 class _STATrainable(torch.autograd.Function):
     """Kernel forward (`sta_joint_attention`), gathered-form backward: both
     compute the same function, so autograd through `sta_gathered_attention`
-    on the saved inputs gives the sparse attention gradients. txt_bias and
-    score_bound (which only shifts the kernels' exponent offset) get no
-    gradient."""
+    on the saved inputs gives the sparse attention gradients. txt_bias,
+    img_key_bias and score_bound (which only shifts the kernels' exponent
+    offset) get no gradient."""
 
     @staticmethod
-    def forward(ctx, iq, ik, iv, tq, tk, tv, txt_bias, score_bound, opts):
-        ctx.save_for_backward(iq, ik, iv, tq, tk, tv, txt_bias)
+    def forward(ctx, iq, ik, iv, tq, tk, tv, txt_bias, img_key_bias,
+                score_bound, opts):
+        ctx.save_for_backward(iq, ik, iv, tq, tk, tv, txt_bias, img_key_bias)
         ctx.opts = opts
         return sta_joint_attention(iq, ik, iv, tq, tk, tv, txt_bias,
-                                   score_bound=score_bound, **opts)
+                                   score_bound=score_bound,
+                                   img_key_bias=img_key_bias, **opts)
 
     @staticmethod
     def backward(ctx, g_img, g_txt):
-        *qkv, txt_bias = ctx.saved_tensors
+        *qkv, txt_bias, img_key_bias = ctx.saved_tensors
         o = ctx.opts
         with torch.enable_grad():
             ins = [x.detach().requires_grad_(True) for x in qkv]
             outs = sta_gathered_attention(
                 *ins, txt_bias, grid=o["grid"], tile=o["tile"],
-                window=o["window"], scale=o["scale"])
+                window=o["window"], scale=o["scale"],
+                img_key_bias=img_key_bias)
             grads = torch.autograd.grad(outs, ins, (g_img, g_txt))
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def sta_joint_attention_trainable(img_q, img_k, img_v, txt_q, txt_k, txt_v,
                                   txt_bias, *, grid, tile=(4, 8, 8),
                                   window=(3, 3, 3), scale=None,
                                   bound_mode="auto", qk_int8=False,
-                                  score_bound=None, plain=False):
+                                  score_bound=None, plain=False,
+                                  img_key_bias=None):
     """`sta_joint_attention` with a sparse backward: the same forward (the
     kernel dispatch), differentiable through the gathered form. What
-    `joint_attention(mode="sta")` routes through, so fine-tuning under STA
+    `joint_attention(mode="sta")` and the ring x STA halo's slabs
+    (`img_key_bias`, the wrap mask) route through, so fine-tuning under STA
     works; without a gradient to compute it is `sta_joint_attention`."""
     opts = dict(grid=tuple(grid), tile=tuple(tile), window=tuple(window),
                 scale=scale, bound_mode=bound_mode, qk_int8=bool(qk_int8),
@@ -1663,7 +1678,8 @@ def sta_joint_attention_trainable(img_q, img_k, img_v, txt_q, txt_k, txt_v,
     qkv = (img_q, img_k, img_v, txt_q, txt_k, txt_v)
     if not (torch.is_grad_enabled() and any(x.requires_grad for x in qkv)):
         return sta_joint_attention(*qkv, txt_bias, score_bound=score_bound,
-                                   **opts)
+                                   img_key_bias=img_key_bias, **opts)
     if score_bound is not None:
         score_bound = torch.as_tensor(score_bound).detach()
-    return _STATrainable.apply(*qkv, txt_bias, score_bound, opts)
+    return _STATrainable.apply(*qkv, txt_bias, img_key_bias, score_bound,
+                               opts)

@@ -17,11 +17,13 @@ import torch
 import torch.distributed as dist
 
 
-def initialize_multihost(device: str = "cuda") -> str:
+def initialize_multihost(device: str = "cuda", timeout=None) -> str:
     """Starts the default process group from torchrun's environment when
     WORLD_SIZE > 1 (no-op otherwise, or when a group already exists) and
     returns the device this rank computes on: `cuda:LOCAL_RANK` for a CUDA
-    run, `device` unchanged otherwise."""
+    run, `device` unchanged otherwise. `timeout` (a timedelta) bounds how
+    long a collective may wait for its peers (the backend's default
+    otherwise)."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     cuda = torch.device(device).type == "cuda"
     if world <= 1 and not dist.is_initialized():
@@ -36,7 +38,7 @@ def initialize_multihost(device: str = "cuda") -> str:
     if not dist.is_initialized():
         dist.init_process_group(backend="nccl" if cuda else "gloo",
                                 rank=int(os.environ["RANK"]),
-                                world_size=world)
+                                world_size=world, timeout=timeout)
     return device
 
 
@@ -47,7 +49,12 @@ def is_primary() -> bool:
 
 
 def local_batch_slice(global_batch: int) -> slice:
-    """Which slice of a batch sharded over every rank this rank feeds."""
+    """The slice of a batch split over every rank by GLOBAL rank: JAX's
+    per-process slice (JAX parallel/multihost.py:54-59), where a process
+    is a host that feeds all of its chips. It is not a data-parallel
+    loader's slice here: under ulysses x ring the sp ranks of one dp shard
+    must see the same rows, which `SPGroups.batch_range` (by dp index)
+    gives and this does not."""
     n = dist.get_world_size() if dist.is_initialized() else 1
     i = dist.get_rank() if dist.is_initialized() else 0
     per = global_batch // n

@@ -24,6 +24,17 @@ Each rank's local compute between two collectives is a function of its own
 can run one rank's arithmetic on one device. The kernels are those of the
 single-device path: K1/K2 and B8a/B8b (with `return_state` on the ring),
 B4.
+
+Training differentiates all of it. Each collective is an autograd.Function
+whose backward is its adjoint (JAX's transposes under shard_map): the
+Ulysses all_to_all's is the reverse all_to_all, an all_gather's (the text
+heads, the halo's ring states) the reduce-scatter of the peers'
+cotangents, a ring send's the send back by the negated offset, all the
+tensors of one call in one batch_isend_irecv. The text stream is computed
+on every rank and takes a cotangent only through this rank's head slice,
+so summing the ranks' gradients (training.py) is exact. The ring hops'
+state under grad is `flash_attention_state` (K1 forward, the plain chunked
+transpose backward); B5f/B5q/B5kv serve each Ulysses head group.
 """
 from __future__ import annotations
 
@@ -35,53 +46,58 @@ import torch.distributed as dist
 
 from ..ops.attention import joint_attention, resolve_auto_mode
 from ..ops.flash_attention import (flash_attention, flash_attention_int8,
-                                   merge_flash_states)
+                                   flash_attention_state, merge_flash_states)
 from .mesh import SPGroups, check_backend
 
 NEG_INF = -1e30
 
 
 # --------------------------------------------------------------------------
-# collectives
+# collectives: each an autograd.Function whose backward is its adjoint
 # --------------------------------------------------------------------------
 
-def ulysses_scatter(x: torch.Tensor, g: SPGroups) -> torch.Tensor:
-    """[B, S, H, D] sequence shard -> [B, u*S, H/u, D]: this rank's head
-    group over the u shards of its ring index, in ulysses order."""
+def _all_to_all(send: torch.Tensor, group) -> torch.Tensor:
+    """all_to_all_single of `send` [n, ...] (row i to the group's rank i)."""
+    send = send.contiguous()
+    check_backend(group, send)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return recv
+
+
+def _scatter_raw(x, g):
     u = g.u
     b, s, h, d = x.shape
-    send = x.reshape(b, s, u, h // u, d).permute(2, 0, 1, 3, 4).contiguous()
-    check_backend(g.ulysses, send)
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=g.ulysses)
+    send = x.reshape(b, s, u, h // u, d).permute(2, 0, 1, 3, 4)
+    recv = _all_to_all(send, g.ulysses)
     return recv.permute(1, 0, 2, 3, 4).reshape(b, u * s, h // u, d)
 
 
-def ulysses_unscatter(out: torch.Tensor, g: SPGroups) -> torch.Tensor:
-    """[B, u*S, Hl*D] head-group output -> [B, S, H*D] sequence shard."""
+def _unscatter_raw(out, g):
     u = g.u
     b, su, hd = out.shape
-    send = out.reshape(b, u, su // u, hd).transpose(0, 1).contiguous()
-    check_backend(g.ulysses, send)
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=g.ulysses)
+    send = out.reshape(b, u, su // u, hd).transpose(0, 1)
+    recv = _all_to_all(send, g.ulysses)
     return recv.permute(1, 2, 0, 3).reshape(b, su // u, u * hd)
 
 
-def ulysses_gather_heads(x: torch.Tensor, g: SPGroups) -> torch.Tensor:
-    """[B, L, Hl*D] -> [B, L, H*D], head groups in ulysses order."""
+def _gather_raw(x, group, n):
+    """[n, *x.shape]: every rank's x in group order."""
     x = x.contiguous()
-    check_backend(g.ulysses, x)
-    parts = [torch.empty_like(x) for _ in range(g.u)]
-    dist.all_gather(parts, x, group=g.ulysses)
-    return torch.cat(parts, dim=-1)
+    check_backend(group, x)
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return torch.stack(parts)
 
 
-def ring_send_recv(sends: Sequence[Tuple[torch.Tensor, int]],
-                   g: SPGroups) -> List[torch.Tensor]:
-    """Each (tensor, offset) goes to ring index j + offset and a tensor of
-    its shape comes from j - offset; one batch_isend_irecv for all (the
-    tags keep messages to one peer apart)."""
+def _reduce_scatter_raw(parts, group):
+    """The adjoint of `_gather_raw`: parts [n, ...] (this rank's cotangent
+    of every rank's x) -> the sum over ranks of their cotangents of this
+    rank's x, added in group order (an all_to_all, then a sum)."""
+    return _all_to_all(parts, group).sum(dim=0)
+
+
+def _send_recv_raw(sends, g):
     r, j = g.r, g.ring_index
     ops, outs = [], []
     for tag, (x, off) in enumerate(sends):
@@ -98,12 +114,99 @@ def ring_send_recv(sends: Sequence[Tuple[torch.Tensor, int]],
     return outs
 
 
+class _UlyssesScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g, ctx.shape = g, x.shape
+        return _scatter_raw(x, g)
+
+    @staticmethod
+    def backward(ctx, gy):
+        b, su, hl, d = gy.shape
+        return (_unscatter_raw(gy.reshape(b, su, hl * d), ctx.g)
+                .reshape(ctx.shape), None)
+
+
+class _UlyssesUnscatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, out, g):
+        ctx.g, ctx.hd = g, out.shape[-1]
+        return _unscatter_raw(out, g)
+
+    @staticmethod
+    def backward(ctx, gy):
+        # the u head groups as u "heads" of the group's width Hl*D
+        b, s, _ = gy.shape
+        x = _scatter_raw(gy.reshape(b, s, -1, ctx.hd), ctx.g)
+        return x.reshape(b, x.shape[1], ctx.hd), None
+
+
+class _Gather(torch.autograd.Function):
+    """all_gather over `group`; backward the reduce-scatter (each rank's x
+    feeds every rank, so its cotangent is the sum of theirs)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group = group
+        return _gather_raw(x, group, n)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return _reduce_scatter_raw(gy, ctx.group), None, None
+
+
+class _SendRecv(torch.autograd.Function):
+    """One batch_isend_irecv for every (tensor, offset); backward sends each
+    cotangent back to where its tensor came from (offset -off), again in
+    one batch, so every rank issues its p2p in one order both ways."""
+
+    @staticmethod
+    def forward(ctx, g, offs, *xs):
+        ctx.g, ctx.offs = g, offs
+        return tuple(_send_recv_raw(list(zip(xs, offs)), g))
+
+    @staticmethod
+    def backward(ctx, *gys):    # unused outputs' cotangents come as zeros
+        back = _send_recv_raw([(gy, -off) for gy, off in zip(gys, ctx.offs)],
+                              ctx.g)
+        return (None, None, *back)
+
+
+def ulysses_scatter(x: torch.Tensor, g: SPGroups) -> torch.Tensor:
+    """[B, S, H, D] sequence shard -> [B, u*S, H/u, D]: this rank's head
+    group over the u shards of its ring index, in ulysses order (one
+    all_to_all; backward `ulysses_unscatter`'s)."""
+    return _UlyssesScatter.apply(x, g)
+
+
+def ulysses_unscatter(out: torch.Tensor, g: SPGroups) -> torch.Tensor:
+    """[B, u*S, Hl*D] head-group output -> [B, S, H*D] sequence shard (one
+    all_to_all; backward `ulysses_scatter`'s)."""
+    return _UlyssesUnscatter.apply(out, g)
+
+
+def ulysses_gather_heads(x: torch.Tensor, g: SPGroups) -> torch.Tensor:
+    """[B, L, Hl*D] -> [B, L, H*D], head groups in ulysses order (an
+    all_gather; backward the reduce-scatter of the peers' cotangents)."""
+    parts = _Gather.apply(x, g.ulysses, g.u)
+    return parts.permute(1, 2, 0, 3).reshape(
+        x.shape[0], x.shape[1], g.u * x.shape[2])
+
+
+def ring_send_recv(sends: Sequence[Tuple[torch.Tensor, int]],
+                   g: SPGroups) -> List[torch.Tensor]:
+    """Each (tensor, offset) goes to ring index j + offset and a tensor of
+    its shape comes from j - offset; one batch_isend_irecv for all (the
+    tags keep messages to one peer apart). Differentiable: the cotangents
+    travel back by one batch_isend_irecv."""
+    xs, offs = zip(*sends)
+    return list(_SendRecv.apply(g, tuple(offs), *xs))
+
+
 def _gather_ring(x: torch.Tensor, g: SPGroups) -> List[torch.Tensor]:
-    x = x.contiguous()
-    check_backend(g.ring, x)
-    parts = [torch.empty_like(x) for _ in range(g.r)]
-    dist.all_gather(parts, x, group=g.ring)
-    return parts
+    """Every ring rank's x, in ring order (an all_gather; backward the
+    reduce-scatter)."""
+    return list(_Gather.apply(x, g.ring, g.r).unbind(0))
 
 
 # --------------------------------------------------------------------------
@@ -134,16 +237,44 @@ def ulysses_local_attention(img_q, img_k, img_v, txt_q, txt_k, txt_v,
                            sta_window=sta_window, plain=plain)
 
 
+def _wants_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def _plain_state(q, k, v, key_bias, scale):
+    """(out [B, Sq, H*D], m, l [B, Sq, H]) of the plain running-max
+    recurrence: the differentiable state of a call without a static
+    bound."""
+    b, sq, h, d = q.shape
+    bias = (key_bias.reshape(b, 1, 1, -1) if key_bias is not None
+            else None)
+    m, l, acc = _partial_attn(q, k, v, bias, _init_state(b, h, sq, d,
+                                                         q.device), scale)
+    return (_finish((m, l, acc), q.dtype), m.transpose(1, 2),
+            l.transpose(1, 2))
+
+
 def _flash_state(q, k, v, key_bias, scale, bound_mode, score_bound, *,
                  mode: str = "flash", key_mean=None, plain: bool = False):
     """(out, m, l) of one call over a key set: K1/K2, or under "flash_int8"
-    B8a/B8b on the keys less `key_mean` (plain: their plain version)."""
+    B8a/B8b on the keys less `key_mean` (plain: their plain version).
+    Under grad: K1 through `flash_attention_state` (static bound), else
+    the plain recurrence; "flash_int8" has no backward and raises."""
+    grad = _wants_grad(q, k, v)
     if mode == "flash_int8":
+        if grad:
+            raise NotImplementedError(
+                "attention mode 'flash_int8' is inference only: it has no "
+                "backward (train with 'flash', 'sta' or 'sdpa')")
         return flash_attention_int8(
             q, k, v, key_bias=key_bias, scale=scale,
             bound_mode="static" if bound_mode == "static" else "running",
             score_bound=score_bound, plain=plain, key_mean=key_mean,
             return_state=True)
+    if grad and bound_mode == "static":
+        return flash_attention_state(q, k, v, key_bias, scale, score_bound)
+    if grad:
+        return _plain_state(q, k, v, key_bias, scale)
     return flash_attention(q, k, v, key_bias=key_bias, scale=scale,
                            bound_mode=bound_mode, score_bound=score_bound,
                            return_state=True)
@@ -245,10 +376,11 @@ def halo_slab_attention(q_e, k_e, v_e, txt_q, txt_k, txt_v, txt_bias,
     """The image queries of one ring rank under STA: `sta_joint_attention`
     (B4, or B4q; plain: their plain version) on the halo-extended slab
     `grid_ext` with the wrap masked by `key_bias`; returns the local rows
-    [B, S_loc, Hl*D] (the halo queries' outputs are discarded)."""
-    from ..ops.sta import sta_joint_attention
+    [B, S_loc, Hl*D] (the halo queries' outputs are discarded). Under grad
+    its backward is the plain gathered form's (the trainable wrapper)."""
+    from ..ops.sta import sta_joint_attention_trainable
 
-    img_out, _ = sta_joint_attention(
+    img_out, _ = sta_joint_attention_trainable(
         q_e, k_e, v_e, txt_q, txt_k, txt_v, txt_bias, grid=tuple(grid_ext),
         tile=tuple(tile), window=tuple(window), scale=scale,
         bound_mode=bound_mode, qk_int8=qk_int8, img_key_bias=key_bias,
@@ -350,7 +482,15 @@ def usp_joint_attention(
     "chunked" the streaming recurrence in plain PyTorch. `plain` routes
     flash_int8 and the STA image queries to their plain versions, as on
     one device. A score_bound per head ([..., H]) is cut to the rank's
-    head group."""
+    head group.
+
+    Differentiable (training, JAX training.py:58-61): every collective's
+    backward is its adjoint; under grad the static-bound ring hops run
+    `flash_attention_state` (K1 forward, plain chunked backward), a
+    running-bound "flash" ring takes the plain recurrence, the ring-free
+    path `flash_attention_vjp` (B5f/B5q/B5kv) or the trainable STA, the
+    halo the trainable STA on its slab and `flash_attention_state` for the
+    text states; "flash_int8" raises."""
     b, _, h, d = img_q.shape
     lt = txt_q.shape[1]
     scale = scale if scale is not None else d ** -0.5
@@ -385,6 +525,11 @@ def usp_joint_attention(
         mode = (resolve_auto_mode(img_q.device.type, img_q.dtype, d,
                                   s_r + lt)
                 if attn_mode == "auto" else attn_mode)
+        if (mode == "flash" and bound_mode != "static" and _wants_grad(
+                img_q, img_k, img_v, txt_q, txt_k, txt_v)):
+            # K2 has no backward: a running-bound ring differentiates
+            # through the plain recurrence (JAX flash_ring_kernel=False)
+            mode = "sdpa"
         q = torch.cat([img_q, txt_q], dim=1)
         kw = dict(scale=scale, bound_mode=bound_mode,
                   score_bound=score_bound)

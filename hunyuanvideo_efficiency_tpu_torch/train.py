@@ -1,8 +1,20 @@
 """Fine-tune the MM-DiT with flow matching on a .pt video/latent dataset, on
-one GPU (JAX counterpart: the root train.py).
+one GPU or, under torchrun, over a dp x ulysses x ring layout of GPUs (JAX
+counterpart: the root train.py).
 
     python -m hunyuanvideo_efficiency_tpu_torch.train --data-dir DIR \
         --latents --steps 1000 --output-dir train_outputs
+    torchrun --nproc_per_node 4 -m hunyuanvideo_efficiency_tpu_torch.train \
+        --data-dir DIR --latents --mesh-shape dp:1,ulysses:2,ring:2
+
+Sequence-parallel training (`--mesh-shape`, default every rank on
+ulysses): one process a GPU over NCCL (gloo with `--device cpu`); rank 0's
+parameters are broadcast once after the init or the load, every rank draws
+the same global batch, noise and t from the one CPU generator and keeps its
+dp rows and its token block (training.py with `sp`), the gradients are
+averaged over the world, only rank 0 prints and writes checkpoints, and
+`--resume` loads on every rank. `--batch-size` must divide by dp and the
+latent's H patch axis by ulysses x ring.
 
 The reference stack is inference-only but ships training checkpoints with
 dual `module`/`ema` weight sets (reference: hyvideo/inference.py:279-354);
@@ -78,8 +90,8 @@ def parse_args(argv=None):
     p.add_argument("--ema-decay", type=float, default=0.9999)
     p.add_argument("--no-ema", action="store_true")
     p.add_argument("--mesh-shape", default=None,
-                   help="only dp:1,ulysses:1,ring:1 (sequence-parallel "
-                        "training is not ported)")
+                   help="e.g. dp:2,ulysses:2,ring:2 over the torchrun "
+                        "world (default: every rank on ulysses)")
     p.add_argument("--save-every", type=int, default=500)
     p.add_argument("--resume", default=None,
                    help="checkpoint dir from a previous run")
@@ -91,17 +103,35 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def check_mesh_shape(spec) -> None:
-    """Only the one-device mesh is ported."""
-    if not spec:
-        return
-    for part in spec.split(","):
-        name, degree = part.split(":")
-        if int(degree) != 1:
-            raise NotImplementedError(
-                f"--mesh-shape {spec!r}: {name.strip()} degree {degree} is "
-                f"not ported (sequence- and data-parallel training run only "
-                f"in the JAX package)")
+def mesh_layout(spec, world: int, batch: int):
+    """The dp x ulysses x ring layout of `--mesh-shape` over `world` ranks
+    (JAX train.py:123-128): every rank on ulysses without a spec; the
+    degrees must span the world and dp divide the batch."""
+    from .parallel.mesh import ParallelConfig, parse_mesh_shape
+
+    pcfg = (parse_mesh_shape(spec) if spec
+            else ParallelConfig(ulysses_degree=world))
+    if pcfg.world_size != world:
+        raise ValueError(
+            f"--mesh-shape {spec!r}: dp {pcfg.dp_degree} x ulysses "
+            f"{pcfg.ulysses_degree} x ring {pcfg.ring_degree} = "
+            f"{pcfg.world_size} ranks, but the world has {world} (run under "
+            f"torchrun --nproc_per_node {pcfg.world_size})")
+    if batch % pcfg.dp_degree:
+        raise ValueError(f"--batch-size {batch} not divisible by dp degree "
+                         f"{pcfg.dp_degree}")
+    return pcfg
+
+
+def check_patch_rows(th: int, pcfg) -> None:
+    """The latent's H patch axis must divide by the sp degree (JAX
+    train.py:146-150; the reference chunks H by rank,
+    hyvideo/inference.py:57-64)."""
+    if th % pcfg.sp_degree:
+        raise ValueError(
+            f"latent H patch axis {th} not divisible by sp degree "
+            f"{pcfg.sp_degree} (reference has the same constraint, "
+            f"hyvideo/inference.py:57-64)")
 
 
 def build_cfg(args):
@@ -142,16 +172,24 @@ def load_text_embeds(path, device):
 
 def main(argv=None):
     args = parse_args(argv)
-    check_mesh_shape(args.mesh_shape)
+
+    import torch.distributed as dist
 
     from .data.dataset_loader import VideoTensorDataset
     from .models.dit import build_dit
     from .ops.rope import get_nd_rotary_pos_embed
+    from .parallel import (check_sp_compat, initialize_multihost, is_primary,
+                           make_groups)
+    from .parallel.sp_train import broadcast_params
     from .training import make_train_step, make_train_step_adamw
     from .utils.checkpoint import load_torch_state_dict
     from .utils.train_io import load_tree, save_tree
 
-    device = torch.device(args.device)
+    device = torch.device(initialize_multihost(args.device))
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    pcfg = mesh_layout(args.mesh_shape, world, args.batch_size)
+    sp = make_groups(pcfg) if world > 1 else None
+    primary = is_primary()
     cfg = build_cfg(args)
     # one explicit generator drives the loop's draws (batch, noise, t); it
     # lives on the CPU so the stream does not depend on the device
@@ -163,6 +201,8 @@ def main(argv=None):
     model = build_dit(cfg, device, torch.bfloat16, init_gen, trainable=True)
     if args.dit_weights:
         model.load_state_dict(load_torch_state_dict(args.dit_weights))
+    if sp is not None:
+        broadcast_params(model)
 
     # ---- VAE (only to encode pixel videos) ----
     vae = None
@@ -187,6 +227,9 @@ def main(argv=None):
     _, _, t_lat, h_lat, w_lat = z0.shape
     pt, ph, pw = cfg.patch_size
     tt, th, tw = t_lat // pt, h_lat // ph, w_lat // pw
+    if sp is not None:
+        check_patch_rows(th, pcfg)
+        check_sp_compat(cfg, pcfg, (tt, th, tw), args.batch_size)
     cos, sin = get_nd_rotary_pos_embed(cfg.rope_dim_list, (tt, th, tw),
                                        theta=cfg.rope_theta, device=device)
     d = cos.shape[-1]
@@ -206,7 +249,7 @@ def main(argv=None):
 
     # ---- optimizer / step ----
     if args.optimizer == "sgd":
-        sgd_step = make_train_step(model, lr=args.lr)
+        sgd_step = make_train_step(model, lr=args.lr, sp=sp)
         state = {"opt_state": None, "master": None, "ema": None, "step": 0}
 
         def step_fn(state, *batch):
@@ -217,7 +260,7 @@ def main(argv=None):
         step_fn, init_fn = make_train_step_adamw(
             model, lr=args.lr, weight_decay=args.weight_decay,
             grad_clip=args.grad_clip,
-            ema_decay=None if args.no_ema else args.ema_decay)
+            ema_decay=None if args.no_ema else args.ema_decay, sp=sp)
         state = init_fn()
     start = 0
     if args.resume:
@@ -240,7 +283,8 @@ def main(argv=None):
             start = int(json.load(f)["step"])
         state["step"] = start
 
-    os.makedirs(args.output_dir, exist_ok=True)
+    if primary:
+        os.makedirs(args.output_dir, exist_ok=True)
 
     def save(step_i):
         ck = os.path.join(args.output_dir, f"step_{step_i:07d}")
@@ -269,6 +313,8 @@ def main(argv=None):
                               sin_g)
         loss = float(loss)
         losses.append(loss)
+        if not primary:
+            continue
         print(f"step {i + 1}/{args.steps} loss {loss:.5f} "
               f"({time.time() - t0:.2f}s)", flush=True)
         if (i + 1) % args.save_every == 0 or (i + 1) == args.steps:

@@ -11,8 +11,18 @@ JAX steps return a new tree): `make_train_step` is plain SGD and returns
 the loss; `make_train_step_adamw` is AdamW written in optax's form with an
 optional global-norm clip, an fp32 master copy when any parameter is not
 fp32, and an fp32 EMA, and returns (state, loss). Blocks are checkpointed
-(`remat_blocks`) to keep activation memory flat in depth. One device: no
-gradient mean over a mesh.
+(`remat_blocks`) to keep activation memory flat in depth.
+
+With `sp` (the rank's SPGroups) both are JAX's sharded steps
+(`make_sp_train_step`, `make_sp_train_step_optax`): every rank calls the
+step on the same global inputs and keeps its dp rows and its ring-major
+token block (parallel/sp_train.py), the forward runs token-sharded
+(`forward_tokens(..., sp=)`, the GLOBAL grid as token_grid), the loss is
+the rank's token mean, and the gradients are averaged over the whole world
+(dp x ulysses x ring) in fp32 buckets before the update, which then runs
+identically on every rank; the returned loss is the world mean. The
+checkpointed blocks re-run their collectives in the backward, in the same
+order on every rank (one graph, one autograd order).
 """
 from __future__ import annotations
 
@@ -24,19 +34,24 @@ import torch
 from .models.dit import HYVideoDiT, patchify_raw
 from .models.dit_config import DiTConfig
 from .ops.quantization import TIER_OF
+from .parallel.mesh import SPGroups
+from .parallel.sp_train import average_grads, local_inputs, world_mean
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8   # optax.adamw's defaults
 
 
 def flow_match_loss(model: HYVideoDiT, x0, noise, t, pe, mask, pe2, f_cos,
-                    f_sin, guidance, token_grid=None) -> torch.Tensor:
+                    f_sin, guidance, token_grid=None, sp=None
+                    ) -> torch.Tensor:
     """Rectified-flow MSE on token-form latents [B, L, C*pt*ph*pw]; t in
-    [0, 1]. token_grid (T', H', W') is needed under attn_mode "sta"."""
+    [0, 1]. token_grid (T', H', W') is needed under attn_mode "sta"; with
+    sp the latents and RoPE rows are this rank's shard and token_grid the
+    global grid."""
     sigma = t[:, None, None].float()
     x_t = (1.0 - sigma) * x0.float() + sigma * noise.float()
     v_target = noise.float() - x0.float()
     v = model.forward_tokens(x_t, t * 1000.0, pe, mask, pe2, f_cos, f_sin,
-                             guidance, token_grid=token_grid)
+                             guidance, token_grid=token_grid, sp=sp)
     return torch.mean((v.float() - v_target) ** 2)
 
 
@@ -62,22 +77,29 @@ def _prepare_model(model: HYVideoDiT) -> DiTConfig:
 
 
 def _loss_and_grads(model, cfg, x0, noise, t, pe, mask, pe2, f_cos_grid,
-                    f_sin_grid) -> torch.Tensor:
+                    f_sin_grid, sp=None) -> torch.Tensor:
     """Loss of one batch of 5-D latents with grid RoPE tables [T', H', W',
-    D]; the gradients are left in each parameter's .grad."""
+    D]; the gradients are left in each parameter's .grad. With sp: this
+    rank's part of the global batch, the gradients and the loss averaged
+    over the world."""
     d = f_cos_grid.shape[-1]
-    guidance = (torch.full((x0.shape[0],), 1000.0, device=x0.device)
+    ins = (patchify_raw(x0, cfg.patch_size),
+           patchify_raw(noise, cfg.patch_size), t, pe, mask, pe2,
+           f_cos_grid.reshape(-1, d), f_sin_grid.reshape(-1, d))
+    if sp is not None:
+        ins = local_inputs(sp, *ins)
+    guidance = (torch.full((ins[0].shape[0],), 1000.0, device=x0.device)
                 if cfg.guidance_embed else None)
     for p in model.parameters():
         p.grad = None
     with torch.enable_grad():
-        loss = flow_match_loss(
-            model, patchify_raw(x0, cfg.patch_size),
-            patchify_raw(noise, cfg.patch_size), t, pe, mask, pe2,
-            f_cos_grid.reshape(-1, d), f_sin_grid.reshape(-1, d), guidance,
-            token_grid=tuple(f_cos_grid.shape[:3]))
+        loss = flow_match_loss(model, *ins, guidance,
+                               token_grid=tuple(f_cos_grid.shape[:3]), sp=sp)
         loss.backward()
-    return loss.detach()
+    if sp is None:
+        return loss.detach()
+    average_grads(p for p in model.parameters() if p.requires_grad)
+    return world_mean(loss)
 
 
 def _grad(p: torch.Tensor) -> torch.Tensor:
@@ -86,17 +108,19 @@ def _grad(p: torch.Tensor) -> torch.Tensor:
             else torch.zeros_like(p, dtype=torch.float32))
 
 
-def make_train_step(model: HYVideoDiT, lr: float = 1e-5):
+def make_train_step(model: HYVideoDiT, lr: float = 1e-5,
+                    sp: Optional[SPGroups] = None):
     """SGD step (JAX `make_sp_train_step`):
     step(x0, noise, t, pe, mask, pe2, f_cos_grid, f_sin_grid) -> loss, with
     every parameter replaced in place by (p - lr * g.float()) rounded to
-    p's dtype. Inputs keep the 5-D latent + grid-RoPE API."""
+    p's dtype. Inputs keep the 5-D latent + grid-RoPE API; with sp they are
+    the global batch (the same on every rank)."""
     cfg = _prepare_model(model)
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(x0, noise, t, pe, mask, pe2, f_cos_grid, f_sin_grid):
         loss = _loss_and_grads(model, cfg, x0, noise, t, pe, mask, pe2,
-                               f_cos_grid, f_sin_grid)
+                               f_cos_grid, f_sin_grid, sp)
         with torch.no_grad():
             for p in params:
                 if p.grad is not None:
@@ -110,9 +134,11 @@ def make_train_step(model: HYVideoDiT, lr: float = 1e-5):
 def make_train_step_adamw(model: HYVideoDiT, lr: float = 1e-5,
                           weight_decay: float = 1e-4,
                           grad_clip: Optional[float] = None,
-                          ema_decay: Optional[float] = 0.9999):
+                          ema_decay: Optional[float] = 0.9999,
+                          sp: Optional[SPGroups] = None):
     """AdamW step with optional EMA (JAX `make_sp_train_step_optax` with
-    optax.chain(clip_by_global_norm(grad_clip), adamw(lr, weight_decay))).
+    optax.chain(clip_by_global_norm(grad_clip), adamw(lr, weight_decay))),
+    sharded over `sp` as `make_train_step`.
 
     Returns (step_fn, init_fn):
       init_fn() -> state {opt_state: {mu, nu, count}, master (or None),
@@ -152,7 +178,7 @@ def make_train_step_adamw(model: HYVideoDiT, lr: float = 1e-5,
 
     def step(state, x0, noise, t, pe, mask, pe2, f_cos_grid, f_sin_grid):
         loss = _loss_and_grads(model, cfg, x0, noise, t, pe, mask, pe2,
-                               f_cos_grid, f_sin_grid)
+                               f_cos_grid, f_sin_grid, sp)
         opt = state["opt_state"]
         opt["count"] += 1
         c1 = 1.0 - ADAM_B1 ** opt["count"]

@@ -1,7 +1,9 @@
-"""Sequence-parallel sampling of the PyTorch port across ranks, one GPU a
-rank over NCCL (or one CPU process a rank over gloo with --device cpu).
+"""Sequence-parallel sampling and training of the PyTorch port across
+ranks, one GPU a rank over NCCL (or one CPU process a rank over gloo with
+--device cpu).
 
     torchrun --nproc_per_node 4 scripts/torch_sp_nccl.py
+    torchrun --nproc_per_node 4 scripts/torch_sp_nccl.py --phases train
     torchrun --nproc_per_node 4 scripts/torch_sp_nccl.py --device cpu --tiny
 
 Every rank draws the same full inputs from fixed seeds and keeps its shard,
@@ -28,10 +30,22 @@ so rank 0 can hold the gathered result to one single-device call:
    the float video 2e-2), with the median of PREDICT_ITERS runs' seconds
    per run (the slowest rank's); then one request in lockstep as serve.py
    runs it (rank 0 broadcasting the arguments).
+3. train: the sharded SGD step (training.make_train_step with sp) of a
+   trainable DiT at the full width and depth of HYVideo-T/2 (bf16, the
+   adaLN layers randomized, every block checkpointed) on 256x448x33f
+   latents, two steps under each layout (ulysses, ulysses x ring, ring,
+   and dp x ulysses at batch 2), each against rank 0 running the
+   one-device step on the same global batch from the same weights: both
+   losses (relative 1e-2) and every parameter (relative L2 of the whole
+   set, 2e-2; the relative L2 of the update beside it as information),
+   every rank's parameters equal to rank 0's bit for bit; the slowest
+   rank's seconds a step (host clock, synchronized) and its peak GiB.
 One line per check; the last line is {"ok": true, ...} on rank 0.
+`--phases` picks among attention, predict and train (default all);
 `--tiny` shrinks every shape (a CPU rehearsal).
 """
 import argparse
+import datetime
 import json
 import math
 import os
@@ -54,8 +68,15 @@ from hunyuanvideo_efficiency_tpu_torch.models.dit_config import (  # noqa
 from hunyuanvideo_efficiency_tpu_torch.ops import cuda_lib  # noqa: E402
 from hunyuanvideo_efficiency_tpu_torch.ops.attention import (  # noqa: E402
     joint_attention)
+from hunyuanvideo_efficiency_tpu_torch.models import dit as dit_mod  # noqa
+from hunyuanvideo_efficiency_tpu_torch.ops.rope import (  # noqa: E402
+    get_nd_rotary_pos_embed)
 from hunyuanvideo_efficiency_tpu_torch.parallel import (  # noqa: E402
     ParallelConfig, initialize_multihost, make_groups, usp_joint_attention)
+from hunyuanvideo_efficiency_tpu_torch.parallel.sp_train import (  # noqa
+    broadcast_params)
+from hunyuanvideo_efficiency_tpu_torch.training import (  # noqa: E402
+    make_train_step)
 from hunyuanvideo_efficiency_tpu_torch.utils.profiling import (  # noqa
     PhaseTimer, device_ms_by_category)
 from hunyuanvideo_efficiency_tpu_torch.utils.seeded import (  # noqa: E402
@@ -63,6 +84,8 @@ from hunyuanvideo_efficiency_tpu_torch.utils.seeded import (  # noqa: E402
 
 ITERS = 10          # timed calls of each attention layout
 PREDICT_ITERS = 5   # timed predict runs of each layout
+TRAIN_STEPS, TRAIN_LR = 2, 0.1
+TRAIN_LATENT = (16, 9, 32, 56)       # 256x448x33f: a 9x16x28 patch grid
 
 
 def log(rank, tag, **fields):
@@ -265,12 +288,131 @@ def check_predict(device, world, rank, tiny):
     dist.barrier()
 
 
+def train_inputs(cfg, latent, batch, seed, dev, txt_len=256, txt_valid=40):
+    """One global training batch, the same on every rank (a CPU generator):
+    clean latents, noise, t, text states with `txt_valid` valid tokens, the
+    pooled text vector and the grid RoPE tables."""
+    g = torch.Generator().manual_seed(seed)
+    x0 = torch.randn(batch, *latent, generator=g)
+    noise = torch.randn(batch, *latent, generator=g)
+    t = torch.rand(batch, generator=g)
+    pe = torch.randn(batch, txt_len, cfg.text_states_dim, generator=g)
+    mask = torch.ones(batch, txt_len, dtype=torch.long)
+    mask[:, txt_valid:] = 0
+    pe2 = torch.randn(batch, cfg.text_states_dim_2, generator=g)
+    grid = tuple(n // p for n, p in zip(latent[1:], cfg.patch_size))
+    cos, sin = get_nd_rotary_pos_embed(cfg.rope_dim_list, grid,
+                                       theta=cfg.rope_theta, device="cpu")
+    return [x.to(dev) for x in (x0, noise, t, pe, mask, pe2,
+                                cos.reshape(*grid, -1),
+                                sin.reshape(*grid, -1))]
+
+
+def check_train(dev, world, rank, tiny):
+    """Two sharded SGD steps a layout against rank 0's one-device steps."""
+    if tiny:
+        cfg = DiTConfig(hidden_size=128, heads_num=4, mm_double_blocks_depth=1,
+                        mm_single_blocks_depth=1, rope_dim_list=(8, 12, 12),
+                        text_states_dim=64, text_states_dim_2=48,
+                        attn_mode="flash")
+        latent, dtype, txt_len = (16, 4, 8, 8), torch.float32, 16
+    else:
+        cfg, latent, dtype, txt_len = DiTConfig(), TRAIN_LATENT, \
+            torch.bfloat16, 256
+    layouts = [(1, world, 1), (1, world // 2, 2), (1, 1, world),
+               (2, world // 2, 1)]
+    layouts = [lay for lay in layouts if math.prod(lay) == world]
+    model = dit_mod.build_dit(cfg, dev, dtype, trainable=True)
+
+    def init():
+        model.init_weights(torch.Generator(dev).manual_seed(20))
+        randomize_modulation(model, 21)
+
+    def steps(batch, sp):
+        init()      # the same initial weights each time, on every rank
+        if sp is not None:
+            broadcast_params(model)
+        step = make_train_step(model, lr=TRAIN_LR, sp=sp)
+        data = train_inputs(cfg, latent, batch, 22, dev, txt_len)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        losses, secs = [], []
+        for _ in range(TRAIN_STEPS):
+            loss, ms = timed(lambda: step(*data), dev)
+            losses.append(float(loss))
+            secs.append(ms / 1e3)
+        peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+                if dev.type == "cuda" else 0.0)
+        return losses, secs, peak
+
+    single = {}
+    if rank == 0:     # the one-device reference of each batch size
+        init()
+        single["init"] = [p.detach().to("cpu", copy=True)
+                          for p in model.parameters()]
+        for batch in sorted({lay[0] for lay in layouts}):
+            losses, secs, peak = steps(batch, None)
+            single[batch] = (losses, secs, peak, [
+                p.detach().to("cpu", copy=True) for p in model.parameters()])
+    dist.barrier()
+    for lay in layouts:
+        g = groups_of(tuple(lay))
+        losses, secs, peak = steps(lay[0], g)
+        slow = torch.tensor(secs + [peak], device=dev)
+        dist.all_reduce(slow, op=dist.ReduceOp.MAX)
+        same = 1.0      # this rank's parameters against rank 0's, bitwise
+        for p in model.parameters():
+            ref = p.detach().clone()
+            dist.broadcast(ref, src=0)
+            same = min(same, float(torch.equal(p.detach(), ref)))
+        same = torch.tensor(same, device=dev)
+        dist.all_reduce(same, op=dist.ReduceOp.MIN)
+        if rank == 0:
+            s_losses, s_secs, s_peak, s_params = single[lay[0]]
+            loss_err = max(abs(a - b) / abs(b)
+                           for a, b in zip(losses, s_losses))
+            num = den = upd = 0.0
+            for p, w, p0 in zip(model.parameters(), s_params,
+                                single["init"]):
+                w, p0 = w.to(dev).float(), p0.to(dev).float()
+                num += (p.detach().float() - w).square().sum().item()
+                den += w.square().sum().item()
+                upd += (w - p0).square().sum().item()
+            rel_l2 = math.sqrt(num / den)
+            upd_rel_l2 = math.sqrt(num / max(upd, 1e-30))
+            if not (loss_err <= 1e-2 and rel_l2 <= 2e-2
+                    and same.item() == 1.0):
+                raise AssertionError(
+                    f"train {lay}: loss rel {loss_err} (1e-2), params rel "
+                    f"L2 {rel_l2} (2e-2), ranks equal {same.item()}")
+            log(rank, "sp_train", layout="dp:{},ulysses:{},ring:{}".format(
+                *lay), blocks=f"{cfg.mm_double_blocks_depth}+"
+                f"{cfg.mm_single_blocks_depth}", latent=json.dumps(latent),
+                batch=lay[0], losses=json.dumps(losses),
+                single_losses=json.dumps(s_losses), loss_rel_err=loss_err,
+                param_rel_l2=rel_l2, update_rel_l2=upd_rel_l2,
+                ranks_bit_equal=bool(same.item()),
+                slowest_s_per_step=json.dumps(slow[:-1].tolist()),
+                slowest_peak_gib=slow[-1].item(),
+                single_s_per_step=json.dumps(s_secs),
+                single_peak_gib=s_peak, lr=TRAIN_LR,
+                tol="loss rel 1e-2, params rel L2 2e-2")
+        dist.barrier()
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default="cuda")
     p.add_argument("--tiny", action="store_true")
+    p.add_argument("--phases", default="attention,predict,train",
+                   help="comma-separated: attention, predict, train")
+    p.add_argument("--pg-timeout", type=float, default=None,
+                   help="seconds a collective may wait for its peers "
+                        "before the run fails (default: the backend's)")
     a = p.parse_args(argv)
-    device = initialize_multihost(a.device)
+    device = initialize_multihost(a.device, None if a.pg_timeout is None
+                                  else datetime.timedelta(
+                                      seconds=a.pg_timeout))
     if not dist.is_initialized():
         raise SystemExit("run under torchrun --nproc_per_node N (N > 1)")
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -285,12 +427,18 @@ def main(argv=None):
         device=torch.cuda.get_device_name(dev) if dev.type == "cuda"
         else "cpu", torch=torch.__version__)
     dtype = torch.float32 if a.tiny else torch.bfloat16
+    phases = a.phases.split(",")
     timer = PhaseTimer()
     with torch.no_grad():
-        with timer.phase("attention"):
-            check_attention(dev, dtype, world, rank, a.tiny)
-        with timer.phase("predict"):
-            check_predict(device, world, rank, a.tiny)
+        if "attention" in phases:
+            with timer.phase("attention"):
+                check_attention(dev, dtype, world, rank, a.tiny)
+        if "predict" in phases:
+            with timer.phase("predict"):
+                check_predict(device, world, rank, a.tiny)
+    if "train" in phases:
+        with timer.phase("train"):
+            check_train(dev, world, rank, a.tiny)
     log(rank, "total", seconds=time.time() - t0, phases=json.dumps(
         timer.summary()))
     if rank == 0:

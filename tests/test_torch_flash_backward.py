@@ -368,6 +368,37 @@ def test_sta_gathered_forward_is_the_kernels_function():
                and x.grad.abs().max() > 0 for x in leaves)
 
 
+def test_sta_gathered_takes_the_image_key_bias():
+    """An image key bias (the ring x STA halo's wrap mask: NEG_INF over a
+    t-plane, a different one per batch row) reaches the gathered form as
+    it reaches the dispatch, for the image and the text queries, and the
+    trainable wrapper's backward gives the masked keys no gradient."""
+    grid, tile, window = (3, 5, 6), (1, 2, 4), (3, 3, 3)
+    xs, tb = _sta_inputs(grid, seed=6, b=2)
+    ins = [torch.from_numpy(x) for x in xs]
+    tbt = torch.from_numpy(tb)
+    plane = grid[1] * grid[2]
+    ikb = torch.zeros(2, grid[0] * plane)
+    ikb[0, :plane] = NEG_INF
+    ikb[1, -plane:] = NEG_INF
+    kw = dict(grid=grid, tile=tile, window=window)
+    want = sta.sta_joint_attention(*ins, tbt, img_key_bias=ikb, **kw)
+    got = sta.sta_gathered_attention(*ins, tbt, img_key_bias=ikb, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    assert (got[0] - sta.sta_gathered_attention(*ins, tbt, **kw)[0]
+            ).abs().max() > 1e-2
+    leaves = [x.clone().requires_grad_(True) for x in ins]
+    io, to = sta.sta_joint_attention_trainable(
+        *leaves, tbt, bound_mode="static", score_bound=torch.tensor(4.0),
+        img_key_bias=ikb, **kw)
+    (torch.sin(io).sum() + torch.cos(to).sum()).backward()
+    for x in leaves[1:3]:     # dK, dV of the masked planes
+        assert x.grad[0, :plane].abs().max() == 0
+        assert x.grad[1, -plane:].abs().max() == 0
+        assert x.grad[0, plane:].abs().max() > 0
+
+
 # --------------------------------------------------------------------------
 # a 1+1-block DiT's loss gradients through the flash VJP
 # --------------------------------------------------------------------------

@@ -63,7 +63,9 @@ def test_training_path_modules_are_covered():
     """The modules of the fine-tuning path are among the checked sources."""
     names = {p.relative_to(ROOT).as_posix() for p in _sources()}
     for mod in ("ops/flash_backward.py", "training.py", "train.py",
-                "utils/train_io.py", "data/dataset_loader.py"):
+                "utils/train_io.py", "data/dataset_loader.py",
+                "parallel/sp_train.py", "parallel/sp_attention.py",
+                "parallel/mesh.py", "parallel/multihost.py"):
         assert f"hunyuanvideo_efficiency_tpu_torch/{mod}" in names
 
 

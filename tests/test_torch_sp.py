@@ -30,6 +30,23 @@ blocks) and held against JAX computed in this process meanwhile:
   the stand-in tokenizer's per-process salted hash against rank 0 alone
   (every rank conditions on rank 0's text); all to 2e-3.
 
+Training (the same worlds, the same tiny DiT's weights): two steps of the
+port's sharded SGD step (`make_train_step(sp=)`) at (dp, u, r) = (1,2,1),
+(1,1,2), (2,1,1) on 2 ranks and (1,2,2), (1,1,4), (2,2,1) on 4 ranks under
+"flash" with QK-norm (the ring's hops through `flash_attention_state`,
+Ulysses through the flash VJP), "sdpa" and a model without QK-norm on a
+ring (the plain recurrence), STA under Ulysses and the ring x STA halo,
+and AdamW + EMA at (1,2,2), each against JAX's `make_sp_train_step` /
+`make_sp_train_step_optax` on one device (which JAX's own
+tests/test_training.py holds its sharded steps to; for STA the same SGD
+step written around JAX's `dit_forward_tokens` with the grid, which JAX's
+step does not pass): both losses and every parameter after two steps to
+2e-3, for SGD also each tensor's update to 2e-3 of its own scale, every
+rank's parameters equal to rank 0's bit for bit. Also each new collective's adjoint (<f(x), y> against
+<x, f^T(y)> summed over the ranks), `train.main` over (1,2,1) with a
+resume against the one-rank CLI, and `local_batch_slice` (by global rank)
+against the loader's `batch_range` (by dp index) on (1,2,1).
+
 Plus the layout's arithmetic, `check_sp_compat`'s errors, the
 `--mesh-shape` parse and `cfg_reorder_for_dp` against JAX.
 """
@@ -48,13 +65,17 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
 from hunyuanvideo_efficiency_tpu.diffusion.pipeline import denoise_latents
 from hunyuanvideo_efficiency_tpu.diffusion.scheduler import (
     get_sigmas as jax_sigmas)
-from hunyuanvideo_efficiency_tpu.models.dit import dit_forward
+from hunyuanvideo_efficiency_tpu.models.dit import (
+    dit_forward, dit_forward_tokens as jax_forward_tokens,
+    patchify_raw as jax_patchify)
+from hunyuanvideo_efficiency_tpu.models.dit_config import DiTConfig as JCfg
 from hunyuanvideo_efficiency_tpu.models.text import encoder as jax_encoder
 from hunyuanvideo_efficiency_tpu.ops.attention import (
     joint_attention as jax_joint_attention, text_key_bias as jax_key_bias)
@@ -63,7 +84,11 @@ from hunyuanvideo_efficiency_tpu.ops.rope import (
 from hunyuanvideo_efficiency_tpu.ops.sta import sta_gathered_attention
 from hunyuanvideo_efficiency_tpu.parallel import (
     ParallelConfig as JParallelConfig, cfg_reorder_for_dp as jax_reorder,
-    check_sp_compat as jax_check_sp_compat)
+    check_sp_compat as jax_check_sp_compat, make_mesh)
+from hunyuanvideo_efficiency_tpu.training import (make_sp_train_step,
+                                                  make_sp_train_step_optax)
+from hunyuanvideo_efficiency_tpu_torch import train as train_cli
+from hunyuanvideo_efficiency_tpu_torch.data.dataset_loader import save_tensor
 from hunyuanvideo_efficiency_tpu_torch.config import InferenceArgs, parse_args
 from hunyuanvideo_efficiency_tpu_torch.constants import NEGATIVE_PROMPT
 from hunyuanvideo_efficiency_tpu_torch.models.dit import (patchify_raw,
@@ -73,6 +98,8 @@ from hunyuanvideo_efficiency_tpu_torch.parallel import (
     ParallelConfig, cfg_reorder_for_dp, cfg_unreorder_for_dp,
     check_sp_compat, make_groups, parse_mesh_shape)
 from test_torch_dit import TINY, dit_inputs
+from hunyuanvideo_efficiency_tpu_torch.utils.weights import (
+    dit_state_dict_from_jax)
 from test_torch_pipeline import CLIP, DIT, LLAMA, TPL, VAE, build_pipelines
 
 WORKER = Path(__file__).with_name("torch_sp_worker.py")
@@ -84,6 +111,11 @@ STA = dict(attn_mode="sta", sta_tile=TILE, sta_window=WINDOW)
 PREDICT = dict(prompt="a cat walks", height=32, width=64, video_length=5,
                seed=11, infer_steps=2, guidance_scale=2.0, flow_shift=7.0,
                num_videos_per_prompt=2)
+TRAIN_GRID = (3, 4, 4)          # the dense train cases' patch grid, B = 2
+SGD = dict(lr=0.05)
+ADAMW = dict(lr=1e-3, weight_decay=1e-4, grad_clip=1.0, ema_decay=0.5)
+CLI_ARGV = ["--toy", "--latents", "--device", "cpu", "--lr", "1e-3",
+            "--seed", "3", "--ema-decay", "0.9", "--batch-size", "2"]
 
 
 def _case(kind, world, dp, u, r, **kw):
@@ -110,7 +142,21 @@ CASES = (
     + [_case("predict", w, dp, u, r, predict=PREDICT)
        for w, dp, u, r in ((2, 1, 2, 1), (4, 2, 1, 2))]
     + [_case("serve", 2, 1, 1, 2, predict=PREDICT),
-       _case("salted", 2, 1, 2, 1, predict=PREDICT)])
+       _case("salted", 2, 1, 2, 1, predict=PREDICT)]
+    + [_case("train", w, dp, u, r, model="flash", opt=SGD, steps=2)
+       for w, dp, u, r in ((2, 1, 2, 1), (2, 1, 1, 2), (2, 2, 1, 1),
+                           (4, 1, 2, 2), (4, 1, 1, 4), (4, 2, 2, 1))]
+    + [_case("train", w, 1, u, r, model=m, opt=SGD, steps=2)
+       for w, u, r, m in ((2, 1, 2, "sdpa"), (4, 2, 2, "sdpa"),
+                          (4, 2, 2, "noqk"), (2, 2, 1, "sta"),
+                          (2, 1, 2, "sta"))]
+    + [_case("train", 4, 1, 2, 2, model="flash", optimizer="adamw",
+             opt=ADAMW, steps=2),
+       _case("adjoint", 2, 1, 1, 2), _case("adjoint", 4, 1, 2, 2),
+       _case("adjoint", 4, 1, 1, 4),
+       _case("cli", 2, 1, 2, 1,
+             argv=CLI_ARGV + ["--mesh-shape", "dp:1,ulysses:2,ring:1"]),
+       _case("batch_slice", 2, 1, 2, 1, batch=2)])
 
 
 def _free_port():
@@ -189,6 +235,26 @@ def sp_runs(tmp_path_factory):
                den_txt2=rng.standard_normal((4, 48), np.float32),
                den_cos=inp["dense_cos"], den_sin=inp["dense_sin"])
     inp["den_mask"][1, 5:] = 0
+    # training: the dense cases' batch (B = 2, dp up to 2) and the STA
+    # cases' (B = 1)
+    for tag, grid, b_t in (("tdense", TRAIN_GRID, 2), ("tsta", STA_GRID, 1)):
+        x0, _, txt, mask_t, txt2 = dit_inputs(
+            7, b=b_t, grid=(grid[0], 2 * grid[1], 2 * grid[2]), cfg=DIT)
+        cos, sin = (np.asarray(a).reshape(*grid, -1) for a in jax_rope(
+            DIT["rope_dim_list"], grid, theta=256.0))
+        inp.update({f"{tag}_x0": x0, f"{tag}_noise": rng.standard_normal(
+            x0.shape).astype(np.float32), f"{tag}_t": np.array(
+            [0.3, 0.8][:b_t], np.float32), f"{tag}_pe": txt,
+            f"{tag}_mask": mask_t, f"{tag}_pe2": txt2, f"{tag}_cos": cos,
+            f"{tag}_sin": sin})
+    spec.update(train_flash={**DIT, "attn_mode": "flash"},
+                train_sdpa={**DIT, "attn_mode": "sdpa"},
+                train_noqk={**DIT, "attn_mode": "flash", "qk_norm": False},
+                train_sta={**DIT, **STA})
+    (d / "cli_data").mkdir()
+    for i in range(3):
+        save_tensor(str(d / "cli_data" / f"v{i}.pt"),
+                    rng.standard_normal((16, 3, 8, 6)).astype(np.float32))
     models = {"dit": _np_state(tpipe.transformer),
               "llama": _np_state(tpipe.text_encoder.model),
               "clip": _np_state(tpipe.text_encoder_2.model),
@@ -218,15 +284,21 @@ def sp_runs(tmp_path_factory):
     for world, rank, p in procs:
         assert p.returncode == 0, logs[(world, rank)][-4000:]
         outs[(world, rank)] = dict(np.load(d / f"out_w{world}_r{rank}.npz"))
+    ref["case_dir"] = d
+    ref["init"] = {k: v.numpy() for k, v in models["dit"].items()}
     return ref, outs
 
 
 def _jax_references(inp, params, jax_models, jpipe):
-    # the predict reference compiles in a thread of its own meanwhile
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    # the predict and the train references compile in threads meanwhile
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         predicted = pool.submit(_predict_reference, jpipe)
+        trained = {f"train_{key}": pool.submit(
+            _train_reference, key, over, tag, inp, params)
+            for key, over, tag in TRAIN_MODELS}
         ref = _model_references(inp, params, jax_models)
         ref["predict"] = predicted.result()
+        ref.update({k: f.result() for k, f in trained.items()})
     return ref
 
 
@@ -254,6 +326,70 @@ def _model_references(inp, params, jax_models):
         guidance_scale=6.0, embedded_guidance_scale=None,
         guidance_rescale=0.7))
     return ref
+
+
+TRAIN_MODELS = (("dense", dict(attn_mode="sdpa"), "tdense"),
+                ("noqk", dict(attn_mode="sdpa", qk_norm=False), "tdense"),
+                ("sta", STA, "tsta"),
+                ("adamw", dict(attn_mode="sdpa"), "tdense"))
+
+
+def _train_reference(key, over, tag, inp, params):
+    """JAX's sharded step on one device for one model: the losses of two
+    steps and the parameters after them (the port's names)."""
+    pcfg = JParallelConfig(1, 1, 1)
+    mesh = make_mesh(pcfg)
+    jcfg = JCfg(**{**DIT, **over})
+    data = [jnp.asarray(inp[f"{tag}_{n}"]) for n in (
+        "x0", "noise", "t", "pe", "mask", "pe2", "cos", "sin")]
+    jp, losses = params, []
+    if key == "sta":
+        for _ in range(2):
+            jp, loss = _jax_sta_step(jp, *data, cfg=jcfg)
+            losses.append(float(loss))
+    elif key == "adamw":
+        step, init = make_sp_train_step_optax(
+            mesh, jcfg, pcfg, optax.chain(
+                optax.clip_by_global_norm(ADAMW["grad_clip"]),
+                optax.adamw(ADAMW["lr"], weight_decay=ADAMW["weight_decay"])),
+            ema_decay=ADAMW["ema_decay"])
+        state = init(jp)
+        for _ in range(2):
+            jp, state, loss = step(jp, state, *data)
+            losses.append(float(loss))
+    else:
+        step = make_sp_train_step(mesh, jcfg, pcfg, lr=SGD["lr"])
+        for _ in range(2):
+            jp, loss = step(jp, *data)
+            losses.append(float(loss))
+    sd = dit_state_dict_from_jax(
+        jax.tree.map(lambda a: np.asarray(a, np.float32), jp),
+        DiTConfig(**DIT))
+    return (np.array(losses, np.float32),
+            {n: v.numpy() for n, v in sd.items()})
+
+
+@functools.partial(jax.jit, static_argnames=("cfg",))
+def _jax_sta_step(params, x0, noise, t, pe, mask, pe2, cos_g, sin_g, cfg):
+    """`make_sp_train_step`'s one-device SGD step with the global patch
+    grid reaching the blocks: JAX's flow_match_loss passes dit_forward_tokens
+    no token_grid, so its step cannot run STA; the same loss and update,
+    the grid given."""
+    grid, d = cos_g.shape[:3], cos_g.shape[-1]
+
+    def loss_fn(p):
+        sigma = t[:, None, None]
+        x0_t = jax_patchify(x0, cfg.patch_size)
+        n_t = jax_patchify(noise, cfg.patch_size)
+        v = jax_forward_tokens(p, (1.0 - sigma) * x0_t + sigma * n_t,
+                               t * 1000.0, pe, mask, pe2,
+                               cos_g.reshape(-1, d), sin_g.reshape(-1, d),
+                               None, cfg=cfg, token_grid=grid)
+        return jnp.mean((v - (n_t - x0_t)) ** 2)
+
+    loss, grads = jax.value_and_grad(loss_fn)(params)
+    return jax.tree.map(lambda p, g: p - SGD["lr"] * g, params,
+                        grads), loss
 
 
 def _predict_reference(jpipe):
@@ -328,6 +464,29 @@ def test_sp_matches_single_device_jax(sp_runs, case):
                          (1, 2, 2)).numpy()
         assert np.abs(want).max() > 1e-2     # not the zero-init identity
         _close(out, want, MODEL_TOL)
+    elif kind == "train":
+        _check_train(ref, ranks, case)
+    elif kind == "adjoint":
+        names = [k.split("/", 1)[1] for k in ranks[0] if k.startswith(
+            name + "/")]
+        assert len(names) == (2 if case["u"] == 1 or case["r"] == 1 else 5)
+        for n in names:
+            for o in ranks:     # every rank holds the world's sums
+                lhs, rhs = o[f"{name}/{n}"]
+                np.testing.assert_allclose(lhs, rhs, rtol=1e-12,
+                                           err_msg=n)
+                assert abs(lhs) > 1e-3
+    elif kind == "cli":
+        _check_cli(ref["case_dir"], ranks, case)
+    elif kind == "batch_slice":
+        # local_batch_slice splits the batch by global rank, JAX's
+        # per-process slice: under ulysses it would feed the two sp ranks
+        # of one dp shard different rows; the loader's batch_range gives
+        # both the dp shard's rows
+        assert [tuple(o[f"{name}/local_batch_slice"]) for o in ranks] == [
+            (0, 1), (1, 2)]
+        assert [tuple(o[f"{name}/batch_range"]) for o in ranks] == [
+            (0, 2), (0, 2)]
     elif kind == "serve":   # rank 0 answered; the other ran in lockstep
         _close(ranks[0][f"{name}/samples"], ref["predict"], MODEL_TOL)
     elif kind == "salted":
@@ -342,6 +501,57 @@ def test_sp_matches_single_device_jax(sp_runs, case):
         assert want.std() > 1e-3
         for o in ranks:    # every rank holds the whole result
             _close(o[f"{name}/{key}"], want, MODEL_TOL)
+
+
+def _check_train(ref, ranks, case):
+    """Both steps' world-mean losses on every rank and rank 0's parameters
+    against JAX's one-device step, to MODEL_TOL; every rank's parameters
+    equal rank 0's bit for bit; the steps moved the parameters."""
+    name = case["name"]
+    key = {"flash": "dense", "sdpa": "dense"}.get(case["model"],
+                                                  case["model"])
+    adam = case.get("optimizer") == "adamw"
+    if adam:
+        key = "adamw"
+    losses, want = ref[f"train_{key}"]
+    for o in ranks:
+        _close(o[f"{name}/losses"], losses, MODEL_TOL)
+        assert o[f"{name}/equal_to_rank0"] == 1.0
+    moved = 0.0
+    for n, w in want.items():
+        got = ranks[0][f"{name}/param/{n}"]
+        np.testing.assert_allclose(got, w, rtol=MODEL_TOL, atol=MODEL_TOL,
+                                   err_msg=f"{name}: {n}")
+        # SGD: the update itself (lr times the gradients), against the
+        # scale of this tensor's update: the parameters alone hide a wrong
+        # gradient of lr's size. (Adam's first steps move an element by
+        # about lr whatever its gradient, so there it is held above.)
+        step, step_want = got - ref["init"][n], w - ref["init"][n]
+        scale = float(np.abs(step_want).max())
+        assert adam or np.abs(step - step_want).max() <= (
+            MODEL_TOL * scale + 1e-6), (
+            name, n, float(np.abs(step - step_want).max()), scale)
+        moved = max(moved, scale)
+    assert moved > 1e-3
+
+
+def _check_cli(case_dir, ranks, case):
+    """`train.main` over the world: the losses of two steps and a resumed
+    third against the one-rank CLI here, to MODEL_TOL; rank 0 alone wrote,
+    one checkpoint directory a save."""
+    base = case_dir / case["name"]
+    single = base / "single"
+    argv = CLI_ARGV + ["--data-dir", str(case_dir / "cli_data"),
+                       "--output-dir", str(single)]
+    want = train_cli.main(argv + ["--steps", "2"])
+    want += train_cli.main(argv + ["--steps", "3", "--resume",
+                                   str(single / "step_0000002")])
+    for o in ranks:
+        _close(o[f"{case['name']}/losses"], np.array(want, np.float32),
+               MODEL_TOL)
+    assert sorted(p.name for p in (base / "out_r0").iterdir()) == [
+        "step_0000002", "step_0000003"]
+    assert not (base / "out_r1").exists()
 
 
 def test_layout_and_mesh_shape():

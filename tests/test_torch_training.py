@@ -34,6 +34,8 @@ from hunyuanvideo_efficiency_tpu_torch.models.dit import HYVideoDiT, build_dit
 from hunyuanvideo_efficiency_tpu_torch.models.dit_config import DiTConfig
 from hunyuanvideo_efficiency_tpu_torch.ops.quantization import quantize_dit
 from hunyuanvideo_efficiency_tpu_torch.ops.rope import get_nd_rotary_pos_embed
+from hunyuanvideo_efficiency_tpu_torch.parallel import (
+    ParallelConfig as TParallelConfig)
 from hunyuanvideo_efficiency_tpu_torch.training import (make_train_step,
                                                         make_train_step_adamw)
 from hunyuanvideo_efficiency_tpu_torch.utils.checkpoint import (
@@ -336,12 +338,41 @@ def test_train_entry_blocks_cut_the_depth():
 
 
 def test_train_entry_flags():
+    """The defaults, and `--mesh-shape` as the layout over the torchrun
+    world (JAX train.py:123-128): every rank on ulysses without a spec; a
+    spec that does not span the world raises, in `main` before anything is
+    built."""
     args = train_cli.parse_args(["--data-dir", "x"])
     assert args.device == "cuda" and args.model == "HYVideo-T/2-cfgdistill"
     assert args.optimizer == "adamw" and args.blocks is None
-    train_cli.check_mesh_shape(None)
-    train_cli.check_mesh_shape("dp:1,ulysses:1,ring:1")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train_cli.check_mesh_shape("dp:2,ulysses:2,ring:2")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train_cli.main(["--data-dir", "x", "--mesh-shape", "ulysses:4"])
+    assert args.mesh_shape is None
+    assert train_cli.mesh_layout(None, 1, 1) == TParallelConfig(1, 1, 1)
+    assert train_cli.mesh_layout(None, 4, 1) == TParallelConfig(1, 4, 1)
+    assert train_cli.mesh_layout("dp:2,ulysses:2,ring:2", 8, 2) == \
+        TParallelConfig(2, 2, 2)
+    assert train_cli.mesh_layout("dp:1,sp:2,ring:2", 4, 1) == \
+        TParallelConfig(1, 2, 2)
+    with pytest.raises(ValueError, match="the world has 1"):
+        train_cli.main(["--data-dir", "x", "--mesh-shape", "ulysses:4",
+                        "--device", "cpu"])
+
+
+@pytest.mark.parametrize("spec,world,batch,match", [
+    ("tp:2", 2, 1, "Unknown mesh axis"),           # a bad spec
+    ("ulysses:two", 2, 1, "invalid literal"),
+    ("dp:1,ulysses:2,ring:2", 2, 1, "the world has 2"),   # not the world
+    ("ulysses:2", 4, 1, "the world has 4"),
+    ("dp:2,ulysses:2", 4, 3, "--batch-size 3 not divisible by dp degree 2"),
+])
+def test_train_entry_mesh_validation(spec, world, batch, match):
+    with pytest.raises(ValueError, match=match):
+        train_cli.mesh_layout(spec, world, batch)
+
+
+def test_train_entry_patch_rows_divide_by_sp():
+    """The latent's H patch axis must divide by ulysses x ring (JAX
+    train.py:146-150)."""
+    train_cli.check_patch_rows(4, TParallelConfig(2, 2, 2))
+    with pytest.raises(ValueError, match="H patch axis 3 not divisible by "
+                                         "sp degree 2"):
+        train_cli.check_patch_rows(3, TParallelConfig(1, 1, 2))

@@ -1,6 +1,7 @@
 """One rank of a gloo world for tests/test_torch_sp.py: runs every case of
-its world size through the port's sequence parallelism on the CPU and
-writes this rank's outputs. Imports torch and the port only.
+its world size through the port's sequence parallelism on the CPU (sampling
+and, for the "train", "adjoint" and "cli" cases, training) and writes this
+rank's outputs. Imports torch and the port only.
 
     python tests/torch_sp_worker.py CASE_DIR WORLD RANK PORT
 """
@@ -17,6 +18,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from hunyuanvideo_efficiency_tpu_torch import serve  # noqa
+from hunyuanvideo_efficiency_tpu_torch import train as train_cli  # noqa
 from hunyuanvideo_efficiency_tpu_torch.config import InferenceArgs  # noqa
 from hunyuanvideo_efficiency_tpu_torch.diffusion.pipeline import (  # noqa
     HunyuanVideoPipeline)
@@ -37,7 +39,11 @@ from hunyuanvideo_efficiency_tpu_torch.models.vae_config import (  # noqa
 from hunyuanvideo_efficiency_tpu_torch.ops.attention import (  # noqa
     text_key_bias)
 from hunyuanvideo_efficiency_tpu_torch.parallel import (  # noqa
-    ParallelConfig, make_groups, usp_joint_attention)
+    ParallelConfig, local_batch_slice, make_groups, usp_joint_attention)
+from hunyuanvideo_efficiency_tpu_torch.parallel import (  # noqa
+    sp_attention as spa)
+from hunyuanvideo_efficiency_tpu_torch.training import (  # noqa
+    make_train_step, make_train_step_adamw)
 
 
 def _cfg(d):
@@ -144,6 +150,95 @@ def run_predict(case, g, spec, models):
     return {"samples": out["samples"]}
 
 
+def run_train(case, g, inp, spec, models):
+    """Two steps of the sharded SGD (or AdamW + EMA) step on the global
+    batch; the world-mean losses, and rank 0's parameters. Every rank
+    reports whether its parameters equal rank 0's bit for bit."""
+    model = build_dit(spec, models, f"train_{case['model']}")
+    data = "tsta" if case["model"] == "sta" else "tdense"
+    data = [torch.from_numpy(inp[f"{data}_{n}"]) for n in (
+        "x0", "noise", "t", "pe", "mask", "pe2", "cos", "sin")]
+    if case.get("optimizer") == "adamw":
+        step, init = make_train_step_adamw(model, sp=g, **case["opt"])
+        state = init()
+        losses = [step(state, *data)[1] for _ in range(case["steps"])]
+    else:
+        step = make_train_step(model, sp=g, **case["opt"])
+        losses = [step(*data) for _ in range(case["steps"])]
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    ref = flat.clone()
+    dist.broadcast(ref, src=0)
+    out = {"losses": torch.stack(losses),
+           "equal_to_rank0": torch.tensor(float(torch.equal(flat, ref)))}
+    if g.rank == 0:
+        out.update({f"param/{n}": p.detach()
+                    for n, p in model.named_parameters()})
+    return out
+
+
+def run_adjoint(case, g):
+    """<f(x), y> against <x, f^T(y)> (the backward) for each collective,
+    each summed over the ranks; x and y drawn per rank from a seed."""
+    gen = torch.Generator().manual_seed(100 + g.rank)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, dtype=torch.float64)
+
+    b, s, h, d = 2, 6, 4, 3
+    fns = {
+        "ulysses_scatter": (lambda x: [spa.ulysses_scatter(x[0], g)],
+                            [(b, s, h, d)]),
+        "ulysses_unscatter": (lambda x: [spa.ulysses_unscatter(x[0], g)],
+                              [(b, s * g.u, h // g.u * d)]),
+        "ulysses_gather_heads": (
+            lambda x: [spa.ulysses_gather_heads(x[0], g)], [(b, s, 5)]),
+        "ring_send_recv": (lambda x: spa.ring_send_recv(
+            [(x[0], 1), (x[1], -1), (x[2], 1)], g),
+            [(b, s, 5), (b, 3, 2), (b, 4)]),
+        "gather_ring": (lambda x: spa._gather_ring(x[0], g), [(b, s, 5)]),
+    }
+    out = {}
+    for name, (fn, shapes) in fns.items():
+        if (name.startswith("ulysses") and g.u == 1) or (
+                not name.startswith("ulysses") and g.r == 1):
+            continue
+        xs = [rnd(*sh).requires_grad_(True) for sh in shapes]
+        with torch.enable_grad():
+            ys = fn(xs)
+            ws = [rnd(*y.shape) for y in ys]
+            lhs = sum((y * w).sum() for y, w in zip(ys, ws))
+            grads = torch.autograd.grad(lhs, xs)
+        rhs = sum((x * gx).sum() for x, gx in zip(xs, grads))
+        both = torch.stack([lhs.detach(), rhs.detach()])
+        dist.all_reduce(both)
+        out[name] = both
+    return out
+
+
+def run_batch_slice(case, g):
+    """The rows of a global batch that `local_batch_slice` (a slice by
+    global rank) and the loader's `SPGroups.batch_range` (by dp index)
+    give this rank."""
+    n = case["batch"]
+    return {name: torch.tensor([sl.start, sl.stop]) for name, sl in (
+        ("local_batch_slice", local_batch_slice(n)),
+        ("batch_range", g.batch_range(n)))}
+
+
+def run_cli(case, g, case_dir):
+    """train.main under this world: two steps and a checkpoint, then a
+    resume for a third; rank k writes to out_r{k} (only rank 0 may write),
+    every rank resumes from rank 0's checkpoint."""
+    base = os.path.join(case_dir, case["name"])
+    common = ["--data-dir", os.path.join(case_dir, "cli_data"),
+              "--output-dir", os.path.join(base, f"out_r{g.rank}"),
+              *case["argv"]]
+    losses = train_cli.main(common + ["--steps", "2"])
+    ck = os.path.join(base, "out_r0", "step_0000002")
+    more = train_cli.main(common + ["--steps", "3", "--resume", ck])
+    return {"losses": torch.tensor(losses + more)}
+
+
 def main():
     case_dir, world, rank, port = sys.argv[1], *map(int, sys.argv[2:])
     torch.set_num_threads(1)
@@ -163,6 +258,14 @@ def main():
             kind = case["kind"]
             if kind == "attn":
                 res = run_attn(case, g, inp)
+            elif kind == "train":
+                res = run_train(case, g, inp, spec, models)
+            elif kind == "adjoint":
+                res = run_adjoint(case, g)
+            elif kind == "cli":
+                res = run_cli(case, g, case_dir)
+            elif kind == "batch_slice":
+                res = run_batch_slice(case, g)
             elif kind == "dit":
                 res = run_dit(case, g, inp, spec, models)
             elif kind == "denoise":
@@ -170,7 +273,9 @@ def main():
             else:
                 res = run_predict(case, g, spec, models)
             for k, v in res.items():
-                outs[f"{case['name']}/{k}"] = v.float().numpy()
+                outs[f"{case['name']}/{k}"] = (
+                    v.numpy() if v.dtype == torch.float64
+                    else v.float().numpy())
     np.savez(os.path.join(case_dir, f"out_w{world}_r{rank}.npz"), **outs)
     dist.destroy_process_group()
 
