@@ -48,6 +48,26 @@ Phases, one line each (any failure raises and exits non-zero):
      adjoints as index moves (the ranks slice the same leaves); the
      gathered output and dQ/dK/dV against one flash_attention_vjp call over
      the whole joint sequence, rel 2e-2, exact launch counts;
+  3d. memory-tier rank math (`[memory_tier_rank_math]`): the scale-out
+     tiers' per-rank arithmetic for 4 ranks run in turn on the one card
+     through parallel.comm.LocalComm, the same code that the collective
+     path runs over a process group: (a) the full-width, full-depth
+     HYVideo-T/2 DiT, its stacks cut 4 ways (parallel/weight_shard.py) and
+     each chunk put back together from the four shards, one forward at the
+     dense main path's 4,032 + 256 tokens (B = 2) bit-equal to the
+     replicated forward, exactly 60 K1 launches each, and again after
+     the shards went to the host and back (place_dit, the pipeline's
+     offload); (b) the Llama-3-8B
+     tower at full width and depth (random weights, fp16), every rank's
+     column-parallel work and row-parallel partial in turn on one
+     351-token prompt: fp16 within rel L2 1e-2 of the one-device tower;
+     int8 bit-equal to the one-device int8 tower (B9 with the given-scale
+     and s32 arms in the row-parallel layers: 28 W8A8 launches a layer), B9's
+     two arms against their plain versions at the world-4 slices (exact),
+     and the shards moved to the host and back (the pipeline's offload)
+     encoding the same bits; (c) the 256x448x33f tiled decode's tiles
+     split over the 4 ranks and put back together, bit-equal to the
+     one-device tiled decode, 186 K3 launches in all;
   4. main path: HunyuanVideoSampler.from_pretrained at the full width of
      HYVideo-T/2 (bf16), Llama-3-8B + CLIP-L (fp16) and the 884-16c-hy VAE
      (fp16), random weights from fixed seeds, then predict() with CFG at
@@ -146,7 +166,8 @@ the fused projection as in a single block: out and lse; dQ; dK and dV) with
 SDPA's forward and backward as their yardsticks.
 Then the total seconds, one JSON line of per-kernel numbers (with
 `path_launches`, each kernel's launches in `[sp_rank_math]`,
-`[sp_train_rank_math]` and `[serve_path]`; `launches` of
+`[sp_train_rank_math]`, `[memory_tier_rank_math]` and `[serve_path]`;
+`launches` of
 each kernel from the path that runs it: K1 and K3 from 4, K2 from 5, the
 running int8 kernel from 6, W8A8 and the static int8 kernel from 7,
 sta_direct and sta_ring from 9, sta_permuted_running from 10,
@@ -183,6 +204,11 @@ from hunyuanvideo_efficiency_tpu_torch.experiments import (
 from hunyuanvideo_efficiency_tpu_torch.inference import HunyuanVideoSampler
 from hunyuanvideo_efficiency_tpu_torch.models import dit as dit_mod
 from hunyuanvideo_efficiency_tpu_torch.models.dit_config import DiTConfig
+from hunyuanvideo_efficiency_tpu_torch.models.text.llama import (
+    LLAMA3_8B, LlamaModel, encode_shards, llama_rank_shards)
+from hunyuanvideo_efficiency_tpu_torch.models.vae import build_vae
+from hunyuanvideo_efficiency_tpu_torch.models.vae_config import (
+    load_vae_config)
 from hunyuanvideo_efficiency_tpu_torch.ops import cuda_lib, quantization
 from hunyuanvideo_efficiency_tpu_torch.ops.conv3d import replicate_pad
 from hunyuanvideo_efficiency_tpu_torch.ops.conv3d_cuda import (
@@ -196,10 +222,14 @@ from hunyuanvideo_efficiency_tpu_torch.ops.flash_attention import (
     flash_int8_static, flash_running, flash_splits, flash_static,
     int8_bound_inflation, int8_key_group, pick_block, quantize_groups)
 from hunyuanvideo_efficiency_tpu_torch.ops.int8_matmul import (
-    plan_w8a8, quantize_rows, w8a8_linear, w8a8_linear_plain, w8a8_prepass)
+    plan_w8a8, quantize_rows, row_scales, w8a8_linear, w8a8_linear_plain,
+    w8a8_prepass)
 from hunyuanvideo_efficiency_tpu_torch.ops.quantization import (
-    quantize_dit, quantize_tensor_int8)
+    quantize_dit, quantize_llama_int8, quantize_tensor_int8)
 from hunyuanvideo_efficiency_tpu_torch.ops.rope import get_nd_rotary_pos_embed
+from hunyuanvideo_efficiency_tpu_torch.parallel.comm import LocalComm
+from hunyuanvideo_efficiency_tpu_torch.parallel.weight_shard import (
+    WeightShards, place_dit, shard_dit)
 from hunyuanvideo_efficiency_tpu_torch.parallel.sp_attention import (
     halo_key_bias, halo_slab_attention, halo_text_finish, halo_text_state,
     ring_first_hop, ring_hop, ulysses_local_attention)
@@ -249,6 +279,8 @@ SP_RINGS = (2, 4)
 SP_ULYSSES = 4
 SP_STA_GRID = (16, 34, 60)    # 544x960x61f: ring*tile_t | T for r = 2, 4
 SERVE_STEPS = 2
+TIER_RANKS = 4       # the memory tiers' virtual ranks
+TEXT_TOKENS = 351    # the Llama tower's prompt: 256 + the template's 95
 KERNELS = (flash_static, flash_running, conv3d_stride1, sta_direct,
            sta_permuted_static, sta_permuted_running, w8a8_linear,
            flash_int8_static, flash_int8_running, sta_direct_int8,
@@ -1306,6 +1338,200 @@ def sp_rank_math(dev, smi):
                     grid=json.dumps(SP_STA_GRID), slab_planes=t_loc,
                     halo_planes=halo_p, tokens=f"{t_all * hh * ww}+"
                     f"{tq.shape[1]}", batch=b))
+    return total
+
+
+def tier_dit(dev, smi, comm):
+    """(a) of memory_tier_rank_math: the replicated forward, then the same
+    model's stacks cut over comm's ranks and the forward again."""
+    cfg = DiTConfig()
+    model = dit_mod.build_dit(cfg, dev, torch.bfloat16,
+                              torch.Generator(dev).manual_seed(40))
+    randomize_modulation(model, 41)
+    (x, _, _, pe, mask, pe2, cos_g, sin_g), _ = train_batch(
+        dev, cfg, TRAIN_LATENT, 42)
+    x = torch.cat([x, -x])                         # a CFG pair, B = 2
+    pe, mask, pe2 = (torch.cat([a, a]) for a in (pe, mask, pe2))
+    d = cos_g.shape[-1]
+    t = torch.tensor([900.0, 900.0], device=dev)
+
+    def forward():
+        return model(x, t, pe, mask, pe2, cos_g.reshape(-1, d),
+                     sin_g.reshape(-1, d))
+
+    reset_counts()
+    ref = forward()
+    torch.cuda.synchronize()
+    expect("memory tier replicated DiT", read_counts(),
+           dict(flash_static=60, flash_running=0))
+    rep_ms = cuda_ms(forward, 2)
+    t0 = time.time()
+    shard_dit(model, comm)
+    torch.cuda.synchronize()
+    shard_s = time.time() - t0
+    ws = model.weight_shards
+    n0 = WeightShards.GATHERS
+    reset_counts()
+    out = forward()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    gathers = WeightShards.GATHERS - n0
+    expect("memory tier sharded DiT", launches,
+           dict(flash_static=60, flash_running=0))
+    if not torch.equal(out, ref):
+        raise AssertionError(f"memory tier DiT: sharded forward differs "
+                             f"from the replicated one by "
+                             f"{errors(out, ref)}")
+    sharded_ms = cuda_ms(forward, 2)
+    place_dit(model, "cpu")      # the pipeline's offload: host and back
+    place_dit(model, dev)
+    if not torch.equal(forward(), ref):
+        raise AssertionError("memory tier DiT: sharded forward after the "
+                             "offload round trip differs")
+    phase("memory_tier_rank_math", case="dit", ranks=comm.world,
+          blocks="20+40", tokens="4032+256", batch=2, bit_equal=True,
+          offload_round_trip_equal=True,
+          chunks=len(ws.chunks), gathers_a_forward=gathers,
+          stack_gib=ws.stack_bytes / 2**30,
+          shard_gib_a_rank=ws.shard_bytes / 2**30,
+          transient_chunk_gib=ws.transient_bytes / 2**30,
+          replicated_forward_ms=rep_ms, sharded_forward_ms=sharded_ms,
+          shard_s=shard_s, launches=json.dumps(
+              {k: n for k, n in launches.items() if n}),
+          note="sharded_forward_ms includes the chunk copies that stand in "
+               "for the all-gathers", card=smi)
+    return launches
+
+
+def llama_tower(dev, generator):
+    """Llama-3-8B at full width and depth, fp16, random weights."""
+    with torch.device("meta"):
+        model = LlamaModel(LLAMA3_8B, dtype=torch.float16)
+    model = model.to_empty(device=dev).eval().requires_grad_(False)
+    return model.init_weights(generator)
+
+
+def tier_llama(dev, smi, comm):
+    """(b) of memory_tier_rank_math: the tensor-parallel tower, fp16 and
+    int8, each rank's shard in turn, against the one-device tower; B9's
+    two arms against their plain versions at the world-4 slices."""
+    g = torch.Generator(dev).manual_seed(43)
+    ids = torch.randint(2, LLAMA3_8B.vocab_size - 1, (1, TEXT_TOKENS),
+                        generator=g, device=dev)
+    mask = torch.zeros(1, TEXT_TOKENS, dtype=torch.long, device=dev)
+    mask[:, :130] = 1
+    model = llama_tower(dev, torch.Generator(dev).manual_seed(44))
+    ref = model.encode(ids, mask, 2)
+    shards = llama_rank_shards(model, comm)
+    out = encode_shards(shards, comm, ids, mask, 2)
+    rel_l2 = ((out.float() - ref.float()).norm()
+              / ref.float().norm()).item()
+    fp16_err = errors(out, ref)
+    if not rel_l2 <= 1e-2:
+        raise AssertionError(f"tensor-parallel fp16 tower: rel L2 {rel_l2}")
+    del shards, out
+    quantize_llama_int8(model)
+    ref8 = model.encode(ids, mask, 2)
+    one_ms = cuda_ms(lambda: model.encode(ids, mask, 2), 2)
+    shards = llama_rank_shards(model, comm)
+    n_run = LLAMA3_8B.num_hidden_layers - 2
+    reset_counts()
+    out8 = encode_shards(shards, comm, ids, mask, 2)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expect("tensor-parallel int8 tower", launches,
+           dict(w8a8_linear=7 * comm.world * n_run))
+    if not torch.equal(out8, ref8):
+        raise AssertionError(f"tensor-parallel int8 tower differs from the "
+                             f"one-device tower by {errors(out8, ref8)}")
+    tp_ms = cuda_ms(lambda: encode_shards(shards, comm, ids, mask, 2), 2)
+    for s_ in shards:      # the pipeline's offload: host and back
+        s_.to("cpu")
+    for s_ in shards:
+        s_.to(dev)
+    if not torch.equal(encode_shards(shards, comm, ids, mask, 2), out8):
+        raise AssertionError("tensor-parallel int8 tower after offload")
+    # B9's arms at the world-4 slices of the row-parallel layers
+    arms = {}
+    for lname, (k, n) in (("o_proj", (1024, 4096)),
+                          ("down_proj", (3584, 4096))):
+        x = (torch.randn(TEXT_TOKENS, k, generator=g, device=dev) * 3).half()
+        w8, so = quantize_tensor_int8(torch.randn(n, k, generator=g,
+                                                  device=dev))
+        sx = row_scales(x.abs().amax(-1) * 1.5)    # the whole row's amax
+        given = w8a8_linear(x, w8, so, row_scale=sx)
+        s32 = w8a8_linear(x, w8, so, row_scale=sx, s32=True)
+        if not (torch.equal(given, w8a8_linear_plain(x, w8, so,
+                                                     row_scale=sx))
+                and torch.equal(s32, w8a8_linear_plain(
+                    x, w8, so, row_scale=sx, s32=True))):
+            raise AssertionError(f"B9 arms at {lname} [{TEXT_TOKENS},{k}]->"
+                                 f"{n}: not equal to the plain version")
+        ops = 2 * TEXT_TOKENS * n * k
+        nbytes = TEXT_TOKENS * k * 2 + n * k + TEXT_TOKENS * n * 4 + 4 * (
+            n + TEXT_TOKENS)
+        arms[lname] = dict(
+            shape=f"[{TEXT_TOKENS},{k}]->{n}",
+            given_scale_ms=graph_ms(lambda: w8a8_linear(
+                x, w8, so, row_scale=sx), 20),
+            s32_ms=graph_ms(lambda: w8a8_linear(
+                x, w8, so, row_scale=sx, s32=True), 20),
+            own_scale_ms=graph_ms(lambda: w8a8_linear(x, w8, so), 20),
+            s32_plain_ms=cuda_ms(lambda: w8a8_linear_plain(
+                x, w8, so, row_scale=sx, s32=True), 3),
+            s32_bound_ms=bound(0, nbytes, int8_ops=ops)[0])
+    phase("memory_tier_rank_math", case="llama", ranks=comm.world,
+          layers=n_run, tokens=TEXT_TOKENS, fp16_rel_l2=rel_l2,
+          fp16_max_abs_err=fp16_err[0], fp16_tol="rel L2 1e-2",
+          int8_bit_equal=True, offload_round_trip_equal=True,
+          int8_one_device_ms=one_ms, int8_ranks_in_turn_ms=tp_ms,
+          launches=json.dumps({k: n for k, n in launches.items() if n}),
+          b9_arms=json.dumps(arms), b9_arms_tol="exact", card=smi)
+    return launches
+
+
+def tier_vae(dev, smi, comm):
+    """(c) of memory_tier_rank_math: the main path's tiled decode with its
+    tiles split over comm's ranks."""
+    vae = build_vae(load_vae_config("884-16c-hy"), dev, torch.float16,
+                    torch.Generator(dev).manual_seed(45))
+    vae.enable_tiling(True)
+    z = torch.randn(1, 16, (FRAMES - 1) // 4 + 1, HEIGHT // 8, WIDTH // 8,
+                    generator=torch.Generator(dev).manual_seed(46),
+                    device=dev)
+    ref = vae.decode(z)
+    one_ms = cuda_ms(lambda: vae.decode(z), 1)
+    vae.tile_comm = comm
+    reset_counts()
+    out = vae.decode(z)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expect("tile-sharded decode", launches,
+           dict(conv3d_stride1=decode_k3_launches((FRAMES, HEIGHT, WIDTH))))
+    if not torch.equal(out, ref):
+        raise AssertionError(f"tile-sharded decode differs from the "
+                             f"one-device decode by {errors(out, ref)}")
+    phase("memory_tier_rank_math", case="vae",
+          size=f"{HEIGHT}x{WIDTH}x{FRAMES}", ranks=comm.world,
+          bit_equal=True, one_device_decode_ms=one_ms,
+          ranks_in_turn_decode_ms=cuda_ms(lambda: vae.decode(z), 1),
+          launches=json.dumps({k: n for k, n in launches.items() if n}),
+          card=smi)
+    return launches
+
+
+def memory_tier_rank_math(dev, smi):
+    """The scale-out memory tiers' per-rank arithmetic for TIER_RANKS
+    ranks, one after another on the one card (parallel.comm.LocalComm):
+    the weight-sharded DiT, the tensor-parallel Llama tower, the
+    tile-sharded decode; returns the launches of the three runs."""
+    comm = LocalComm(TIER_RANKS)
+    total = {}
+    for fn in (tier_dit, tier_llama, tier_vae):
+        for name, n in fn(dev, smi, comm).items():
+            total[name] = total.get(name, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
     return total
 
 
@@ -2773,6 +2999,7 @@ def main():
     torch.cuda.empty_cache()
     path_launches["sp_train_rank_math"] = sp_train_rank_math(dev, smi)
     torch.cuda.empty_cache()
+    path_launches["memory_tier_rank_math"] = memory_tier_rank_math(dev, smi)
     sampler, launches = main_path(smi)
     path_launches["serve_path"] = serve_path(sampler, smi)
     k2_model, k2_launches = running_max_path(sampler, smi)

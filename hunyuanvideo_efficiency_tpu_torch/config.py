@@ -11,8 +11,9 @@ parsed and stored, and change nothing, as in the JAX package.
 `--ulysses-degree`, `--ring-degree` and `--mesh-shape` set the sequence-
 parallel layout (parallel/mesh.py:parallel_config), run under torchrun;
 `--profile-dir` writes a torch.profiler trace of each `predict`
-(utils/profiling.py). `--shard-dit-weights` (the sharded-weight tier) is
-parsed and rejected: it is not ported yet.
+(utils/profiling.py). `--shard-dit-weights` weight-shards the DiT's block
+stacks over the sp ranks (parallel/weight_shard.py; replication where the
+sp degree is 1, as in JAX).
 """
 from __future__ import annotations
 
@@ -138,7 +139,8 @@ class InferenceArgs:
     mesh_shape: Optional[str] = None
     # a torch.profiler chrome trace of each predict (utils/profiling.py)
     profile_dir: Optional[str] = None
-    # not ported yet: parsed so that it fails loudly
+    # the weight-sharded DiT stacks over the sp ranks (parallel/
+    # weight_shard.py); replication where sp is 1
     shard_dit_weights: bool = False
 
     def __post_init__(self):
@@ -154,9 +156,6 @@ class InferenceArgs:
         if self.text_encoder_quant not in TEXT_ENCODER_QUANTS:
             raise ValueError(f"text encoder quant must be int8|None: "
                              f"{self.text_encoder_quant}")
-        if self.shard_dit_weights:
-            raise ValueError("not ported yet: --shard-dit-weights (the "
-                             "sharded-weight tier, ROADMAP A5b)")
         from .parallel.mesh import parallel_config
 
         pcfg = parallel_config(self)

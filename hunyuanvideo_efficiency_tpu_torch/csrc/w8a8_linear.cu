@@ -15,6 +15,12 @@
 //     input type. Round-to-nearest intrinsics and no fused multiply-add, so
 //     that without an activation it is the plain version's arithmetic bit
 //     for bit (s32 -> fp32 rounds to nearest, as its float64 -> float32).
+// Two arms for a row-parallel linear (K split over ranks, the tensor-
+// parallel Llama tower's o_proj and down_proj): the caller may give sx (the
+// pre-pass then quantizes with it and takes no amax of its own: the amax of
+// the whole row, all-reduced over the ranks), and the epilogue may be off
+// (act kS32: the s32 sums stored as they are, to be summed over the ranks
+// as integers and dequantized after).
 // The weight is the nn.Linear layout [N, K] int8 with a row stride (column
 // slices of a fused projection and K slices of linear2 need no copy);
 // scale_out [N] and bias [N] are fp32.
@@ -74,7 +80,8 @@ constexpr int RING_BYTES = 196608;   // ring slots, every tile shape
 constexpr int GROUP = 8;             // row tiles per raster group
 constexpr int QUANT_ROWS = 8;        // pre-pass: warps a block
 
-enum Act { kNone = 0, kGelu = 1, kGeluTanh = 2, kRelu = 3, kSilu = 4 };
+enum Act { kNone = 0, kGelu = 1, kGeluTanh = 2, kRelu = 3, kSilu = 4,
+           kS32 = 5 };
 
 template <int ACT>
 __device__ __forceinline__ float activate(float y) {
@@ -110,8 +117,9 @@ __device__ __forceinline__ float warp_max(float m) {
   return m;
 }
 
-// Row r of x [M, K] -> codes xq [M, K] int8 and scale sx[r]. NC > 0: W
-// warps a row, K = 256 * NC * W, each warp holding its NC * 256 columns in
+// Row r of x [M, K] -> codes xq [M, K] int8 and scale sx[r]; with `given`
+// sx[r] is the caller's scale, read and not written, and no amax is taken.
+// NC > 0: W warps a row, K = 256 * NC * W, each warp holding its NC * 256 columns in
 // registers (one read, every load in flight at once); NC = 0 (W = 1): one
 // warp a row, any K, read twice (the second time from L1/L2). The blocks
 // after the rows' blocks zero the first n_zero ints of `zero` (16-byte
@@ -119,8 +127,9 @@ __device__ __forceinline__ float warp_max(float m) {
 template <typename T, int NC, int W>
 __global__ void __launch_bounds__(QUANT_ROWS * 32)
 quant_rows_kernel(const T* __restrict__ x, long long x_rs,
-                  int8_t* __restrict__ xq, float* __restrict__ sx, int M,
-                  int K, int* __restrict__ zero, int n_zero) {
+                  int8_t* __restrict__ xq, float* __restrict__ sx,
+                  bool given, int M, int K, int* __restrict__ zero,
+                  int n_zero) {
   constexpr int ROWS = QUANT_ROWS / W;  // rows a block
   const int row_blocks = (M + ROWS - 1) / ROWS;
   if ((int)blockIdx.x >= row_blocks) {
@@ -142,47 +151,57 @@ quant_rows_kernel(const T* __restrict__ x, long long x_rs,
 #pragma unroll
     for (int c = 0; c < NC; ++c)
       v[c] = live ? __ldg(xr + c0 + 32 * c) : make_uint4(0, 0, 0, 0);
-    float m = 0.f;
+    float s;
+    if (given) {  // uniform over the grid: no thread reaches the barrier
+      s = live ? sx[row] : 1.f;
+    } else {
+      float m = 0.f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) m = hv::absmax8<T>(v[c], m);
-    m = warp_max(m);
-    if constexpr (W > 1) {  // the row's W warps share their maxima
-      __shared__ float part[QUANT_ROWS];
-      if (lane == 0) part[warp] = m;
-      __syncthreads();
+      for (int c = 0; c < NC; ++c) m = hv::absmax8<T>(v[c], m);
+      m = warp_max(m);
+      if constexpr (W > 1) {  // the row's W warps share their maxima
+        __shared__ float part[QUANT_ROWS];
+        if (lane == 0) part[warp] = m;
+        __syncthreads();
 #pragma unroll
-      for (int i = 0; i < W; ++i) m = fmaxf(m, part[warp / W * W + i]);
+        for (int i = 0; i < W; ++i) m = fmaxf(m, part[warp / W * W + i]);
+      }
+      s = fmaxf(m, 1e-8f) * (float)(1.0 / 127.0);
     }
-    const float s = fmaxf(m, 1e-8f) * (float)(1.0 / 127.0);
     if (!live) return;
 #pragma unroll
     for (int c = 0; c < NC; ++c) qr[c0 + 32 * c] = quant8_div<T>(v[c], s);
-    if (lane == 0 && warp % W == 0) sx[row] = s;
+    if (!given && lane == 0 && warp % W == 0) sx[row] = s;
   } else {
     if (!live) return;
     const int n = K / 8;  // 16-byte chunks of the row
-    float m = 0.f;
+    float s;
+    if (given) {
+      s = sx[row];
+    } else {
+      float m = 0.f;
 #pragma unroll 8
-    for (int c = lane; c < n; c += 32)
-      m = hv::absmax8<T>(__ldg(xr + (c - lane)), m);
-    const float s = fmaxf(warp_max(m), 1e-8f) * (float)(1.0 / 127.0);
+      for (int c = lane; c < n; c += 32)
+        m = hv::absmax8<T>(__ldg(xr + (c - lane)), m);
+      s = fmaxf(warp_max(m), 1e-8f) * (float)(1.0 / 127.0);
+    }
 #pragma unroll 4
     for (int c = lane; c < n; c += 32)
       qr[c - lane] = quant8_div<T>(__ldg(xr + (c - lane)), s);
-    if (lane == 0) sx[row] = s;
+    if (!given && lane == 0) sx[row] = s;
   }
 }
 
 template <typename T, int NC, int W>
 void launch_quant_rows(const void* x, long long x_rs, int8_t* xq, float* sx,
-                       int* zero, int n_zero, int M, int K,
+                       bool given, int* zero, int n_zero, int M, int K,
                        cudaStream_t st) {
   constexpr int ROWS = QUANT_ROWS / W;
   // a block zeroes 1024 int4s a pass; at most one block an SM
   const int zero_blocks = min((n_zero / 4 + 1023) / 1024, 132);
   quant_rows_kernel<T, NC, W>
       <<<(M + ROWS - 1) / ROWS + zero_blocks, QUANT_ROWS * 32, 0, st>>>(
-          static_cast<const T*>(x), x_rs, xq, sx, M, K, zero, n_zero);
+          static_cast<const T*>(x), x_rs, xq, sx, given, M, K, zero, n_zero);
 }
 
 // The row widths of the DiT (3072, 12288) and the Llama tower (4096,
@@ -191,17 +210,23 @@ void launch_quant_rows(const void* x, long long x_rs, int8_t* xq, float* sx,
 // twice.
 template <typename T>
 void launch_quant(const void* x, long long x_rs, int8_t* xq, float* sx,
-                  int* zero, int n_zero, int M, int K, cudaStream_t st) {
+                  bool given, int* zero, int n_zero, int M, int K,
+                  cudaStream_t st) {
   if (K == 3072)
-    launch_quant_rows<T, 3, 4>(x, x_rs, xq, sx, zero, n_zero, M, K, st);
+    launch_quant_rows<T, 3, 4>(x, x_rs, xq, sx, given, zero, n_zero, M, K,
+                               st);
   else if (K == 4096)
-    launch_quant_rows<T, 4, 4>(x, x_rs, xq, sx, zero, n_zero, M, K, st);
+    launch_quant_rows<T, 4, 4>(x, x_rs, xq, sx, given, zero, n_zero, M, K,
+                               st);
   else if (K == 12288)
-    launch_quant_rows<T, 6, 8>(x, x_rs, xq, sx, zero, n_zero, M, K, st);
+    launch_quant_rows<T, 6, 8>(x, x_rs, xq, sx, given, zero, n_zero, M, K,
+                               st);
   else if (K == 14336)
-    launch_quant_rows<T, 7, 8>(x, x_rs, xq, sx, zero, n_zero, M, K, st);
+    launch_quant_rows<T, 7, 8>(x, x_rs, xq, sx, given, zero, n_zero, M, K,
+                               st);
   else
-    launch_quant_rows<T, 0, 1>(x, x_rs, xq, sx, zero, n_zero, M, K, st);
+    launch_quant_rows<T, 0, 1>(x, x_rs, xq, sx, given, zero, n_zero, M, K,
+                               st);
 }
 
 // Shared memory of one tile shape, byte offsets from a 1024-aligned base:
@@ -330,7 +355,8 @@ __device__ __forceinline__ float2 bias_pair(const void* bias, int type,
 // One consumer warpgroup's 64 x BN share of a finished segment.
 // Accumulator layout (m64nBN s32): acc[4j + 2i + c] is row r0 + 8i, column
 // n0 + 8j + 2t + c. A segment over part of K adds its sums into the
-// workspace; the one that completes the tile's K stores it.
+// workspace; the one that completes the tile's K stores it: dequantized in
+// the input type, or under kS32 the s32 sums themselves.
 template <typename T, int ACT, int CWG, int BN>
 __device__ __forceinline__ void epilogue(int (&acc)[BN / 2], const Unit& w,
                                          const Params& p, int r0, int t,
@@ -374,6 +400,21 @@ __device__ __forceinline__ void epilogue(int (&acc)[BN / 2], const Unit& w,
         acc[4 * j + 2 * i + 1] = v.y;
       }
     }
+  }
+  if constexpr (ACT == kS32) {
+    int* out = static_cast<int*>(p.out);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + 8 * i;
+      if (row >= p.M) continue;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        if (n0 + 8 * j < p.N)
+          *reinterpret_cast<int2*>(out + (long long)row * p.N + n0 + 8 * j +
+                                   2 * t) =
+              make_int2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    }
+    return;
   }
   float sr[2];
 #pragma unroll
@@ -554,6 +595,7 @@ cudaError_t by_act(int act, int bm, int bn, const GemmArgs& a) {
     case kGeluTanh: return by_tile<T, kGeluTanh>(bm, bn, a);
     case kRelu: return by_tile<T, kRelu>(bm, bn, a);
     case kSilu: return by_tile<T, kSilu>(bm, bn, a);
+    case kS32: return by_tile<T, kS32>(bm, bn, a);
   }
   return cudaErrorInvalidValue;
 }
@@ -562,20 +604,23 @@ cudaError_t by_act(int act, int bm, int bn, const GemmArgs& a) {
 
 // The pre-pass: x [M, K] (row stride x_rs elements, 16-byte aligned rows)
 // of type dtype (0 = bf16, 1 = fp16) to codes xq [M, K] int8 and scales sx
-// [M] fp32; the first n_zero ints of `zero` (the GEMM's split-K sums and
+// [M] fp32 (given != 0: sx holds the caller's scales, read only); the first
+// n_zero ints of `zero` (the GEMM's split-K sums and
 // counters; 16-byte aligned, n_zero a multiple of 4; may be null with
 // n_zero 0) set to 0. K a multiple of 8. Returns the
 // cudaError_t of the launch.
 extern "C" int hv_w8a8_quantize(int dtype, const void* x, long long x_rs,
-                                int8_t* xq, float* sx, int* zero, int n_zero,
-                                int M, int K, void* stream) {
+                                int8_t* xq, float* sx, int given, int* zero,
+                                int n_zero, int M, int K, void* stream) {
   if (M <= 0 || K <= 0 || K % 8 != 0 || n_zero < 0 || n_zero % 4 != 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    launch_quant<__nv_bfloat16>(x, x_rs, xq, sx, zero, n_zero, M, K, st);
+    launch_quant<__nv_bfloat16>(x, x_rs, xq, sx, given != 0, zero, n_zero,
+                                M, K, st);
   else if (dtype == 1)
-    launch_quant<__half>(x, x_rs, xq, sx, zero, n_zero, M, K, st);
+    launch_quant<__half>(x, x_rs, xq, sx, given != 0, zero, n_zero, M, K,
+                         st);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
@@ -586,8 +631,10 @@ extern "C" int hv_w8a8_quantize(int dtype, const void* x, long long x_rs,
 // 1 = fp16; row stride x_rs elements, 16-byte aligned rows), w [N, K] int8
 // with row stride w_rs (bytes, a multiple of 16), scale_out [N] fp32, bias
 // [N] of bias_type (0 none, 1 fp32, 2 dtype; 8-byte aligned), out [M, N]
-// contiguous of type dtype; scratch xq [M, K] int8 and sx [M] fp32. act: 0
-// none, 1 gelu, 2 gelu_tanh, 3 relu, 4 silu. The schedule
+// contiguous of type dtype; scratch xq [M, K] int8 and sx [M] fp32 (given
+// != 0: sx holds the caller's row scales, read only). act: 0 none, 1 gelu,
+// 2 gelu_tanh, 3 relu, 4 silu, 5 none and no epilogue: out [M, N] s32 holds
+// the sums (no bias; scale_out is not read). The schedule
 // (ops/int8_matmul.py:plan_w8a8): tile bm x bn (128 x 256, 128 x 128 or
 // 64 x 128), K split in `split` parts, `grid` persistent CTAs; split > 1
 // needs ws (16-byte aligned): s32 sums [M * N], then one counter a tile,
@@ -598,20 +645,20 @@ extern "C" int hv_w8a8_linear(int dtype, int act, const void* x,
                               long long x_rs, const int8_t* w, long long w_rs,
                               const float* scale_out, const void* bias,
                               int bias_type, void* out, int8_t* xq, float* sx,
-                              int* ws, int M, int N, int K, int bm, int bn,
-                              int split, int grid, void* stream) {
+                              int* ws, int given, int M, int N, int K, int bm,
+                              int bn, int split, int grid, void* stream) {
   if (M <= 0 || N % 128 != 0 || K % BK != 0 || N <= 0 || K <= 0 ||
       w_rs % 16 != 0 || split < 1 || split > K / BK || grid < 1 ||
       (split > 1 && ws == nullptr) || (bm != 64 && bm != 128) ||
       (bn != 128 && bn != 256) || bias_type < 0 || bias_type > 2 ||
-      (bias_type != 0 && bias == nullptr) ||
+      (bias_type != 0 && bias == nullptr) || (act == kS32 && bias_type) ||
       (split > 1 && (long long)M * N > (1ll << 30)))
     return cudaErrorInvalidValue;
   const int m_tiles = (M + bm - 1) / bm, n_tiles = (N + bn - 1) / bn;
   // split > 1: the pre-pass zeroes the sums and the counters
   const int n_ws = split > 1 ? (M * N + m_tiles * n_tiles + 3) / 4 * 4 : 0;
   cudaError_t err = static_cast<cudaError_t>(hv_w8a8_quantize(
-      dtype, x, x_rs, xq, sx, ws, n_ws, M, K, stream));
+      dtype, x, x_rs, xq, sx, given, ws, n_ws, M, K, stream));
   if (err != cudaSuccess) return err;
   const Params p{sx, scale_out, bias, out, ws, bias_type, M, N, split,
                  m_tiles, n_tiles, K / BK, m_tiles * n_tiles * split};

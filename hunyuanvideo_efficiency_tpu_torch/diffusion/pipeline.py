@@ -13,7 +13,11 @@ before decode (:1060-1069) and video = clamp(image / 2 + 0.5, 0, 1)
 Under sequence parallelism (`sp`, this rank's parallel.mesh.SPGroups) the
 denoise loop is `_denoise_sharded` (JAX diffusion/pipeline.py:299-420): the
 latent stays token-sharded for every step and is gathered once before the
-decode; the text towers and the decode run on every rank.
+decode. Every rank runs the text encoding and the decode: with the memory
+tiers (inference.py) the Llama tower is one tensor-parallel forward over the
+ranks and a tiled decode spreads its tiles over them (JAX
+inference.py:187-200); a weight-sharded DiT (`--shard-dit-weights`) gathers
+its chunks inside its forward.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple, Union
 
 import torch
+import torch.nn as nn
 
 from ..models.dit import HYVideoDiT
 from ..models.vae import AutoencoderKLCausal3D
@@ -122,7 +127,10 @@ class HunyuanVideoPipeline:
 
     def _place(self, phase: str) -> None:
         """Under cpu_offload: every other phase's modules to the host, then
-        `phase`'s ("text", "dit" or "vae") to the device."""
+        `phase`'s ("text", "dit" or "vae") to the device (a tensor-parallel
+        tower's or a weight-sharded DiT's shards as they are)."""
+        from ..parallel.weight_shard import place_dit
+
         if not self.cpu_offload:
             return
         towers = [enc.model for enc in (self.text_encoder,
@@ -132,9 +140,11 @@ class HunyuanVideoPipeline:
         for name, group in mods.items():
             if name != phase:
                 for m in group:
-                    m.to(self.HOST)
+                    (place_dit if m is self.transformer
+                     else nn.Module.to)(m, self.HOST)
         for m in mods[phase]:
-            m.to(self.device)
+            (place_dit if m is self.transformer else nn.Module.to)(
+                m, self.device)
 
     @staticmethod
     def check_inputs(height: int, width: int, video_length: int,
@@ -179,7 +189,8 @@ class HunyuanVideoPipeline:
         """The denoise loop on this rank's shard: its dp slice of the batch
         (and of each CFG half) and its ring-major token block as flat patch
         tokens, with the RoPE rows of those tokens, conditioned on rank 0's
-        text embeddings (every rank runs the towers); one gather over sp
+        text embeddings (CLIP-L's pooled vector is each rank's own); one
+        gather over sp
         and dp at the end returns the whole [B, C, T, H, W] latent on every
         rank. progress_callback gets the local token shard."""
         from ..models.dit import patchify_raw, unpatchify

@@ -21,8 +21,18 @@ traced by torch.profiler under `--profile-dir` (JAX inference.py:324-327).
 Sequence parallelism (JAX inference.py:105-121): the args' layout
 (`--ulysses-degree`, `--ring-degree`, `--mesh-shape`) must span the whole
 process group; its subgroups are built when the sampler is, and every rank
-runs `predict` in lockstep on the same arguments (the text towers and the
-decode replicated, the denoise loop token-sharded).
+runs `predict` in lockstep on the same arguments (the denoise loop
+token-sharded).
+
+The scale-out memory tiers (JAX inference.py:187-200). Under a world larger
+than 1, by default (`memory_tiers=True`), the Llama tower is
+tensor-parallel over the whole world (models/text/llama.py; CLIP-L stays
+replicated) and a tiled VAE encode or decode spreads its spatial tiles over
+the world (models/vae.py; an untiled one stays replicated); with
+`--shard-dit-weights` the DiT's block stacks are weight-sharded over the sp
+group (parallel/weight_shard.py). `from_pretrained` builds the tower and a
+sharded DiT a layer or a chunk at a time, so neither is ever whole on the
+card; a sampler given whole modules cuts them in place.
 """
 from __future__ import annotations
 
@@ -40,15 +50,19 @@ from .diffusion.scheduler import FlowMatchDiscreteScheduler
 from .models.dit import build_dit
 from .models.dit_config import DiTConfig, load_dit_config
 from .models.text import build_text_encoders
+from .models.text.llama import shard_llama
 from .models.vae import build_vae
 from .models.vae_config import load_vae_config
 from .ops.quantization import quantize_dit
 from .ops.rope import get_nd_rotary_pos_embed
+from .parallel.comm import GroupComm
 from .parallel.mesh import make_groups, parallel_config
-from .utils.checkpoint import (fp8_map_path, load_fp8_dit_checkpoint,
+from .parallel.weight_shard import build_sharded_dit, shard_dit
+from .utils.checkpoint import (fp8_checkpoint_state_dict, fp8_map_path,
                                load_params_npz, load_torch_state_dict,
                                load_tower_state_dict)
 from .utils.profiling import maybe_trace
+from .utils.seeded import randomize_modulation
 from .utils.weights import clip_state_dict_from_jax, llama_state_dict_from_jax
 
 
@@ -96,9 +110,31 @@ def load_tower_weights(base: Path, kind: str) -> Optional[Dict]:
     return load_tower_state_dict(base / dir_name, kind)
 
 
+def _world() -> int:
+    return (torch.distributed.get_world_size()
+            if torch.distributed.is_initialized() else 1)
+
+
+def _sp_groups(args: InferenceArgs):
+    """The layout's subgroups, or None on one rank (make_groups raises
+    unless the layout spans the process group)."""
+    pcfg = parallel_config(args)
+    return make_groups(pcfg) if max(pcfg.world_size, _world()) > 1 else None
+
+
+def _shards_dit(args: InferenceArgs, groups) -> bool:
+    """--shard-dit-weights with an sp group of more than one rank."""
+    return bool(args.shard_dit_weights and groups is not None
+                and groups.sp is not None)
+
+
 class Inference:
     def __init__(self, args: InferenceArgs, vae, text_encoder,
-                 text_encoder_2, transformer, logger=None):
+                 text_encoder_2, transformer, logger=None, sp_groups=None,
+                 memory_tiers: bool = True):
+        """sp_groups: the layout's subgroups when already built (by
+        from_pretrained), else built here. memory_tiers=False keeps the
+        Llama tower and the VAE replicated under a world larger than 1."""
         self.args = args
         self.vae = vae
         self.text_encoder = text_encoder
@@ -108,12 +144,16 @@ class Inference:
         # where the modules run (under --use-cpu-offload they may rest on
         # the host between calls)
         self.device = self.transformer.img_in.proj.weight.device
-        pcfg = parallel_config(args)
-        world = (torch.distributed.get_world_size()
-                 if torch.distributed.is_initialized() else 1)
-        # make_groups raises unless the layout spans the process group
-        self.sp_groups = (make_groups(pcfg) if max(pcfg.world_size, world)
-                          > 1 else None)
+        self.sp_groups = sp_groups or _sp_groups(args)
+        if _shards_dit(args, self.sp_groups) and \
+                transformer.weight_shards is None:
+            shard_dit(transformer, GroupComm(self.sp_groups.sp))
+        if memory_tiers and _world() > 1:
+            comm = GroupComm()
+            if text_encoder is not None and text_encoder.model.tp is None:
+                shard_llama(text_encoder.model, comm)
+            if vae is not None:
+                vae.tile_comm = comm
 
     @staticmethod
     def resolve_dit_weight(args: InferenceArgs) -> Optional[Path]:
@@ -131,13 +171,20 @@ class Inference:
     def from_pretrained(cls, pretrained_model_path: Optional[str] = None,
                         args: Optional[InferenceArgs] = None,
                         allow_random_init: bool = False, logger=None,
-                        **kwargs):
-        """kwargs: `llm_config` / `clip_config` for smaller towers."""
+                        memory_tiers: bool = True,
+                        modulation_seed: Optional[int] = None, **kwargs):
+        """kwargs: `llm_config` / `clip_config` for smaller towers.
+        memory_tiers: as Inference. modulation_seed: random values for the
+        DiT's zero-initialized adaLN and final layers
+        (utils/seeded.randomize_modulation), drawn during the build, so that
+        a weight-sharded DiT holds the same values as a replicated one."""
         args = args or InferenceArgs()
         if pretrained_model_path is not None:
             args.model_base = str(pretrained_model_path)
         device = torch.device(args.device)
         base = Path(args.model_base)
+        groups = _sp_groups(args)
+        tiers = memory_tiers and _world() > 1
 
         cfg = load_dit_config(args.model, rope_theta=float(args.rope_theta),
                               attn_mode=args.attn_mode,
@@ -146,28 +193,35 @@ class Inference:
                               sta_dense_single_blocks=args.sta_dense_blocks)
         dtype = PRECISION_TO_TYPE[args.precision]
         dit_path = cls.resolve_dit_weight(args)
-        fp8_loaded = False
+        sd, gen = None, None
         if dit_path is not None and args.use_fp8 \
                 and fp8_map_path(dit_path).exists():
-            transformer = load_fp8_dit_checkpoint(
-                dit_path, fp8_map_path(dit_path), cfg, args.load_key, device,
-                dtype)
-            fp8_loaded = True
+            # upcast with its scales; the fp8 tier is applied again below
+            sd = fp8_checkpoint_state_dict(dit_path, fp8_map_path(dit_path),
+                                           args.load_key)
         elif dit_path is not None:
-            transformer = build_dit(cfg, device, dtype)
-            transformer.load_state_dict(
-                load_torch_state_dict(dit_path, args.load_key))
+            sd = load_torch_state_dict(dit_path, args.load_key)
         elif allow_random_init:
-            transformer = build_dit(
-                cfg, device, dtype,
-                torch.Generator(device=device).manual_seed(0))
+            gen = torch.Generator(device=device).manual_seed(0)
         else:
             raise FileNotFoundError(
                 f"No DiT checkpoint under {args.model_base}; pass "
                 f"--dit-weight or allow_random_init=True")
-        quantize_dit(transformer, fp8=args.use_fp8 and not fp8_loaded,
-                     int8=args.use_int8,
-                     int4_modulation=args.use_int4_modulation)
+        tier_flags = dict(fp8=args.use_fp8, int8=args.use_int8,
+                          int4_modulation=args.use_int4_modulation)
+        if _shards_dit(args, groups):
+            transformer = build_sharded_dit(
+                cfg, GroupComm(groups.sp), device, dtype, generator=gen,
+                state_dict=sd, modulation_seed=modulation_seed,
+                **tier_flags)
+        else:
+            transformer = build_dit(cfg, device, dtype, gen)
+            if sd is not None:
+                transformer.load_state_dict(sd)
+            quantize_dit(transformer, **tier_flags)
+            if modulation_seed is not None:
+                randomize_modulation(transformer, modulation_seed)
+        del sd
 
         vae_cfg = load_vae_config(args.vae)
         vae_dtype = PRECISION_TO_TYPE[args.vae_precision]
@@ -199,9 +253,11 @@ class Inference:
             apply_final_norm=args.apply_final_norm, device=device,
             dtype=PRECISION_TO_TYPE[args.text_encoder_precision],
             generator=torch.Generator(device=device).manual_seed(2),
-            llm_quant=args.text_encoder_quant)
+            llm_quant=args.text_encoder_quant,
+            llm_comm=GroupComm() if tiers else None)
         return cls(args, vae, text_encoder, text_encoder_2, transformer,
-                   logger=logger)
+                   logger=logger, sp_groups=groups,
+                   memory_tiers=memory_tiers)
 
 
 class HunyuanVideoSampler(Inference):

@@ -26,6 +26,11 @@ token shard (parallel/sp_dit.py); both blocks' joint attention then goes
 through `parallel.sp_attention.usp_joint_attention`, with image-only RoPE
 rows (the split path, as JAX models/dit.py:880-900 under its axes).
 
+The weight-sharded tier (`--shard-dit-weights`, parallel/weight_shard.py):
+`weight_shards` holds the block stacks' shards, and `forward_tokens` has
+each chunk of blocks gathered back to full size just before it runs (JAX
+models/dit.py:991-1018, its `param_gather`).
+
 Training: `forward_tokens` is the JAX `dit_forward_tokens` (raw patch tokens
 in, output patch tokens out), `build_dit(trainable=True)` leaves the
 parameters differentiable, and `cfg.remat_blocks` checkpoints every block
@@ -502,6 +507,8 @@ class HYVideoDiT(nn.Module):
         self.single_blocks = nn.ModuleList(
             SingleBlock(cfg, **fk) for _ in range(cfg.mm_single_blocks_depth))
         self.final_layer = FinalLayer(h, pt * ph * pw * cfg.out_channels, **fk)
+        # the block stacks' weight shards (parallel/weight_shard.py), or None
+        self.weight_shards = None
 
     def forward(self, x, t, text_states, text_mask, text_states_2,
                 freqs_cos, freqs_sin, guidance=None, plain: bool = False):
@@ -582,10 +589,15 @@ class HYVideoDiT(nn.Module):
                                   preserve_rng_state=False)
             return fn(vec, *xs)
 
+        shards = self.weight_shards
         for i, blk in enumerate(self.double_blocks):
+            if shards is not None:
+                shards.fetch("double_blocks", i)
             img, txt = run(blk, cfg.sta_dense_double_blocks, i, img, txt)
         xx = torch.cat([img, txt], dim=1)
         for i, blk in enumerate(self.single_blocks):
+            if shards is not None:
+                shards.fetch("single_blocks", i)
             xx = run(blk, cfg.sta_dense_single_blocks, i, xx)
         return self.final_layer(xx[:, :img_len], vec)
 
@@ -595,30 +607,37 @@ class HYVideoDiT(nn.Module):
         uniform(+-1/sqrt(fan_in)), timestep-embedder linears N(0, 0.02),
         zero biases, unit norm scales, and zero adaLN modulation and final
         layers (so every block starts as the identity)."""
-        zero_prefix = ("final_layer.",)
         for name, mod in self.named_modules():
-            if isinstance(mod, (nn.Linear, nn.Conv3d)):
-                w = mod.weight
-                fan_in = w[0].numel()
-                if (name.startswith(zero_prefix) or name.endswith("_mod.linear")
-                        or name.endswith("modulation.linear")
-                        or name.endswith("adaLN_modulation.1")):
-                    w.zero_()
-                elif ".mlp." in f".{name}" and ("t_embedder" in name
-                                                or name.startswith("time_in")
-                                                or name.startswith(
-                                                    "guidance_in")):
-                    w.normal_(0.0, 0.02, generator=generator)
-                else:
-                    bound = 1.0 / math.sqrt(fan_in)
-                    w.uniform_(-bound, bound, generator=generator)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, (RMSNorm, LayerNorm)):
-                mod.weight.fill_(1.0)
-                if isinstance(mod, LayerNorm):
-                    mod.bias.zero_()
+            init_module(name, mod, generator)
         return self
+
+
+@torch.no_grad()
+def init_module(name: str, mod: nn.Module, generator: torch.Generator
+                ) -> None:
+    """HYVideoDiT.init_weights's draw for the one module `mod` (not its
+    children) of dotted name `name` in the model: called in the model's
+    module order, the same values."""
+    if isinstance(mod, (nn.Linear, nn.Conv3d)):
+        w = mod.weight
+        fan_in = w[0].numel()
+        if (name.startswith("final_layer.") or name.endswith("_mod.linear")
+                or name.endswith("modulation.linear")
+                or name.endswith("adaLN_modulation.1")):
+            w.zero_()
+        elif ".mlp." in f".{name}" and ("t_embedder" in name
+                                        or name.startswith("time_in")
+                                        or name.startswith("guidance_in")):
+            w.normal_(0.0, 0.02, generator=generator)
+        else:
+            bound = 1.0 / math.sqrt(fan_in)
+            w.uniform_(-bound, bound, generator=generator)
+        if mod.bias is not None:
+            mod.bias.zero_()
+    elif isinstance(mod, (RMSNorm, LayerNorm)):
+        mod.weight.fill_(1.0)
+        if isinstance(mod, LayerNorm):
+            mod.bias.zero_()
 
 
 def build_dit(cfg: DiTConfig, device="cuda", dtype=torch.bfloat16,

@@ -8,6 +8,11 @@ instruction template is applied around the prompt and its `crop_start`
 hidden states are cut. `HashTokenizer` stands in where no HF tokenizer
 files exist. quant="int8" stores the LLM's layer linears in int8 (W8A8,
 JAX encoder.py:123-142); CLIP-L is never quantized.
+
+A tensor-parallel LLM tower (`model.tp` set, models/text/llama.py; JAX
+encoder.py:143-149) runs one collective forward over its ranks, which must
+all feed it the same token ids and mask: rank 0's are broadcast before the
+tower runs (the stand-in HashTokenizer hashes with a per-process salt).
 """
 from __future__ import annotations
 
@@ -18,9 +23,11 @@ import numpy as np
 import torch
 
 from ...constants import PROMPT_TEMPLATE
-from ...ops.quantization import quantize_llama_int8
+from ...ops.quantization import (Int8Linear, quantize_llama_int8,
+                                 quantize_stack)
 from .clip import CLIP_L, CLIPTextConfig, CLIPTextModel
-from .llama import LLAMA3_8B, LlamaConfig, LlamaModel
+from .llama import (LLAMA3_8B, LlamaConfig, LlamaModel, check_tp_divisible,
+                    shard_llama_layer)
 
 
 @dataclass
@@ -94,7 +101,12 @@ class TextEncoder:
         self.text_encoder_type = text_encoder_type
         self.max_length = max_length
         self.quant = quant if text_encoder_type == "llm" else None
-        if self.quant == "int8":
+        if self.quant == "int8" and not isinstance(
+                model.layers[0].self_attn.q_proj, Int8Linear):
+            if model.tp is not None:
+                raise ValueError("int8 for a tensor-parallel Llama tower: "
+                                 "quantize before the split (a row-parallel "
+                                 "slice keeps the whole row's scale_out)")
             quantize_llama_int8(model)
         self.model = model
         self.prompt_template = prompt_template
@@ -149,6 +161,9 @@ class TextEncoder:
         """(reference: encode, :271-338)."""
         ids = batch_encoding["input_ids"]
         mask = batch_encoding["attention_mask"]
+        tp = getattr(self.model, "tp", None)
+        if tp is not None:      # one collective forward: rank 0's tokens
+            ids, mask = tp.broadcast0(ids), tp.broadcast0(mask)
         fwd_mask = mask if self.use_attention_mask else None
         if self.text_encoder_type == "clipL":
             _, pooled = self.model.encode(ids, fwd_mask)
@@ -185,6 +200,42 @@ def _build(model_cls, cfg, device, dtype, generator, state_dict=None):
     return model
 
 
+@torch.no_grad()
+def build_llama_tp(cfg: LlamaConfig, comm, device, dtype,
+                   generator: Optional[torch.Generator] = None,
+                   state_dict: Optional[dict] = None,
+                   quant: Optional[str] = None) -> LlamaModel:
+    """This rank's shard of the Llama tower over `comm`, built one layer at
+    a time on `device` (the whole tower is never resident): each module
+    takes its weights (from `state_dict`, else random from `generator` in
+    the order of LlamaModel.init_weights, so the values equal the one-rank
+    build's), a layer is quantized (quant="int8") and then cut to its
+    slices."""
+    check_tp_divisible(cfg, comm.world)
+    with torch.device("meta"):
+        model = LlamaModel(cfg, dtype=dtype)
+    model.eval().requires_grad_(False)
+    for name, child in model.named_children():
+        mods = list(child) if name == "layers" else [child]
+        for i, mod in enumerate(mods):
+            prefix = f"{name}.{i}." if name == "layers" else f"{name}."
+            mod.to_empty(device=device)
+            if state_dict is not None:
+                mod.load_state_dict({k[len(prefix):]: v for k, v in
+                                     state_dict.items()
+                                     if k.startswith(prefix)})
+            elif generator is not None:
+                # LlamaModel.init_weights on this module alone: the same
+                # draws in the same order
+                LlamaModel.init_weights(mod, generator)
+            if name == "layers":
+                if quant == "int8":
+                    quantize_stack(mod, int8=True)
+                shard_llama_layer(mod, comm)
+    model.tp = comm
+    return model
+
+
 def build_text_encoders(
     *,
     llm_config: Optional[LlamaConfig] = None,
@@ -203,19 +254,27 @@ def build_text_encoders(
     llm_quant: Optional[str] = None,
     llm_state_dict: Optional[dict] = None,
     clip_state_dict: Optional[dict] = None,
+    llm_comm=None,
 ) -> Tuple[TextEncoder, TextEncoder]:
     """The (llm, clipL) pair as Inference.from_pretrained builds it
     (reference: hyvideo/inference.py:210-264); the LLM max_length includes
     the template's crop_start. A tower's weights come from its state dict
     when given (the port's key names), else random from `generator` when
     given, else uninitialized; llm_quant="int8" quantizes the LLM's layer
-    linears after its weights are in."""
+    linears after its weights are in. With `llm_comm` (parallel.comm.
+    GroupComm) the LLM is this rank's tensor-parallel shard, built a layer
+    at a time (build_llama_tp)."""
     tpl = PROMPT_TEMPLATE.get(prompt_template)
     tpl_video = PROMPT_TEMPLATE.get(prompt_template_video)
     crop = max(tpl_video.get("crop_start", 0) if tpl_video else 0,
                tpl.get("crop_start", 0) if tpl else 0)
-    llm_model = _build(LlamaModel, llm_config or LLAMA3_8B, device, dtype,
-                       generator, llm_state_dict)
+    if llm_comm is not None:
+        llm_model = build_llama_tp(llm_config or LLAMA3_8B, llm_comm,
+                                   device, dtype, generator, llm_state_dict,
+                                   llm_quant)
+    else:
+        llm_model = _build(LlamaModel, llm_config or LLAMA3_8B, device,
+                           dtype, generator, llm_state_dict)
     clip_model = _build(CLIPTextModel, clip_config or CLIP_L, device, dtype,
                         generator, clip_state_dict)
     llm = TextEncoder(

@@ -8,7 +8,12 @@ so a reference `.pt` loads with `load_state_dict`. Compute is channels-last
 channels run the CUDA kernel K3; the public encode/decode take and return
 the reference's [B, C, T, H, W]. The mid-block attention is single-head and
 frame-causal. Decode (and encode) tile spatially and temporally with the
-reference's linear blending. The fork's temporal ops (pooling in the
+reference's linear blending; `tile_comm` (parallel/comm.py) spreads the
+spatial tiles of each call over ranks (JAX models/vae.py:437-505, whose
+mesh shards the tile batch over every device): each rank runs its own
+tiles (parallel.comm.tile_owner), every rank receives every tile and blends
+them as one rank does, so the result is the one-rank result bit for bit.
+The fork's temporal ops (pooling in the
 encoder, a downsampler stride override, nearest interpolation in the
 decoder) are read from a `TOpsConfig`, as the JAX forwards read it
 (models/vae.py:196-288).
@@ -27,6 +32,7 @@ from ..ops.attention import (chunked_attention, frame_causal_block_bias,
 from ..ops.conv3d import (causal_avg_pool_t, causal_conv3d, conv3d_1x1,
                           interpolate_nearest_t, upsample_nearest_causal_3d)
 from ..ops.norms import group_norm
+from ..parallel.comm import run_tiles
 from .vae_config import MidBlockTOps, TOpsConfig, VAEConfig
 
 
@@ -299,15 +305,21 @@ def _blend(a: torch.Tensor, b: torch.Tensor, extent: int, dim: int
 
 
 def _spatial_tiled(x: torch.Tensor, fn: Callable, in_tile: int,
-                   out_tile: int, overlap_factor: float) -> torch.Tensor:
+                   out_tile: int, overlap_factor: float,
+                   comm=None) -> torch.Tensor:
     """Run fn over overlapping spatial tiles of channels-last x and blend
-    (reference: autoencoder_kl_causal_3d.py:362-469)."""
+    (reference: autoencoder_kl_causal_3d.py:362-469); with `comm` each rank
+    runs its own tiles and receives the others' (parallel.comm.run_tiles)."""
     overlap = int(in_tile * (1 - overlap_factor))
     blend = int(out_tile * overlap_factor)
     limit = out_tile - blend
-    rows = [[fn(x[:, :, i:i + in_tile, j:j + in_tile])
-             for j in range(0, x.shape[3], overlap)]
-            for i in range(0, x.shape[2], overlap)]
+    corners = [(i, j) for i in range(0, x.shape[2], overlap)
+               for j in range(0, x.shape[3], overlap)]
+    n_cols = len(range(0, x.shape[3], overlap))
+    flat = run_tiles(comm, len(corners), lambda k: fn(
+        x[:, :, corners[k][0]:corners[k][0] + in_tile,
+          corners[k][1]:corners[k][1] + in_tile]), x.device)
+    rows = [flat[r:r + n_cols] for r in range(0, len(flat), n_cols)]
     out_rows = []
     for i, row in enumerate(rows):
         out_row = []
@@ -360,6 +372,9 @@ class AutoencoderKLCausal3D(nn.Module):
         self.use_slicing = False
         self.use_spatial_tiling = False
         self.use_temporal_tiling = False
+        # the ranks a tiled encode/decode spreads its spatial tiles over
+        # (parallel/comm.py), or None: every tile here
+        self.tile_comm = None
 
     def enable_spatial_tiling(self, on: bool = True):
         self.use_spatial_tiling = on
@@ -402,7 +417,7 @@ class AutoencoderKLCausal3D(nn.Module):
             return _spatial_tiled(x, self._encode_tile,
                                   cfg.tile_sample_min_size,
                                   cfg.tile_latent_min_size,
-                                  cfg.tile_overlap_factor)
+                                  cfg.tile_overlap_factor, self.tile_comm)
         return self._encode_tile(x)
 
     def _decode_spatial(self, z):
@@ -412,7 +427,7 @@ class AutoencoderKLCausal3D(nn.Module):
             return _spatial_tiled(z, self._decode_tile,
                                   cfg.tile_latent_min_size,
                                   cfg.tile_sample_min_size,
-                                  cfg.tile_overlap_factor)
+                                  cfg.tile_overlap_factor, self.tile_comm)
         return self._decode_tile(z)
 
     @torch.no_grad()

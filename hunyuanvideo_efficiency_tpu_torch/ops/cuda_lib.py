@@ -66,10 +66,10 @@ SIGNATURES = {
     },
     "w8a8_linear": {
         "hv_w8a8_quantize": (
-            _I, [_I, _P, _LL, _P, _P, _P, _I, _I, _I, _P]),
+            _I, [_I, _P, _LL, _P, _P, _I, _P, _I, _I, _I, _P]),
         "hv_w8a8_linear": (
             _I, [_I, _I, _P, _LL, _P, _LL, _P, _P, _I] + [_P] * 4
-            + [_I] * 7 + [_P]),
+            + [_I] * 8 + [_P]),
     },
     "flash_backward": {
         "hv_flash_bwd_dq": (

@@ -27,6 +27,13 @@ Not ported: the JAX package's column-chunked XLA body and its temp budget
 `set_colchunk_unroll`); they bound an [L, n] s32 temp in 16 GB of TPU
 memory, and the CUDA kernel never writes one.
 
+Two arms serve a row-parallel linear, whose K is split over ranks (the
+tensor-parallel Llama tower's o_proj and down_proj, models/text/llama.py):
+`row_scale` gives sx (the amax of the whole row, all-reduced over the
+ranks), so that every rank quantizes its K slice with the codes one rank
+would give, and `s32=True` turns the epilogue off and returns the s32 sums,
+which the ranks add as integers (exact) before the dequant.
+
 Bound on the H100: 2*M*N*K int8 operations (1,979 TOP/s) against the bytes
 of x, W and y (3.35 TB/s); see the source note in the .cu file.
 """
@@ -50,6 +57,7 @@ EPILOGUE_ACTS = {
     "silu": F.silu,
 }
 _ACT_CODE = {None: 0, "gelu": 1, "gelu_tanh": 2, "relu": 3, "silu": 4}
+S32_CODE = 5    # the kernel's act code for the s32 arm (epilogue off)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
 
 BK = 128        # the GEMM's K step (bytes); N and K are multiples of 128
@@ -58,21 +66,35 @@ SHORT_M = 64    # rows up to which the short schedule streams the weight
 TILES = ((128, 256), (128, 128), (64, 128))   # (BM, BN) the kernel takes
 
 
-def quantize_rows(x: torch.Tensor):
+def row_scales(amax: torch.Tensor) -> torch.Tensor:
+    """sx = max(amax, 1e-8) * (1/127) in fp32: the row scale of an amax."""
+    return amax.float().clamp_min(1e-8) * (1.0 / 127.0)
+
+
+def quantize_rows(x: torch.Tensor, sx: Optional[torch.Tensor] = None):
     """Per-row symmetric int8 codes of x [..., K]: (xq int8, sx fp32 [..., 1])
-    with sx = max(max|x|, 1e-8) * (1/127) and xq = round(x_f32 / sx)."""
-    amax = x.abs().amax(dim=-1, keepdim=True).float()
-    sx = amax.clamp_min(1e-8) * (1.0 / 127.0)
-    return torch.round(x.float() / sx).to(torch.int8), sx
+    with sx = max(max|x|, 1e-8) * (1/127), or the given `sx` [..., 1], and
+    xq = clip(round(x_f32 / sx), -127, 127) (the clip binds only under a
+    given scale below the row's own)."""
+    if sx is None:
+        sx = row_scales(x.abs().amax(dim=-1, keepdim=True))
+    return torch.round(x.float() / sx).clamp(-127, 127).to(torch.int8), sx
 
 
 def w8a8_linear_plain(x, weight, scale_out, bias=None,
-                      act: Optional[str] = None) -> torch.Tensor:
+                      act: Optional[str] = None, *,
+                      row_scale: Optional[torch.Tensor] = None,
+                      s32: bool = False) -> torch.Tensor:
     """The kernel's function in plain PyTorch. x [..., K]; weight int8
-    [N, K]; scale_out [N] fp32; bias [N] or None. The s32 product is taken
-    in float64, exact for K <= 2^53 / 127^2."""
-    xq, sx = quantize_rows(x)
+    [N, K]; scale_out [N] fp32; bias [N] or None; row_scale [...] fp32, the
+    given sx; s32=True returns the int32 sums (no epilogue, scale_out not
+    read). The s32 product is taken in float64, exact for K <= 2^53 /
+    127^2."""
+    xq, sx = quantize_rows(x, None if row_scale is None
+                           else row_scale.float()[..., None])
     acc = torch.matmul(xq.double(), weight.double().t())
+    if s32:
+        return acc.to(torch.int32)
     y = acc.float() * sx * scale_out.float()
     if bias is not None:
         y = y + bias.float()
@@ -170,7 +192,7 @@ def _prepass_launch(x2: torch.Tensor):
     sx = torch.empty((m,), dtype=torch.float32, device=x2.device)
     err = cuda_lib.library("w8a8_linear").hv_w8a8_quantize(
         _DTYPE_CODE[x2.dtype], x2.data_ptr(), x2.stride(0), xq.data_ptr(),
-        sx.data_ptr(), None, 0, m, k, cuda_lib.stream_ptr(x2.device))
+        sx.data_ptr(), 0, None, 0, m, k, cuda_lib.stream_ptr(x2.device))
     cuda_lib.check(err, "w8a8 quantization pre-pass")
     return xq, sx
 
@@ -208,13 +230,24 @@ def w8a8_prepass(x: torch.Tensor):
 
 
 def w8a8_linear(x, weight, scale_out, bias=None,
-                act: Optional[str] = None) -> torch.Tensor:
+                act: Optional[str] = None, *,
+                row_scale: Optional[torch.Tensor] = None,
+                s32: bool = False) -> torch.Tensor:
     """B9: y = act(dequant(quant(x) . weight^T) + bias), see the module
-    docstring. Kernel on CUDA tensors, plain version on CPU tensors."""
+    docstring; row_scale [...] (x's leading shape, fp32) quantizes with the
+    caller's sx, s32=True returns the int32 sums [..., N] (no bias, act or
+    scale_out). Kernel on CUDA tensors, plain version on CPU tensors."""
     if act not in _ACT_CODE:
         raise ValueError(f"w8a8_linear: unsupported activation {act!r}")
+    if s32 and (bias is not None or act is not None):
+        raise ValueError("w8a8_linear: the s32 arm takes no bias and no "
+                         "activation")
+    if row_scale is not None and row_scale.shape != x.shape[:-1]:
+        raise ValueError(f"w8a8_linear: row_scale {tuple(row_scale.shape)} "
+                         f"against x {tuple(x.shape)}")
     if x.device.type == "cpu":
-        return w8a8_linear_plain(x, weight, scale_out, bias, act)
+        return w8a8_linear_plain(x, weight, scale_out, bias, act,
+                                 row_scale=row_scale, s32=s32)
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"w8a8 kernel takes bf16 or fp16 x, got {x.dtype}")
     if weight.dtype != torch.int8:
@@ -250,14 +283,20 @@ def w8a8_linear(x, weight, scale_out, bias=None,
     scratch = torch.empty(ws_at + ws_bytes, dtype=torch.uint8,
                           device=x.device)
     base = scratch.data_ptr()
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    sx_ptr = base + sx_at
+    if row_scale is not None:
+        row_scale = row_scale.reshape(m).float().contiguous()
+        sx_ptr = row_scale.data_ptr()
+    out = torch.empty((m, n), dtype=torch.int32 if s32 else x.dtype,
+                      device=x.device)
     err = cuda_lib.library("w8a8_linear").hv_w8a8_linear(
-        _DTYPE_CODE[x.dtype], _ACT_CODE[act], x2.data_ptr(), x2.stride(0),
-        weight.data_ptr(), weight.stride(0), so.data_ptr(),
-        bias.data_ptr() if bias is not None else None, bias_type,
-        out.data_ptr(), base, base + sx_at,
-        base + ws_at if ws_bytes else None, m, n, k, plan.bm, plan.bn,
-        plan.split, plan.grid, cuda_lib.stream_ptr(x.device))
+        _DTYPE_CODE[x.dtype], S32_CODE if s32 else _ACT_CODE[act],
+        x2.data_ptr(), x2.stride(0), weight.data_ptr(), weight.stride(0),
+        so.data_ptr(), bias.data_ptr() if bias is not None else None,
+        bias_type, out.data_ptr(), base, sx_ptr,
+        base + ws_at if ws_bytes else None, int(row_scale is not None), m, n,
+        k, plan.bm, plan.bn, plan.split, plan.grid,
+        cuda_lib.stream_ptr(x.device))
     cuda_lib.check(err, "w8a8 linear")
     w8a8_linear.LAUNCHES += 1
     return out.reshape(*lead, n)

@@ -207,19 +207,28 @@ def _replace_linears(root: nn.Module, convert, select=lambda name: True):
             setattr(parent, attr, convert(mod))
 
 
+def quantize_stack(root: nn.Module, fp8: bool = False, int8: bool = False,
+                   int4_modulation: bool = False) -> nn.Module:
+    """The weight tiers on every linear under `root` (a block stack, or one
+    block), in place and in the JAX order: fp8, then int8, then int4 of
+    the adaLN modulation linears."""
+    if fp8:
+        _replace_linears(root, to_fp8)
+    if int8:
+        _replace_linears(root, to_int8)
+    if int4_modulation:
+        _replace_linears(root, to_int4, lambda name: any(
+            f".{k}." in f".{name}" for k in MODULATION_KEYS))
+    return root
+
+
 def quantize_dit(model: nn.Module, fp8: bool = False, int8: bool = False,
                  int4_modulation: bool = False) -> nn.Module:
     """Apply the weight tiers to the block linears of an HYVideoDiT, in
     place and in the JAX order (inference.py:157-164): fp8, then int8,
     then int4 of the adaLN modulation linears."""
     for stack in (model.double_blocks, model.single_blocks):
-        if fp8:
-            _replace_linears(stack, to_fp8)
-        if int8:
-            _replace_linears(stack, to_int8)
-        if int4_modulation:
-            _replace_linears(stack, to_int4, lambda name: any(
-                f".{k}." in f".{name}" for k in MODULATION_KEYS))
+        quantize_stack(stack, fp8, int8, int4_modulation)
     return model
 
 

@@ -151,21 +151,28 @@ def fp8_map_path(dit_path) -> Path:
     return dit_path.with_name(dit_path.stem + "_map.pt")
 
 
-def load_fp8_dit_checkpoint(ckpt_path, map_path, cfg,
-                            load_key: str = "module", device="cuda",
-                            dtype=torch.bfloat16):
-    """An HYVideoDiT from a reference fp8 checkpoint and its scale map (JAX
-    utils/checkpoint.py:215-239): the fp8 weights are upcast and multiplied
-    by their side-car scales in fp32, the model is loaded through `dtype`,
-    and the block linears are re-quantized to the per-tensor fp8 tier."""
-    from ..models.dit import build_dit
-    from ..ops.quantization import quantize_dit
-
+def fp8_checkpoint_state_dict(ckpt_path, map_path, load_key: str = "module"):
+    """A reference fp8 checkpoint's state dict on the host, its fp8 weights
+    upcast and multiplied by their side-car scales in fp32 (JAX
+    utils/checkpoint.py:215-239)."""
     sd = load_torch_state_dict(ckpt_path, load_key)
     for name, scale in load_torch_state_dict(map_path).items():
         key = name if name in sd else name.replace(".scale", ".weight")
         if key in sd:
             sd[key] = sd[key].float() * torch.as_tensor(scale).float()
+    return sd
+
+
+def load_fp8_dit_checkpoint(ckpt_path, map_path, cfg,
+                            load_key: str = "module", device="cuda",
+                            dtype=torch.bfloat16):
+    """An HYVideoDiT from a reference fp8 checkpoint and its scale map: the
+    upcast state dict (fp8_checkpoint_state_dict) loaded through `dtype`,
+    and the block linears re-quantized to the per-tensor fp8 tier."""
+    from ..models.dit import build_dit
+    from ..ops.quantization import quantize_dit
+
     model = build_dit(cfg, device, dtype)
-    model.load_state_dict(sd)
+    model.load_state_dict(fp8_checkpoint_state_dict(ckpt_path, map_path,
+                                                    load_key))
     return quantize_dit(model, fp8=True)

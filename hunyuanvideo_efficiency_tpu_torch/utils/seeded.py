@@ -54,19 +54,28 @@ def randomize_modulation(model: torch.nn.Module, seed: int) -> None:
     then the identity): give them N(0, 0.25/fan_in) values, re-quantized in
     the tier a layer holds."""
     g = torch.Generator(model.img_in.proj.weight.device).manual_seed(seed)
-    with torch.no_grad():
-        for name, mod in model.named_modules():
-            if hasattr(mod, "in_features") and (
-                    name.endswith("mod.linear")
-                    or name.endswith("modulation.linear")
-                    or "adaLN_modulation" in name
-                    or name.startswith("final_layer")):
-                w = torch.empty(mod.out_features, mod.in_features,
-                                device=g.device).normal_(
-                    0.0, 0.5 / math.sqrt(mod.in_features), generator=g)
-                if isinstance(mod, torch.nn.Linear):
-                    mod.weight.copy_(w)
-                else:   # a weight tier: its own converter, same buffers
-                    tier = quantization.TIER_OF[type(mod)]
-                    mod.load_state_dict(tier(types.SimpleNamespace(
-                        weight=w, bias=mod.bias)).state_dict())
+    for name, mod in model.named_modules():
+        randomize_module(name, mod, g)
+
+
+@torch.no_grad()
+def randomize_module(name: str, mod: torch.nn.Module,
+                     g: torch.Generator) -> None:
+    """randomize_modulation's draw for the one module `mod` of dotted name
+    `name` (a no-op unless it is an adaLN or final linear): called in the
+    model's module order with one generator, the same values (the
+    weight-sharded DiT's build draws them a chunk at a time)."""
+    if hasattr(mod, "in_features") and (
+            name.endswith("mod.linear")
+            or name.endswith("modulation.linear")
+            or "adaLN_modulation" in name
+            or name.startswith("final_layer")):
+        w = torch.empty(mod.out_features, mod.in_features,
+                        device=g.device).normal_(
+            0.0, 0.5 / math.sqrt(mod.in_features), generator=g)
+        if isinstance(mod, torch.nn.Linear):
+            mod.weight.copy_(w)
+        else:   # a weight tier: its own converter, same buffers
+            tier = quantization.TIER_OF[type(mod)]
+            mod.load_state_dict(tier(types.SimpleNamespace(
+                weight=w, bias=mod.bias)).state_dict())

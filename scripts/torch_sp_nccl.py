@@ -4,6 +4,7 @@ ranks, one GPU a rank over NCCL (or one CPU process a rank over gloo with
 
     torchrun --nproc_per_node 4 scripts/torch_sp_nccl.py
     torchrun --nproc_per_node 4 scripts/torch_sp_nccl.py --phases train
+    torchrun --nproc_per_node 4 scripts/torch_sp_nccl.py --phases tiers
     torchrun --nproc_per_node 4 scripts/torch_sp_nccl.py --device cpu --tiny
 
 Every rank draws the same full inputs from fixed seeds and keeps its shard,
@@ -29,7 +30,9 @@ so rank 0 can hold the gathered result to one single-device call:
    ring), each against the same predict on rank 0 alone (relative L2 of
    the float video 2e-2), with the median of PREDICT_ITERS runs' seconds
    per run (the slowest rank's); then one request in lockstep as serve.py
-   runs it (rank 0 broadcasting the arguments).
+   runs it (rank 0 broadcasting the arguments). The towers and the decode
+   stay replicated here (`memory_tiers=False`), so that rank 0 can run
+   alone; the tiers phase runs them sharded.
 3. train: the sharded SGD step (training.make_train_step with sp) of a
    trainable DiT at the full width and depth of HYVideo-T/2 (bf16, the
    adaLN layers randomized, every block checkpointed) on 256x448x33f
@@ -40,12 +43,28 @@ so rank 0 can hold the gathered result to one single-device call:
    set, 2e-2; the relative L2 of the update beside it as information),
    every rank's parameters equal to rank 0's bit for bit; the slowest
    rank's seconds a step (host clock, synchronized) and its peak GiB.
+4. tiers: the scale-out memory tiers (inference.py) at full width and
+   depth, 256x448x33f, two videos, 2 steps, CFG 6.0: first every rank
+   builds the replicated sampler (no tiers) and rank 0 alone predicts, the
+   reference; then a sampler with every tier (--shard-dit-weights over the
+   sp group, the Llama tower tensor-parallel and the tiled decode spread
+   over the world) predicts under u = 4 and u2 x r2, each held to rank 0
+   alone (relative L2 2e-2); then the same layouts without
+   --shard-dit-weights, each equal to the sharded run bit for bit. Each
+   build prints every rank's peak GiB right after loading and its
+   resident DiT, tower and VAE GiB; each predict the slowest rank's median
+   gen_s and decode_s. Before the layouts, one predict at the headline,
+   720x1280x129f, 1 step, u = 4, all tiers: each rank's peak GiB, s/step,
+   decode s and text-encode s, or, when a rank runs out of memory, where.
 One line per check; the last line is {"ok": true, ...} on rank 0.
-`--phases` picks among attention, predict and train (default all);
-`--tiny` shrinks every shape (a CPU rehearsal).
+`--phases` picks among attention, predict, train and tiers (default:
+attention, predict, train); `--tiny` shrinks every shape (a CPU
+rehearsal).
 """
 import argparse
 import datetime
+import gc
+import itertools
 import json
 import math
 import os
@@ -86,6 +105,8 @@ ITERS = 10          # timed calls of each attention layout
 PREDICT_ITERS = 5   # timed predict runs of each layout
 TRAIN_STEPS, TRAIN_LR = 2, 0.1
 TRAIN_LATENT = (16, 9, 32, 56)       # 256x448x33f: a 9x16x28 patch grid
+TIER_ITERS = 3      # timed predict runs of each layout with the tiers
+HEADLINE = dict(height=720, width=1280, video_length=129)
 
 
 def log(rank, tag, **fields):
@@ -203,43 +224,47 @@ def check_attention(dev, dtype, world, rank, tiny):
             dist.barrier()
 
 
+def tiny_registry():
+    """Tiny DiT, VAE (32-pixel tiles, so the decode tiles) and towers for
+    the CPU rehearsal; the Llama's heads divide 2 and 4 (tensor
+    parallelism)."""
+    from hunyuanvideo_efficiency_tpu_torch import inference
+    from hunyuanvideo_efficiency_tpu_torch.models.text import (
+        CLIPTextConfig, LlamaConfig)
+    from hunyuanvideo_efficiency_tpu_torch.models.vae_config import (
+        VAEConfig)
+
+    inference.load_dit_config = lambda name, **o: DiTConfig(
+        hidden_size=128, heads_num=4, mm_double_blocks_depth=1,
+        mm_single_blocks_depth=1, rope_dim_list=(8, 12, 12),
+        text_states_dim=64, text_states_dim_2=48, **o)
+    inference.load_vae_config = lambda name: VAEConfig(
+        block_out_channels=(32, 32, 64, 64), layers_per_block=1,
+        sample_size=32, sample_tsize=8)
+    over = dict(precision="fp32", vae_precision="fp32",
+                text_encoder_precision="fp32", text_states_dim=64,
+                text_states_dim_2=48)
+    return over, dict(llm_config=LlamaConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=96,
+        num_hidden_layers=2, num_attention_heads=8,
+        num_key_value_heads=4), clip_config=CLIPTextConfig(
+        vocab_size=96, hidden_size=48, intermediate_size=96,
+        num_hidden_layers=2, num_attention_heads=4,
+        max_position_embeddings=77, eos_token_id=95))
+
+
 def check_predict(device, world, rank, tiny):
     layouts = [(1, world, 1), (1, world // 2, 2), (2, world // 2, 1)]
     if tiny:
         layouts = [(1, 2, world // 2), (2, 1, world // 2)]
     layouts = [lay for lay in layouts if math.prod(lay) == world]
-    over = {}
-    if tiny:
-        over = dict(precision="fp32", vae_precision="fp32",
-                    text_encoder_precision="fp32", text_states_dim=64,
-                    text_states_dim_2=48)
+    over, kw = tiny_registry() if tiny else ({}, {})
     args = InferenceArgs(model="HYVideo-T/2", vae_tiling=not tiny,
                          model_base="ckpts-not-present", device=device,
                          mesh_shape="dp:{},ulysses:{},ring:{}".format(
                              *layouts[0]), **over)
-    kw = {}
-    if tiny:
-        from hunyuanvideo_efficiency_tpu_torch import inference
-        from hunyuanvideo_efficiency_tpu_torch.models.text import (
-            CLIPTextConfig, LlamaConfig)
-        from hunyuanvideo_efficiency_tpu_torch.models.vae_config import (
-            VAEConfig)
-
-        inference.load_dit_config = lambda name, **o: DiTConfig(
-            hidden_size=128, heads_num=4, mm_double_blocks_depth=1,
-            mm_single_blocks_depth=1, rope_dim_list=(8, 12, 12),
-            text_states_dim=64, text_states_dim_2=48, **o)
-        inference.load_vae_config = lambda name: VAEConfig(
-            block_out_channels=(32, 32, 64, 64), layers_per_block=1)
-        kw = dict(llm_config=LlamaConfig(
-            vocab_size=256, hidden_size=64, intermediate_size=96,
-            num_hidden_layers=2, num_attention_heads=4,
-            num_key_value_heads=2), clip_config=CLIPTextConfig(
-            vocab_size=96, hidden_size=48, intermediate_size=96,
-            num_hidden_layers=2, num_attention_heads=4,
-            max_position_embeddings=77, eos_token_id=95))
     sampler = HunyuanVideoSampler.from_pretrained(
-        args=args, allow_random_init=True, **kw)
+        args=args, allow_random_init=True, memory_tiers=False, **kw)
     randomize_modulation(sampler.transformer, 3)
     size = dict(height=32, width=64, video_length=5) if tiny else dict(
         height=256, width=448, video_length=33)
@@ -286,6 +311,194 @@ def check_predict(device, world, rank, tiny):
     else:
         serve.follow(sampler)
     dist.barrier()
+
+
+def resident_gib(module) -> float:
+    """GiB of the module's own storages, each once (a tower shard's shared
+    embedding, the block views of a weight-sharded DiT's transient buffer),
+    plus a weight-sharded DiT's kept shards."""
+    seen = {}
+    for t in itertools.chain(module.parameters(), module.buffers()):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    shards = getattr(module, "weight_shards", None)
+    return (sum(seen.values())
+            + (shards.shard_bytes if shards is not None else 0)) / 2**30
+
+
+def peak_gib(dev) -> float:
+    return (torch.cuda.max_memory_allocated(dev) / 2**30
+            if dev.type == "cuda" else 0.0)
+
+
+def timed_predict(sampler, req, dev):
+    """predict with its decode split off (the host clock from the last
+    step's callback to the end, synchronized) and its per-step times."""
+    marks = []
+
+    def on_step(i, latents):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        marks.append(time.time())
+
+    t0 = time.time()
+    out = sampler.predict(**req, progress_callback=on_step)
+    end = time.time()
+    steps = [b - a for a, b in zip([t0] + marks, marks)]
+    return out, dict(gen_s=out["gen_time"], decode_s=end - marks[-1],
+                     step_s=steps)
+
+
+def check_tiers(device, world, rank, tiny, headline):
+    """The memory tiers at full width and depth; see the module docstring
+    (4)."""
+    dev = torch.device(device)
+    over, kw = tiny_registry() if tiny else ({}, {})
+    layouts = [(1, world, 1), (1, world // 2, 2)]
+    size = dict(height=32, width=64, video_length=5) if tiny else dict(
+        height=256, width=448, video_length=33)
+    req = dict(prompt="A cat walks on the grass, realistic style.", seed=42,
+               infer_steps=2, guidance_scale=6.0, flow_shift=7.0,
+               num_videos_per_prompt=2, **size)
+
+    def build(shard, tiers):
+        args = InferenceArgs(model="HYVideo-T/2", vae_tiling=True,
+                             model_base="ckpts-not-present", device=device,
+                             mesh_shape="dp:{},ulysses:{},ring:{}".format(
+                                 *layouts[0]),
+                             shard_dit_weights=shard, **over)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        sampler = HunyuanVideoSampler.from_pretrained(
+            args=args, allow_random_init=True, memory_tiers=tiers,
+            modulation_seed=3, **kw)
+        mem = torch.tensor([peak_gib(dev), resident_gib(sampler.transformer),
+                            resident_gib(sampler.text_encoder.model),
+                            resident_gib(sampler.vae),
+                            resident_gib(sampler.text_encoder_2.model),
+                            time.time() - t0], device=dev)
+        parts = [torch.empty_like(mem) for _ in range(world)]
+        dist.all_gather(parts, mem)
+        log(rank, "tiers_build", shard_dit_weights=shard, tiers=tiers,
+            peak_after_load_gib=json.dumps([p[0].item() for p in parts]),
+            dit_gib=json.dumps([p[1].item() for p in parts]),
+            llama_gib=json.dumps([p[2].item() for p in parts]),
+            vae_gib=parts[0][3].item(), clip_gib=parts[0][4].item(),
+            build_s=max(p[5].item() for p in parts))
+        return sampler
+
+    def run_layouts(sampler, label, ref, equal_to=None):
+        outs = {}
+        for lay in layouts:
+            sampler.pipeline.sp = groups_of(tuple(lay))
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            out, t = timed_predict(sampler, req, dev)
+            runs = [t] + [timed_predict(sampler, req, dev)[1]
+                          for _ in range(TIER_ITERS - 1)]
+            slow = torch.tensor([[r["gen_s"], r["decode_s"]] for r in runs],
+                                device=dev)
+            dist.all_reduce(slow, op=dist.ReduceOp.MAX)
+            peak = torch.tensor([peak_gib(dev)], device=dev)
+            peaks = [torch.empty_like(peak) for _ in range(world)]
+            dist.all_gather(peaks, peak)
+            samples = out["samples"]
+            if rank == 0:
+                err = ((samples - ref).norm() / ref.norm()).item()
+                fields = {}
+                if equal_to is not None:
+                    same = torch.equal(samples.cpu(), equal_to[lay])
+                    fields["bit_equal_to_sharded"] = same
+                    if not same:
+                        raise AssertionError(f"tiers {label} {lay}: not "
+                                             f"bit-equal to the sharded run")
+                if not err <= 2e-2:
+                    raise AssertionError(f"tiers {label} {lay}: rel L2 "
+                                         f"{err} > 2e-2")
+                log(rank, "tiers_predict", case=label,
+                    layout="dp:{},ulysses:{},ring:{}".format(*lay),
+                    size="{height}x{width}x{video_length}".format(**size),
+                    steps=2, videos=2, rel_l2_vs_rank0_alone=err,
+                    gen_s_median=statistics.median(slow[:, 0].tolist()),
+                    decode_s_median=statistics.median(slow[:, 1].tolist()),
+                    peak_gib=json.dumps([p.item() for p in peaks]),
+                    runs=TIER_ITERS, **fields)
+                outs[lay] = samples.cpu()
+            dist.barrier()
+        return outs
+
+    # the reference: every module replicated, rank 0 alone
+    sampler = build(False, False)
+    ref = None
+    if rank == 0:
+        sampler.pipeline.sp = None
+        sampler.predict(**req)                        # warm-up
+        out, t = timed_predict(sampler, req, dev)
+        ref = out["samples"]
+        log(rank, "tiers_single", gen_s=t["gen_s"], decode_s=t["decode_s"],
+            peak_gib=peak_gib(dev))
+    dist.barrier()
+    del sampler
+    sampler = build(True, True)
+    if headline:
+        check_headline(sampler, dev, world, rank, dict(
+            height=64, width=96, video_length=9) if tiny else HEADLINE)
+    sharded = run_layouts(sampler, "all tiers", ref)
+    del sampler
+    sampler = build(False, True)
+    run_layouts(sampler, "tiers without --shard-dit-weights", ref, sharded)
+    del sampler
+
+
+def check_headline(sampler, dev, world, rank, size):
+    """One predict of `size` (HEADLINE: 720x1280x129f), 1 step, u = world,
+    every tier: each rank's peak GiB, s/step, decode s and text-encode s;
+    a rank that runs out of memory says where before the run fails."""
+    sampler.pipeline.sp = groups_of((1, world, 1))
+    req = dict(prompt="A cat walks on the grass, realistic style.", seed=42,
+               infer_steps=1, guidance_scale=6.0, flow_shift=7.0,
+               num_videos_per_prompt=1, **size)
+    where = "text"
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        t0 = time.time()
+        sampler.pipeline.encode_prompt(req["prompt"],
+                                       sampler.default_negative_prompt, True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        text_s = time.time() - t0
+        where = "predict"
+        out, t = timed_predict(sampler, req, dev)
+    except torch.cuda.OutOfMemoryError as e:
+        print(f"[tiers_headline] rank={rank} out_of_memory_in={where} "
+              f"peak_gib={peak_gib(dev)} error={json.dumps(str(e)[:300])}",
+              flush=True)
+        raise
+    row = torch.tensor([peak_gib(dev), t["step_s"][0] - text_s,
+                        t["decode_s"], text_s, t["gen_s"]], device=dev)
+    rows = [torch.empty_like(row) for _ in range(world)]
+    dist.all_gather(rows, row)
+    v = out["samples"]
+    ok = bool(torch.isfinite(v).all()) and v.std().item() > 0
+    log(rank, "tiers_headline",
+        size="{height}x{width}x{video_length}".format(**size), steps=1,
+        layout=f"dp:1,ulysses:{world},ring:1", videos=1, cfg=True,
+        finite_nonconstant=ok, shape=json.dumps(list(v.shape)),
+        peak_gib=json.dumps([r[0].item() for r in rows]),
+        s_per_step=max(r[1].item() for r in rows),
+        decode_s=max(r[2].item() for r in rows),
+        text_encode_s=max(r[3].item() for r in rows),
+        gen_s=max(r[4].item() for r in rows),
+        note="s_per_step is the first step less a separate text encode")
+    if not ok:
+        raise AssertionError("headline video is not finite or is constant")
+    del out, v
 
 
 def train_inputs(cfg, latent, batch, seed, dev, txt_len=256, txt_valid=40):
@@ -405,7 +618,9 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--phases", default="attention,predict,train",
-                   help="comma-separated: attention, predict, train")
+                   help="comma-separated: attention, predict, train, tiers")
+    p.add_argument("--no-headline", action="store_true",
+                   help="tiers: skip the 720x1280x129f predict")
     p.add_argument("--pg-timeout", type=float, default=None,
                    help="seconds a collective may wait for its peers "
                         "before the run fails (default: the backend's)")
@@ -436,6 +651,9 @@ def main(argv=None):
         if "predict" in phases:
             with timer.phase("predict"):
                 check_predict(device, world, rank, a.tiny)
+        if "tiers" in phases:
+            with timer.phase("tiers"):
+                check_tiers(device, world, rank, a.tiny, not a.no_headline)
     if "train" in phases:
         with timer.phase("train"):
             check_train(dev, world, rank, a.tiny)

@@ -947,6 +947,89 @@ def test_w8a8_prepass_equals_plain(dev):
     assert torch.equal(xq, rq) and torch.equal(sx, rs[:, 0])
 
 
+# B9's two arms at the world-4 slices of Llama-3-8B's tensor-parallel
+# tower: K 1024 (o_proj) and 3584 (down_proj), N 256 (k/v) and 1024 (q),
+# two rows (the split-K schedule) and a CFG pair of 351-token prompts
+W8A8_TP_CASES = [(m, k, n) for m in (2, 702) for k in (1024, 3584)
+                 for n in (256, 1024)]
+
+
+def _w8a8_tp_operands(dev, m, k, n, seed):
+    """x [m, k] bf16, an int8 weight [n, k] with its scale_out, and row
+    scales of a wider row (the amax of x and of a second slice of 3k
+    columns, as the all-reduced amax over four ranks)."""
+    from hunyuanvideo_efficiency_tpu_torch.ops.int8_matmul import row_scales
+    from hunyuanvideo_efficiency_tpu_torch.ops.quantization import (
+        quantize_tensor_int8)
+
+    g = torch.Generator(dev).manual_seed(seed)
+    x = (torch.randn(m, k, generator=g, device=dev) * 3).bfloat16()
+    rest = (torch.randn(m, 3 * k, generator=g, device=dev) * 3).bfloat16()
+    sx = row_scales(torch.maximum(x.abs().amax(-1), rest.abs().amax(-1)))
+    w8, so = quantize_tensor_int8(torch.randn(n, k, generator=g, device=dev))
+    return x, w8, so, sx
+
+
+@pytest.mark.parametrize("m,k,n", W8A8_TP_CASES)
+def test_w8a8_given_scale_equals_plain(dev, m, k, n):
+    """The given-scale arm: the pre-pass quantizes with the caller's row
+    scales (no amax of its own), equal to the plain version bit for bit."""
+    from hunyuanvideo_efficiency_tpu_torch.ops.int8_matmul import (
+        w8a8_linear, w8a8_linear_plain)
+
+    x, w8, so, sx = _w8a8_tp_operands(dev, m, k, n, 11)
+    out = w8a8_linear(x, w8, so, row_scale=sx)
+    ref = w8a8_linear_plain(x, w8, so, row_scale=sx)
+    own = w8a8_linear(x, w8, so)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert not torch.equal(out, own)     # the given scale was used
+
+
+@pytest.mark.parametrize("m,k,n", W8A8_TP_CASES)
+def test_w8a8_s32_equals_plain(dev, m, k, n):
+    """The s32 arm (epilogue off) equals the plain int32 sums exactly,
+    under the split-K schedule (m = 2) too, with its own scales and with
+    given ones."""
+    from hunyuanvideo_efficiency_tpu_torch.ops.int8_matmul import (
+        _sm_count, plan_w8a8, w8a8_linear, w8a8_linear_plain)
+
+    x, w8, so, sx = _w8a8_tp_operands(dev, m, k, n, 12)
+    assert (plan_w8a8(m, n, k, _sm_count(x.device)).split > 1) == (m == 2)
+    for scale in (None, sx):
+        out = w8a8_linear(x, w8, so, row_scale=scale, s32=True)
+        ref = w8a8_linear_plain(x, w8, so, row_scale=scale, s32=True)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.int32 and out.shape == (m, n)
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("m", [2, 702])
+@pytest.mark.parametrize("k,n", [(1024, 4096), (3584, 4096)])
+def test_w8a8_row_parallel_equals_one_call(dev, m, k, n):
+    """A row-parallel linear over four K slices (o_proj, down_proj of
+    the world-4 tower): each slice quantized with the whole row's scale,
+    its s32 sums added as integers, dequantized as the epilogue does,
+    equals one B9 call over the whole K bit for bit."""
+    from hunyuanvideo_efficiency_tpu_torch.ops.int8_matmul import (
+        row_scales, w8a8_linear)
+    from hunyuanvideo_efficiency_tpu_torch.ops.quantization import (
+        quantize_tensor_int8)
+
+    g = torch.Generator(dev).manual_seed(13)
+    x = (torch.randn(m, 4 * k, generator=g, device=dev) * 3).bfloat16()
+    w8, so = quantize_tensor_int8(torch.randn(n, 4 * k, generator=g,
+                                              device=dev))
+    sx = row_scales(torch.stack([x[:, r * k:(r + 1) * k].abs().amax(-1)
+                                 for r in range(4)]).amax(0))
+    acc = sum(w8a8_linear(x[:, r * k:(r + 1) * k], w8[:, r * k:(r + 1) * k],
+                          so, row_scale=sx, s32=True) for r in range(4))
+    out = (acc.float() * sx[:, None] * so).bfloat16()
+    ref = w8a8_linear(x, w8, so)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("s", [200, 1280])

@@ -367,7 +367,8 @@ def test_entries_round_trip_on_the_cpu(tmp_path, monkeypatch):
     """infer.main with random weights under a t-ops config writes the
     reconstruction (the first pool config: 9 frames pool to 5 in the
     first down block, giving 2 latent frames, which the first up block
-    interpolates to 4: 13 frames out); --data-parallel raises;
+    interpolates to 4: 13 frames out); --data-parallel in one process is
+    a no-op (the same reconstruction);
     run_experiments ranks a one-config stride sweep and compute_metrics
     scores it. The registry's 884-16c-hy is narrowed to channels (32, 32,
     64, 64) with its block structure kept: its 246M random parameters
@@ -387,9 +388,11 @@ def test_entries_round_trip_on_the_cpu(tmp_path, monkeypatch):
     recon = torch.load(tmp_path / "out" / "clip.pt", weights_only=True)
     assert recon.dtype == torch.float32 and recon.shape == (3, 13, 16, 16)
     assert torch.isfinite(recon).all()
-    with pytest.raises(ValueError, match="not ported"):
-        infer.main(args + ["--output-dir", str(tmp_path / "dp"),
-                           "--data-parallel"])
+    # one process: --data-parallel changes nothing
+    infer.main(args + ["--output-dir", str(tmp_path / "dp"),
+                       "--data-parallel"])
+    assert torch.equal(torch.load(tmp_path / "dp" / "clip.pt",
+                                  weights_only=True), recon)
     table = run_experiments.main([
         "--tensor-dir", str(tensors), "--orig-dir", str(tensors),
         "--out-base", str(tmp_path / "sweep"), "--mode", "stride", "--cap",

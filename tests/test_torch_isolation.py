@@ -110,6 +110,33 @@ def test_serving_and_parallel_modules_are_covered():
         assert f"hunyuanvideo_efficiency_tpu_torch/{mod}" in names
 
 
+def test_memory_tier_modules_are_covered():
+    """The modules of the scale-out memory tiers (the weight-sharded DiT,
+    the tensor-parallel Llama tower, the tile-sharded VAE and their
+    collectives) are among the checked sources."""
+    names = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    for mod in ("parallel/comm.py", "parallel/weight_shard.py",
+                "models/text/llama.py", "models/text/encoder.py",
+                "models/vae.py", "models/dit.py", "inference.py",
+                "infer.py", "utils/seeded.py"):
+        assert f"hunyuanvideo_efficiency_tpu_torch/{mod}" in names
+    assert "scripts/torch_sp_nccl.py" in names
+
+
+def test_row_parallel_arms_never_fall_back():
+    """B9's given-scale and s32 arms on meta tensors raise and count no
+    launch."""
+    x = torch.empty((3, 128), dtype=torch.bfloat16, device="meta")
+    w8 = torch.empty((128, 128), dtype=torch.int8, device="meta")
+    so = torch.empty(128, device="meta")
+    n0 = w8a8_linear.LAUNCHES
+    for kw in (dict(row_scale=torch.empty(3, device="meta")),
+               dict(s32=True)):
+        with pytest.raises(ValueError, match="CUDA"):
+            w8a8_linear(x, w8, so, **kw)
+    assert w8a8_linear.LAUNCHES == n0
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"

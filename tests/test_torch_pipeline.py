@@ -27,7 +27,7 @@ from hunyuanvideo_efficiency_tpu.models.vae import (
 from hunyuanvideo_efficiency_tpu.models.vae_config import VAEConfig as JVAECfg
 from hunyuanvideo_efficiency_tpu.ops.rope import (
     get_nd_rotary_pos_embed as jax_rope)
-from hunyuanvideo_efficiency_tpu_torch.config import InferenceArgs
+from hunyuanvideo_efficiency_tpu_torch.config import InferenceArgs, parse_args
 from hunyuanvideo_efficiency_tpu_torch.diffusion.pipeline import (
     HunyuanVideoPipeline)
 from hunyuanvideo_efficiency_tpu_torch.diffusion.scheduler import (
@@ -84,15 +84,15 @@ def jit_init(fn, seed, *args):
         jax.random.PRNGKey(seed), *args))
 
 
-def build_pipelines(init=jit_init, **dit_overrides):
+def build_pipelines(init=jit_init, llama=LLAMA, **dit_overrides):
     """(JAX pipeline, port pipeline) of the tiny towers, DiT and VAE, with
-    identical random weights drawn by `init(fn, seed, *args)`;
-    `dit_overrides` go to both DiT configs."""
+    identical random weights drawn by `init(fn, seed, *args)`; `llama`
+    is the Llama tower's config; `dit_overrides` go to both DiT configs."""
     jdit_cfg = JDiTCfg(**{"attn_mode": "flash", **DIT, **dit_overrides})
     dit_p = _randomize_modulation(
         init(init_dit_params, 0, jdit_cfg, jnp.float32),
         np.random.default_rng(0))
-    llama_p = init(init_llama_params, 1, JLlamaCfg(**LLAMA), jnp.float32)
+    llama_p = init(init_llama_params, 1, JLlamaCfg(**llama), jnp.float32)
     clip_p = init(init_clip_params, 2, JClipCfg(**CLIP), jnp.float32)
     vae_p = init(init_vae_params, 3, JVAECfg(**VAE))
 
@@ -100,7 +100,7 @@ def build_pipelines(init=jit_init, **dit_overrides):
         vae=JVAE(JVAECfg(**VAE), jax.tree.map(jnp.asarray, vae_p)),
         text_encoder=JTextEncoder(
             "llm", 16, params=jax.tree.map(jnp.asarray, llama_p),
-            model_config=JLlamaCfg(**LLAMA), prompt_template=TPL,
+            model_config=JLlamaCfg(**llama), prompt_template=TPL,
             prompt_template_video=TPL, hidden_state_skip_layer=1,
             dtype=jnp.float32),
         text_encoder_2=JTextEncoder(
@@ -111,15 +111,15 @@ def build_pipelines(init=jit_init, **dit_overrides):
 
     dit = HYVideoDiT(DiTConfig(**DIT, **dit_overrides)).eval()
     dit.load_state_dict(dit_state_dict_from_jax(dit_p, dit.cfg))
-    llama = LlamaModel(LlamaConfig(**LLAMA)).eval()
-    llama.load_state_dict(llama_state_dict_from_jax(llama_p))
+    llama_m = LlamaModel(LlamaConfig(**llama)).eval()
+    llama_m.load_state_dict(llama_state_dict_from_jax(llama_p))
     clip = CLIPTextModel(CLIPTextConfig(**CLIP)).eval()
     clip.load_state_dict(clip_state_dict_from_jax(clip_p))
     vae = AutoencoderKLCausal3D(VAEConfig(**VAE)).eval()
     vae.load_state_dict(vae_state_dict_from_jax(vae_p))
     tpipe = HunyuanVideoPipeline(
         vae=vae,
-        text_encoder=TextEncoder("llm", 16, llama, prompt_template=TPL,
+        text_encoder=TextEncoder("llm", 16, llama_m, prompt_template=TPL,
                                  prompt_template_video=TPL,
                                  hidden_state_skip_layer=1),
         text_encoder_2=TextEncoder("clipL", 20, clip),
@@ -193,20 +193,22 @@ def test_predict_rejects_bad_inputs(sampler):
 
 @pytest.mark.parametrize("flags,match", [
     (dict(ring_degree=2, use_fp8=True, shard_dit_weights=True),
-     "not ported yet"),
-    (dict(ulysses_degree=2, shard_dit_weights=True), "not ported yet"),
+     "--scan-denoise"),
+    (dict(ulysses_degree=2, shard_dit_weights=True),
+     "--mlp-chunk-tokens 4096"),
     (dict(mesh_shape="dp:2", attn_mode="sta_int8", shard_dit_weights=True),
-     "not ported yet"),
+     "--compile-cache-dir cache"),
 ], ids=["flags0-weight tiers", "flags1-sequence parallelism",
         "flags2-attn-mode sta"])
 def test_unported_flags_rejected(flags, match):
-    """Only the sharded-weight tier (--shard-dit-weights) is still
-    rejected; the sequence-parallel flags, the weight tiers and the int8
-    attention modes parse without it."""
-    with pytest.raises(ValueError, match=match):
-        InferenceArgs(**flags)
-    flags.pop("shard_dit_weights")
-    InferenceArgs(**flags)
+    """Every tier now parses, the sharded-weight tier (--shard-dit-weights)
+    with the sequence-parallel flags, the weight tiers and the int8
+    attention modes; what stays rejected are the JAX package's flags that
+    the port leaves out (ROADMAP §A: TPU/XLA workarounds)."""
+    args = InferenceArgs(**flags)
+    assert args.shard_dit_weights
+    with pytest.raises(SystemExit):
+        parse_args(match.split())
 
 
 def test_from_pretrained_random_and_pt(monkeypatch, tmp_path, pipelines):

@@ -101,9 +101,9 @@ def test_tier_flags_parse():
     with pytest.raises(ValueError, match="int8"):
         InferenceArgs(text_encoder_quant="int4")
     InferenceArgs(ulysses_degree=2, use_int8=True)
-    with pytest.raises(ValueError, match="not ported yet"):
-        InferenceArgs(ulysses_degree=2, use_int8=True,
-                      shard_dit_weights=True)
+    # the sharded-weight tier now parses beside the weight tiers
+    assert InferenceArgs(ulysses_degree=2, use_int8=True,
+                         shard_dit_weights=True).shard_dit_weights
 
 
 def _tiny_registry(monkeypatch):

@@ -47,6 +47,27 @@ rank's parameters equal to rank 0's bit for bit. Also each new collective's adjo
 resume against the one-rank CLI, and `local_batch_slice` (by global rank)
 against the loader's `batch_range` (by dp index) on (1,2,1).
 
+The memory tiers (the same worlds): the weight-sharded DiT
+(`parallel/weight_shard.py` over the sp group) forward at (u, r) = (2, 1),
+(1, 2) on 2 ranks and (2, 2), (4, 1) on 4, with the 2-step denoise, under
+STA at (2, 2) and in int8 at (1, 2), each equal bit for bit to the same
+layout with replicated weights (in the worker) and held to JAX's
+`dit_forward` / `denoise_latents` (int8: JAX's int8 DiT, 2e-3 of the output
+scale), one gather a chunk a dtype; the tensor-parallel Llama tower over 2
+and 4 ranks, fp32 within 1e-4 of JAX's one-device `llama_encode` (JAX's own
+sharded test holds 2e-5), int8 equal to the one-rank int8 tower bit for
+bit and within 2e-3 of the output scale of JAX's int8 encode, and under the
+salted stand-in tokenizer every rank encoding rank 0's tokens; the
+tile-sharded VAE decode and encode over 2 and 4 ranks equal to rank 0's
+one-rank tiled calls bit for bit and within 1e-4 of the output scale of
+JAX's mesh VAE (tests/test_torch_vae.py's tolerance: JAX's own 1e-5 holds
+JAX against itself); `predict` at (1, 2, 2) with all three tiers against the
+JAX pipeline with a tiled decode (2e-3); `infer.main --data-parallel` on 2
+ranks against the one-rank entry (bit for bit, rank 0 alone writing). The
+tower under test divides 2 and 4 (8 query and 4 key-value heads, the
+tensor-parallel split's rule): the predict cases use it too, since every
+world larger than 1 now runs the tower tensor-parallel.
+
 Plus the layout's arithmetic, `check_sp_compat`'s errors, the
 `--mesh-shape` parse and `cfg_reorder_for_dp` against JAX.
 """
@@ -77,6 +98,13 @@ from hunyuanvideo_efficiency_tpu.models.dit import (
     patchify_raw as jax_patchify)
 from hunyuanvideo_efficiency_tpu.models.dit_config import DiTConfig as JCfg
 from hunyuanvideo_efficiency_tpu.models.text import encoder as jax_encoder
+from hunyuanvideo_efficiency_tpu.models.text import (
+    LlamaConfig as JLlamaCfg, llama_encode)
+from hunyuanvideo_efficiency_tpu.models.text.llama import (
+    quantize_llama_params_int8)
+from hunyuanvideo_efficiency_tpu.models.vae import AutoencoderKLCausal3D as JVAE
+from hunyuanvideo_efficiency_tpu.models.vae_config import VAEConfig as JVAECfg
+from hunyuanvideo_efficiency_tpu.ops import quantization as jq
 from hunyuanvideo_efficiency_tpu.ops.attention import (
     joint_attention as jax_joint_attention, text_key_bias as jax_key_bias)
 from hunyuanvideo_efficiency_tpu.ops.rope import (
@@ -87,6 +115,7 @@ from hunyuanvideo_efficiency_tpu.parallel import (
     check_sp_compat as jax_check_sp_compat, make_mesh)
 from hunyuanvideo_efficiency_tpu.training import (make_sp_train_step,
                                                   make_sp_train_step_optax)
+from hunyuanvideo_efficiency_tpu_torch import infer as infer_cli
 from hunyuanvideo_efficiency_tpu_torch import train as train_cli
 from hunyuanvideo_efficiency_tpu_torch.data.dataset_loader import save_tensor
 from hunyuanvideo_efficiency_tpu_torch.config import InferenceArgs, parse_args
@@ -94,13 +123,16 @@ from hunyuanvideo_efficiency_tpu_torch.constants import NEGATIVE_PROMPT
 from hunyuanvideo_efficiency_tpu_torch.models.dit import (patchify_raw,
                                                           unpatchify)
 from hunyuanvideo_efficiency_tpu_torch.models.dit_config import DiTConfig
+from hunyuanvideo_efficiency_tpu_torch.models.vae_config import (VAE_CONFIGS,
+                                                                 VAEConfig)
 from hunyuanvideo_efficiency_tpu_torch.parallel import (
     ParallelConfig, cfg_reorder_for_dp, cfg_unreorder_for_dp,
     check_sp_compat, make_groups, parse_mesh_shape)
 from test_torch_dit import TINY, dit_inputs
 from hunyuanvideo_efficiency_tpu_torch.utils.weights import (
     dit_state_dict_from_jax)
-from test_torch_pipeline import CLIP, DIT, LLAMA, TPL, VAE, build_pipelines
+from test_torch_memory_tiers import LLAMA_TP, VAE_SMALL
+from test_torch_pipeline import CLIP, DIT, TPL, VAE, build_pipelines
 
 WORKER = Path(__file__).with_name("torch_sp_worker.py")
 ATTN_TOL, MODEL_TOL = 1e-3, 2e-3
@@ -116,6 +148,14 @@ SGD = dict(lr=0.05)
 ADAMW = dict(lr=1e-3, weight_decay=1e-4, grad_clip=1.0, ema_decay=0.5)
 CLI_ARGV = ["--toy", "--latents", "--device", "cpu", "--lr", "1e-3",
             "--seed", "3", "--ema-decay", "0.9", "--batch-size", "2"]
+WSHARD_DENOISE = dict(steps=2, guidance_scale=6.0, guidance_rescale=0.7)
+INT8_LIN_TOL = 2e-3  # int8 linears against JAX's (test_torch_quant_dit)
+TP_TOL = 1e-4       # the fp32 tensor-parallel tower against JAX's
+# the port's VAE against JAX's (tests/test_torch_vae.py): JAX's own 1e-5
+# (tests/test_vae.py:141-170) holds its mesh VAE to its one-device VAE, and
+# the port's one-rank decode already differs from JAX's by up to 1.2e-5 in
+# a few elements (fp32 sums in other orders)
+VAE_TOL = 1e-4
 
 
 def _case(kind, world, dp, u, r, **kw):
@@ -156,7 +196,16 @@ CASES = (
        _case("adjoint", 4, 1, 1, 4),
        _case("cli", 2, 1, 2, 1,
              argv=CLI_ARGV + ["--mesh-shape", "dp:1,ulysses:2,ring:1"]),
-       _case("batch_slice", 2, 1, 2, 1, batch=2)])
+       _case("batch_slice", 2, 1, 2, 1, batch=2)]
+    + [_case("wshard", w, 1, u, r, model="dense", grid=(3, 4, 3),
+             **WSHARD_DENOISE)
+       for w, u, r in ((2, 2, 1), (2, 1, 2), (4, 2, 2), (4, 4, 1))]
+    + [_case("wshard", 4, 1, 2, 2, model="sta", grid=STA_GRID),
+       _case("wshard", 2, 1, 1, 2, model="int8", grid=(3, 4, 3))]
+    + [_case("tp", w, 1, w, 1) for w in (2, 4)]
+    + [_case("tiles", w, 1, w, 1) for w in (2, 4)]
+    + [_case("tiers", 4, 1, 2, 2, predict=PREDICT),
+       _case("infer", 2, 1, 2, 1, vae=VAE_SMALL)])
 
 
 def _free_port():
@@ -209,7 +258,7 @@ def sp_runs(tmp_path_factory):
     mask[:, 0] = 1
     inp["attn_mask"] = mask
 
-    jpipe, tpipe = build_pipelines(init=_filled_init)
+    jpipe, tpipe = build_pipelines(init=_filled_init, llama=LLAMA_TP)
     params, jcfg = jpipe.transformer_params, jpipe.transformer_cfg
     jax_models, spec = {}, {"cases": CASES}
     for m, over, grid, b_m in (("dense", dict(attn_mode="sdpa"),
@@ -226,8 +275,21 @@ def sp_runs(tmp_path_factory):
             f"{m}_cos": np.asarray(cos), f"{m}_sin": np.asarray(sin)})
     # the port runs "auto" (the flash path) where JAX runs sdpa
     spec.update(dit_dense=dict(DIT), dit_sta={**DIT, **STA},
-                dit_pipe=dict(DIT), llama=LLAMA, clip=CLIP, vae=VAE,
-                template=TPL)
+                dit_pipe=dict(DIT), llama=LLAMA_TP, clip=CLIP, vae=VAE,
+                vae_small=VAE_SMALL, template=TPL)
+    # the memory tiers: token ids for the tower, a latent and a video for
+    # the tiled VAE, a video for the infer entry
+    ids = rng.integers(2, LLAMA_TP["vocab_size"] - 1, (2, 12))
+    tp_mask = np.ones((2, 12), np.int32)
+    tp_mask[1, 7:] = 0
+    inp.update(tp_ids=ids.astype(np.int32), tp_mask=tp_mask,
+               tile_z=(0.5 * rng.standard_normal((1, 16, 2, 5, 5))).astype(
+                   np.float32),
+               tile_x=rng.uniform(-1, 1, (1, 3, 5, 48, 48)).astype(
+                   np.float32))
+    (d / "infer_data").mkdir()
+    torch.save(torch.from_numpy(rng.uniform(-1, 1, (3, 5, 48, 48)).astype(
+        np.float32)), d / "infer_data" / "clip.pt")
     # the denoise loop: CFG batches [neg(2) | pos(2)]
     inp.update(den_x=rng.standard_normal((2, 16, 3, 8, 6), np.float32),
                den_txt=rng.standard_normal((4, 8, 64), np.float32),
@@ -296,9 +358,31 @@ def _jax_references(inp, params, jax_models, jpipe):
         trained = {f"train_{key}": pool.submit(
             _train_reference, key, over, tag, inp, params)
             for key, over, tag in TRAIN_MODELS}
+        tiers = pool.submit(_tier_references, inp, jpipe)
         ref = _model_references(inp, params, jax_models)
-        ref["predict"] = predicted.result()
+        ref.update(predicted.result())
         ref.update({k: f.result() for k, f in trained.items()})
+        ref.update(tiers.result())
+    return ref
+
+
+def _tier_references(inp, jpipe):
+    """JAX's one-device Llama encode of the tower under test, fp32 and
+    int8, and its mesh VAE (4 devices) tiling the tile cases' latent and
+    video."""
+    lcfg = JLlamaCfg(**LLAMA_TP)
+    lp = jpipe.text_encoder.params
+    ids, mask = jnp.asarray(inp["tp_ids"]), jnp.asarray(inp["tp_mask"])
+    ref = {f"tp_{name}": np.asarray(llama_encode(
+        p, ids, mask, lcfg, hidden_state_skip_layer=1, dtype=jnp.float32))
+        for name, p in (("fp32", lp),
+                        ("int8", quantize_llama_params_int8(lp)))}
+    vae = JVAE(JVAECfg(**VAE_SMALL), jpipe.vae.params,
+               mesh=make_mesh(JParallelConfig(1, 4, 1)))
+    vae.enable_spatial_tiling(True)
+    ref["tile_dec"] = np.asarray(vae.decode(jnp.asarray(inp["tile_z"])))
+    ref["tile_enc"] = np.asarray(vae.encode_moments(
+        jnp.asarray(inp["tile_x"])))
     return ref
 
 
@@ -316,6 +400,10 @@ def _model_references(inp, params, jax_models):
     for m, (jcfg, *xs, cos, sin) in jax_models.items():
         ref[f"dit_{m}"] = np.asarray(forward(
             params, *map(jnp.asarray, xs), cos, sin, cfg=jcfg))
+    jcfg, *xs, cos, sin = jax_models["dense"]
+    ref["dit_int8"] = np.asarray(forward(
+        jq.quantize_dit_params_int8(params), *map(jnp.asarray, xs), cos,
+        sin, cfg=jcfg))
     jcfg = jax_models["dense"][0]
     sig, ts = jax_sigmas(2, shift=7.0)
     ref["denoise"] = np.asarray(denoise_latents(
@@ -394,14 +482,17 @@ def _jax_sta_step(params, x0, noise, t, pe, mask, pe2, cos_g, sin_g, cfg):
 
 def _predict_reference(jpipe):
     """The JAX pipeline on the latents predict draws (one generator a
-    video, seeds 11, 12), the stand-in tokenizer hashing with crc32."""
+    video, seeds 11, 12), the stand-in tokenizer hashing with crc32; and
+    again with the VAE of small tiles, tiling the decode."""
     p = PREDICT
     shape = (16, (p["video_length"] - 1) // 4 + 1, p["height"] // 8,
              p["width"] // 8)
     latents = torch.stack([torch.randn(shape, generator=torch.Generator(
     ).manual_seed(p["seed"] + i)) for i in range(2)]).numpy()
     jax_encoder.hash = _crc32
-    try:
+    vae = jpipe.vae
+
+    def run(tiled):
         return np.asarray(jpipe(
             p["prompt"], height=p["height"], width=p["width"],
             video_length=p["video_length"],
@@ -412,9 +503,15 @@ def _predict_reference(jpipe):
             latents=jnp.asarray(latents),
             freqs_cis=jax_rope(DIT["rope_dim_list"], shape[1:2] + (
                 shape[2] // 2, shape[3] // 2), theta=256.0),
-            scan_denoise=True).videos)
+            scan_denoise=True, enable_tiling=tiled).videos)
+    try:
+        out = {"predict": run(False)}
+        jpipe.vae = JVAE(JVAECfg(**VAE_SMALL), vae.params)
+        out["predict_tiled"] = run(True)
+        return out
     finally:
         del jax_encoder.hash
+        jpipe.vae = vae
 
 
 def _assemble(parts, pcfg, n_batch, n_tok):
@@ -478,6 +575,35 @@ def test_sp_matches_single_device_jax(sp_runs, case):
                 assert abs(lhs) > 1e-3
     elif kind == "cli":
         _check_cli(ref["case_dir"], ranks, case)
+    elif kind == "wshard":
+        _check_wshard(ref, ranks, case, pcfg)
+    elif kind == "tp":
+        for o in ranks:
+            _close_scaled(o[f"{name}/fp32"], ref["tp_fp32"], TP_TOL)
+            assert o[f"{name}/int8_equal"] == 1.0
+            _close_scaled(o[f"{name}/int8"], ref["tp_int8"], INT8_LIN_TOL)
+            # one collective forward on rank 0's tokens, whatever each
+            # process's salted hash gave it
+            np.testing.assert_array_equal(o[f"{name}/salted"],
+                                          ranks[0][f"{name}/salted"])
+        _close_scaled(ranks[0][f"{name}/salted"],
+                      ranks[0][f"{name}/salted_own"], 1e-5)
+    elif kind == "tiles":
+        for o in ranks:
+            for key in ("dec", "enc"):
+                np.testing.assert_array_equal(o[f"{name}/{key}"],
+                                              ranks[0][f"{name}/one_{key}"])
+                _close_scaled(o[f"{name}/{key}"], ref[f"tile_{key}"],
+                              VAE_TOL)
+    elif kind == "tiers":
+        want = ref["predict_tiled"]
+        assert want.std() > 1e-3
+        assert not np.allclose(want, ref["predict"], atol=1e-3)
+        for o in ranks:
+            assert o[f"{name}/tiers_on"] == 1.0
+            _close(o[f"{name}/samples"], want, MODEL_TOL)
+    elif kind == "infer":
+        _check_infer(ref["case_dir"], case)
     elif kind == "batch_slice":
         # local_batch_slice splits the batch by global rank, JAX's
         # per-process slice: under ulysses it would feed the two sp ranks
@@ -535,6 +661,59 @@ def _check_train(ref, ranks, case):
     assert moved > 1e-3
 
 
+def _close_scaled(out, want, tol):
+    """Within tol of want's scale, and tol relative."""
+    scale = float(np.abs(want).max())
+    assert scale > 1e-2
+    np.testing.assert_allclose(out, want, rtol=tol, atol=tol * scale)
+
+
+def _check_wshard(ref, ranks, case, pcfg):
+    """The weight-sharded forward (and denoise) against JAX and, bit for
+    bit, against the same layout with replicated weights; each rank a
+    gather a chunk a dtype and its 1/sp of the stack bytes."""
+    name, m = case["name"], case["model"]
+    want = ref[f"dit_{m}"]
+    tok = _assemble([o[f"{name}/tokens"] for o in ranks], pcfg,
+                    want.shape[0], int(np.prod(case["grid"])))
+    out = unpatchify(torch.from_numpy(tok), *case["grid"], 16,
+                     (1, 2, 2)).numpy()
+    if m == "int8":
+        _close_scaled(out, want, INT8_LIN_TOL)
+    else:
+        _close(out, want, MODEL_TOL)
+    sp = pcfg.sp_degree
+    for o in ranks:
+        assert o[f"{name}/equal"] == 1.0
+        assert o[f"{name}/gathers"] == o[f"{name}/chunks_x_dtypes"] >= 2
+        stack, shard = o[f"{name}/stack_bytes"], o[f"{name}/shard_bytes"]
+        assert stack / sp <= shard < stack / sp + 64 * 256
+        if case.get("steps"):
+            assert o[f"{name}/equal_denoise"] == 1.0
+            _close(o[f"{name}/latents"], ref["denoise"], MODEL_TOL)
+
+
+def _check_infer(case_dir, case):
+    """infer.main --data-parallel over 2 ranks wrote rank 0's
+    reconstruction only, equal bit for bit to the one-rank entry's."""
+    base = case_dir / case["name"]
+    old = VAE_CONFIGS["884-16c-hy"]
+    VAE_CONFIGS["884-16c-hy"] = VAEConfig(**{
+        k: tuple(v) if isinstance(v, list) else v
+        for k, v in case["vae"].items()})
+    try:
+        infer_cli.main(["--tensor-dir", str(case_dir / "infer_data"),
+                        "--output-dir", str(base / "single"),
+                        "--random-init", "--device", "cpu",
+                        "--enable-tiling"])
+    finally:
+        VAE_CONFIGS["884-16c-hy"] = old
+    want = torch.load(base / "single" / "clip.pt", weights_only=True)
+    got = torch.load(base / "out_r0" / "clip.pt", weights_only=True)
+    assert want.shape == (3, 5, 48, 48) and torch.equal(got, want)
+    assert not (base / "out_r1").exists()
+
+
 def _check_cli(case_dir, ranks, case):
     """`train.main` over the world: the losses of two steps and a resumed
     third against the one-rank CLI here, to MODEL_TOL; rank 0 alone wrote,
@@ -572,8 +751,8 @@ def test_layout_and_mesh_shape():
                        "4", "--profile-dir", "traces"])
     assert (args.mesh_shape, args.ring_degree, args.profile_dir) == (
         "dp:2,ulysses:2", 4, "traces")
-    with pytest.raises(ValueError, match="not ported yet.*A5b"):
-        parse_args(["--ulysses-degree", "2", "--shard-dit-weights"])
+    assert parse_args(["--ulysses-degree", "2",
+                       "--shard-dit-weights"]).shard_dit_weights
     with pytest.raises(RuntimeError, match="torchrun"):
         make_groups(ParallelConfig(ulysses_degree=2))
 

@@ -6,7 +6,7 @@ The JAX side runs `sta_joint_attention(ring=True)` as tests/test_sta.py
 does: its `_sta_ring_kernel` in interpret mode, the text queries through
 its chunked attention. The port runs `sta_ring`'s plain version and, for
 the text queries, the plain merge over the unpadded keys. Inputs are numpy
-draws from a seed, fp32; tolerance `test_torch_sta._close` (atol 2e-5 times
+draws from a seed, fp32; tolerance `sta_cases._close` (atol 2e-5 times
 the output scale, rtol 1e-5: fp32 sums in other orders).
 """
 import functools
@@ -23,7 +23,7 @@ from hunyuanvideo_efficiency_tpu.ops.rope import (
 from hunyuanvideo_efficiency_tpu_torch.ops import sta
 from hunyuanvideo_efficiency_tpu_torch.ops.rope import get_nd_rotary_pos_embed
 from test_torch_dit import dit_inputs, make_pair
-from test_torch_sta import NEG_INF, _close, _inputs, _jax, _torch
+from sta_cases import NEG_INF, _close, _inputs, _jax, _torch
 
 TILE, WINDOW = (2, 4, 4), (3, 3, 3)
 # the ring grids of tests/test_sta.py:496-501

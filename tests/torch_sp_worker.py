@@ -1,7 +1,8 @@
 """One rank of a gloo world for tests/test_torch_sp.py: runs every case of
 its world size through the port's sequence parallelism on the CPU (sampling
-and, for the "train", "adjoint" and "cli" cases, training) and writes this
-rank's outputs. Imports torch and the port only.
+and, for the "train", "adjoint" and "cli" cases, training; the memory
+tiers in the "wshard", "tp", "tiles", "tiers" and "infer" cases) and writes
+this rank's outputs. Imports torch and the port only.
 
     python tests/torch_sp_worker.py CASE_DIR WORLD RANK PORT
 """
@@ -17,6 +18,7 @@ import torch.distributed as dist
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from hunyuanvideo_efficiency_tpu_torch import infer as infer_cli  # noqa
 from hunyuanvideo_efficiency_tpu_torch import serve  # noqa
 from hunyuanvideo_efficiency_tpu_torch import train as train_cli  # noqa
 from hunyuanvideo_efficiency_tpu_torch.config import InferenceArgs  # noqa
@@ -32,18 +34,29 @@ from hunyuanvideo_efficiency_tpu_torch.models.dit_config import (  # noqa
 from hunyuanvideo_efficiency_tpu_torch.models.text import (  # noqa
     CLIPTextConfig, CLIPTextModel, LlamaConfig, LlamaModel, TextEncoder)
 from hunyuanvideo_efficiency_tpu_torch.models.text import encoder  # noqa
+from hunyuanvideo_efficiency_tpu_torch.models.text.llama import (  # noqa
+    shard_llama)
 from hunyuanvideo_efficiency_tpu_torch.models.vae import (  # noqa
     AutoencoderKLCausal3D)
 from hunyuanvideo_efficiency_tpu_torch.models.vae_config import (  # noqa
-    VAEConfig)
+    VAE_CONFIGS, VAEConfig)
+from hunyuanvideo_efficiency_tpu_torch.ops.quantization import (  # noqa
+    quantize_dit, quantize_llama_int8)
 from hunyuanvideo_efficiency_tpu_torch.ops.attention import (  # noqa
     text_key_bias)
 from hunyuanvideo_efficiency_tpu_torch.parallel import (  # noqa
     ParallelConfig, local_batch_slice, make_groups, usp_joint_attention)
 from hunyuanvideo_efficiency_tpu_torch.parallel import (  # noqa
     sp_attention as spa)
+from hunyuanvideo_efficiency_tpu_torch.parallel.comm import (  # noqa
+    GroupComm)
+from hunyuanvideo_efficiency_tpu_torch.parallel.weight_shard import (  # noqa
+    WeightShards, shard_dit)
 from hunyuanvideo_efficiency_tpu_torch.training import (  # noqa
     make_train_step, make_train_step_adamw)
+
+
+TP_PROMPT = "a cat walks on the grass"
 
 
 def _cfg(d):
@@ -74,9 +87,9 @@ def build_dit(spec, models, name):
     return model
 
 
-def run_dit(case, g, inp, spec, models):
+def run_dit(case, g, inp, spec, models, model=None):
     m = case["model"]
-    model = build_dit(spec, models, f"dit_{m}")
+    model = model or build_dit(spec, models, f"dit_{m}")
     x = torch.from_numpy(inp[f"{m}_tokens"])
     rows, toks = g.batch_range(x.shape[0]), g.token_range(x.shape[1])
     out = model.forward_tokens(
@@ -90,8 +103,8 @@ def run_dit(case, g, inp, spec, models):
     return {"tokens": out}
 
 
-def run_denoise(case, g, inp, spec, models):
-    model = build_dit(spec, models, "dit_dense")
+def run_denoise(case, g, inp, spec, models, model=None):
+    model = model or build_dit(spec, models, "dit_dense")
     pipe = HunyuanVideoPipeline(None, None, None, model,
                                 FlowMatchDiscreteScheduler(), sp=g)
     sigmas, timesteps = get_sigmas(case["steps"], shift=7.0)
@@ -101,6 +114,130 @@ def run_denoise(case, g, inp, spec, models):
         *(torch.from_numpy(inp[f"den_{n}"]) for n in ("txt", "mask", "txt2")),
         f, True, case["guidance_scale"], None, case["guidance_rescale"])
     return {"latents": lat}
+
+
+def run_wshard(case, g, inp, spec, models):
+    """The DiT forward (and, with `steps`, the denoise loop) with the block
+    stacks weight-sharded over the sp group, and the same with replicated
+    weights: the sharded outputs, whether they equal the replicated ones
+    bit for bit, this rank's shard and stack bytes, and the gathers of one
+    forward."""
+    m = case["model"]
+    name = {"int8": "dense"}.get(m, m)
+
+    def make():
+        model = build_dit(spec, models, f"dit_{name}")
+        return quantize_dit(model, int8=True) if m == "int8" else model
+
+    dit_case = dict(case, model=name)
+    rep = make()
+    ref = run_dit(dit_case, g, inp, spec, models, rep)["tokens"]
+    sharded = shard_dit(make(), GroupComm(g.sp))
+    ws = sharded.weight_shards
+    n0 = WeightShards.GATHERS
+    out = run_dit(dit_case, g, inp, spec, models, sharded)["tokens"]
+    res = {"tokens": out, "equal": torch.tensor(float(torch.equal(out, ref))),
+           "gathers": torch.tensor(float(WeightShards.GATHERS - n0)),
+           "chunks_x_dtypes": torch.tensor(float(sum(
+               len(c.buckets) for c in ws.chunks))),
+           "shard_bytes": torch.tensor(float(ws.shard_bytes)),
+           "stack_bytes": torch.tensor(float(ws.stack_bytes))}
+    if case.get("steps"):
+        lat = run_denoise(case, g, inp, spec, models, sharded)["latents"]
+        lat_ref = run_denoise(case, g, inp, spec, models, rep)["latents"]
+        res.update(latents=lat,
+                   equal_denoise=torch.tensor(float(torch.equal(lat,
+                                                                lat_ref))))
+    return res
+
+
+def _llama(spec, models, int8=False):
+    model = LlamaModel(LlamaConfig(**spec["llama"])).eval()
+    model.load_state_dict(models["llama"])
+    return quantize_llama_int8(model) if int8 else model
+
+
+def run_tp(case, g, inp, spec, models):
+    """The Llama tower tensor-parallel over the world: fp32, and int8
+    against the one-rank int8 tower of the same weights (bit for bit);
+    then a TextEncoder on a tensor-parallel tower with the per-process
+    salted stand-in tokenizer, and rank 0's one-rank encode of its own
+    tokens."""
+    comm = GroupComm()
+    ids, mask = (torch.from_numpy(inp[f"tp_{n}"]).long()
+                 for n in ("ids", "mask"))
+    fp32 = shard_llama(_llama(spec, models), comm).encode(ids, mask, 1)
+    model = _llama(spec, models, int8=True)
+    one = model.encode(ids, mask, 1)
+    int8 = shard_llama(model, comm).encode(ids, mask, 1)
+    encoder.__dict__.pop("hash", None)
+    tpl = spec["template"]
+    te = TextEncoder("llm", 16, _llama(spec, models), prompt_template=tpl,
+                     prompt_template_video=tpl, hidden_state_skip_layer=1)
+    own = te.encode(te.text2tokens(TP_PROMPT)).hidden_state
+    shard_llama(te.model, comm)
+    salted = te.encode(te.text2tokens(TP_PROMPT)).hidden_state
+    return {"fp32": fp32, "int8": int8,
+            "int8_equal": torch.tensor(float(torch.equal(int8, one))),
+            "salted": salted, "salted_own": own}
+
+
+def _small_vae(spec, models):
+    vae = AutoencoderKLCausal3D(VAEConfig(**_cfg(spec["vae_small"]))).eval()
+    vae.load_state_dict(models["vae"])
+    return vae
+
+
+def run_tiles(case, g, inp, spec, models):
+    """Spatially tiled decode and encode with the tiles spread over the
+    world, and (rank 0) the one-rank tiled calls."""
+    vae = _small_vae(spec, models)
+    vae.enable_spatial_tiling(True)
+    z, x = (torch.from_numpy(inp[n]) for n in ("tile_z", "tile_x"))
+    out = {}
+    if g.rank == 0:
+        out.update(one_dec=vae.decode(z), one_enc=vae.encode_moments(x))
+    vae.tile_comm = GroupComm()
+    out.update(dec=vae.decode(z), enc=vae.encode_moments(x))
+    return out
+
+
+def run_tiers(case, g, spec, models):
+    """predict with every memory tier: the weight-sharded DiT
+    (--shard-dit-weights), the tensor-parallel Llama tower and the tiled
+    decode spread over the world, the stand-in tokenizer on crc32."""
+    encoder.hash = lambda w: zlib.crc32(w.encode())
+    llama = _llama(spec, models)
+    clip = CLIPTextModel(CLIPTextConfig(**spec["clip"])).eval()
+    clip.load_state_dict(models["clip"])
+    tpl = spec["template"]
+    args = InferenceArgs(text_states_dim=64, text_states_dim_2=48,
+                         vae_tiling=True, device="cpu",
+                         shard_dit_weights=True,
+                         mesh_shape=f"dp:{case['dp']},ulysses:{case['u']},"
+                                    f"ring:{case['r']}")
+    sampler = HunyuanVideoSampler(
+        args, _small_vae(spec, models),
+        TextEncoder("llm", 16, llama, prompt_template=tpl,
+                    prompt_template_video=tpl, hidden_state_skip_layer=1),
+        TextEncoder("clipL", 20, clip), build_dit(spec, models, "dit_pipe"))
+    on = (sampler.transformer.weight_shards is not None
+          and llama.tp is not None and sampler.vae.tile_comm is not None)
+    return {"samples": sampler.predict(**case["predict"])["samples"],
+            "tiers_on": torch.tensor(float(on))}
+
+
+def run_infer(case, g, case_dir):
+    """The infer entry with --data-parallel --enable-tiling on a small VAE
+    (the registry's 884-16c-hy narrowed as in the one-rank run): rank k
+    asks to write to out_r{k}; only rank 0 may."""
+    VAE_CONFIGS["884-16c-hy"] = VAEConfig(**_cfg(case["vae"]))
+    base = os.path.join(case_dir, case["name"])
+    infer_cli.main(["--tensor-dir", os.path.join(case_dir, "infer_data"),
+                    "--output-dir", os.path.join(base, f"out_r{g.rank}"),
+                    "--random-init", "--device", "cpu", "--enable-tiling",
+                    "--data-parallel"])
+    return {}
 
 
 def run_predict(case, g, spec, models):
@@ -130,9 +267,17 @@ def run_predict(case, g, spec, models):
         return {"samples": sampler.predict(**case["predict"])["samples"]}
     if case["kind"] == "salted":
         out = {"samples": sampler.predict(**case["predict"])["samples"]}
-        if g.rank == 0:   # rank 0 alone, its own text
-            sampler.pipeline.sp = None
-            out["single"] = sampler.predict(**case["predict"])["samples"]
+        if g.rank == 0:   # rank 0 alone, its own text, whole modules
+            llama = LlamaModel(LlamaConfig(**spec["llama"])).eval()
+            llama.load_state_dict(models["llama"])
+            alone = HunyuanVideoSampler(
+                args, vae, TextEncoder("llm", 16, llama, prompt_template=tpl,
+                                       prompt_template_video=tpl,
+                                       hidden_state_skip_layer=1),
+                sampler.text_encoder_2, sampler.transformer,
+                sp_groups=sampler.sp_groups, memory_tiers=False)
+            alone.pipeline.sp = None
+            out["single"] = alone.predict(**case["predict"])["samples"]
         return out
     # lockstep serving: rank 0 takes the request, the others follow it
     if g.rank:
@@ -270,6 +415,16 @@ def main():
                 res = run_dit(case, g, inp, spec, models)
             elif kind == "denoise":
                 res = run_denoise(case, g, inp, spec, models)
+            elif kind == "wshard":
+                res = run_wshard(case, g, inp, spec, models)
+            elif kind == "tp":
+                res = run_tp(case, g, inp, spec, models)
+            elif kind == "tiles":
+                res = run_tiles(case, g, inp, spec, models)
+            elif kind == "tiers":
+                res = run_tiers(case, g, spec, models)
+            elif kind == "infer":
+                res = run_infer(case, g, case_dir)
             else:
                 res = run_predict(case, g, spec, models)
             for k, v in res.items():
