@@ -17,7 +17,9 @@ decode. Every rank runs the text encoding and the decode: with the memory
 tiers (inference.py) the Llama tower is one tensor-parallel forward over the
 ranks and a tiled decode spreads its tiles over them (JAX
 inference.py:187-200); a weight-sharded DiT (`--shard-dit-weights`) gathers
-its chunks inside its forward.
+its chunks inside its forward. Spans (utils/profiling.py:span):
+`text_encode` around `encode_prompt`, `step` around each `denoise_step`,
+`decode` around the VAE decode.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch.nn as nn
 
 from ..models.dit import HYVideoDiT
 from ..models.vae import AutoencoderKLCausal3D
+from ..utils.profiling import span
 from .scheduler import FlowMatchDiscreteScheduler, euler_step
 
 
@@ -162,25 +165,27 @@ class HunyuanVideoPipeline:
                       data_type: str = "video",
                       num_videos_per_prompt: int = 1):
         """Both encoders; [neg, pos] concatenated under CFG (reference:
-        encode_prompt :238-449, concat :896-903)."""
-        pe, mask = self.text_encoder.encode_prompt(
-            prompt, data_type=data_type, num_videos=num_videos_per_prompt)
-        pe2, _ = self.text_encoder_2.encode_prompt(
-            prompt, data_type=data_type, num_videos=num_videos_per_prompt)
-        if isinstance(prompt, (list, tuple)) and isinstance(negative_prompt,
-                                                            str):
-            negative_prompt = [negative_prompt] * len(prompt)
-        if do_cfg:
-            npe, nmask = self.text_encoder.encode_prompt(
-                negative_prompt, data_type=data_type,
-                num_videos=num_videos_per_prompt)
-            npe2, _ = self.text_encoder_2.encode_prompt(
-                negative_prompt, data_type=data_type,
-                num_videos=num_videos_per_prompt)
-            pe = torch.cat([npe, pe])
-            mask = torch.cat([nmask, mask])
-            pe2 = torch.cat([npe2, pe2])
-        return pe, mask, pe2
+        encode_prompt :238-449, concat :896-903), in a `text_encode`
+        span."""
+        with span("text_encode"):
+            pe, mask = self.text_encoder.encode_prompt(
+                prompt, data_type=data_type, num_videos=num_videos_per_prompt)
+            pe2, _ = self.text_encoder_2.encode_prompt(
+                prompt, data_type=data_type, num_videos=num_videos_per_prompt)
+            if isinstance(prompt, (list, tuple)) \
+                    and isinstance(negative_prompt, str):
+                negative_prompt = [negative_prompt] * len(prompt)
+            if do_cfg:
+                npe, nmask = self.text_encoder.encode_prompt(
+                    negative_prompt, data_type=data_type,
+                    num_videos=num_videos_per_prompt)
+                npe2, _ = self.text_encoder_2.encode_prompt(
+                    negative_prompt, data_type=data_type,
+                    num_videos=num_videos_per_prompt)
+                pe = torch.cat([npe, pe])
+                mask = torch.cat([nmask, mask])
+                pe2 = torch.cat([npe2, pe2])
+            return pe, mask, pe2
 
     def _denoise_sharded(self, latents, sigmas, timesteps, pe, mask, pe2,
                          freqs_cis, do_cfg: bool, guidance_scale: float,
@@ -211,12 +216,13 @@ class HunyuanVideoPipeline:
                          else x[rows]
                          for x in map(from_rank0, (pe, mask, pe2)))
         for i in range(len(timesteps)):
-            local = denoise_step(
-                self.transformer, local, float(sigmas[i]),
-                float(sigmas[i + 1]), float(timesteps[i]), pe, mask, pe2,
-                f_cos, f_sin, do_cfg, guidance_scale,
-                embedded_guidance_scale, guidance_rescale, sp=g,
-                token_grid=grid)
+            with span("step"):
+                local = denoise_step(
+                    self.transformer, local, float(sigmas[i]),
+                    float(sigmas[i + 1]), float(timesteps[i]), pe, mask,
+                    pe2, f_cos, f_sin, do_cfg, guidance_scale,
+                    embedded_guidance_scale, guidance_rescale, sp=g,
+                    token_grid=grid)
             if progress_callback is not None:
                 progress_callback(i, local)
         return unpatchify(gather_tokens(local, g), *grid, cfg.out_channels,
@@ -307,11 +313,12 @@ class HunyuanVideoPipeline:
                 progress_callback)
         else:
             for i in range(len(timesteps)):
-                latents = denoise_step(
-                    self.transformer, latents, float(sigmas[i]),
-                    float(sigmas[i + 1]), float(timesteps[i]), pe, mask,
-                    pe2, freqs_cis[0], freqs_cis[1], do_cfg,
-                    float(guidance_scale), egs, float(guidance_rescale))
+                with span("step"):
+                    latents = denoise_step(
+                        self.transformer, latents, float(sigmas[i]),
+                        float(sigmas[i + 1]), float(timesteps[i]), pe, mask,
+                        pe2, freqs_cis[0], freqs_cis[1], do_cfg,
+                        float(guidance_scale), egs, float(guidance_rescale))
                 if progress_callback is not None:
                     progress_callback(i, latents)
 
@@ -324,7 +331,8 @@ class HunyuanVideoPipeline:
         if vcfg.shift_factor:
             z = z + vcfg.shift_factor
         self.vae.enable_tiling(enable_tiling)
-        image = self.vae.decode(z)
+        with span("decode"):
+            image = self.vae.decode(z)
         image = (image.float() / 2 + 0.5).clamp(0.0, 1.0)
         if output_dtype == "uint8":
             image = torch.round(image * 255.0).to(torch.uint8)

@@ -22,6 +22,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.profiling import span
+
 # LPIPS ScalingLayer constants (reference lpips/lpips.py ScalingLayer)
 _SHIFT = (-0.030, -0.088, -0.188)
 _SCALE = (0.458, 0.448, 0.450)
@@ -87,15 +89,16 @@ def lpips_video(model: LPIPS, a, b, batch: int = 8) -> float:
     """[T, H, W, C] uint8/float videos -> mean per-frame LPIPS on the
     model's device (reference: compute_metrics.py:43-62 batches frames on
     one device)."""
-    dev = model.lins[0].weight.device
-    a = torch.as_tensor(a).to(dev, torch.float32)
-    b = torch.as_tensor(b).to(dev, torch.float32)
-    if a.max() > 1.5:
-        a, b = a / 127.5 - 1.0, b / 127.5 - 1.0
-    a, b = a.permute(0, 3, 1, 2), b.permute(0, 3, 1, 2)
-    vals = [model(a[i:i + batch], b[i:i + batch])
-            for i in range(0, a.shape[0], batch)]
-    return float(torch.cat(vals).mean())
+    with span("score.lpips"):
+        dev = model.lins[0].weight.device
+        a = torch.as_tensor(a).to(dev, torch.float32)
+        b = torch.as_tensor(b).to(dev, torch.float32)
+        if a.max() > 1.5:
+            a, b = a / 127.5 - 1.0, b / 127.5 - 1.0
+        a, b = a.permute(0, 3, 1, 2), b.permute(0, 3, 1, 2)
+        vals = [model(a[i:i + batch], b[i:i + batch])
+                for i in range(0, a.shape[0], batch)]
+        return float(torch.cat(vals).mean())
 
 
 def convert_lpips_weights(alexnet_sd: Dict[str, np.ndarray],

@@ -28,6 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
+
 WIN = 7
 _MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
 
@@ -57,10 +59,11 @@ def psnr(a, b, data_range: float = 255.0) -> float:
 def psnr_video(a, b, data_range: float = 255.0) -> float:
     """[T, H, W, C]: per-frame PSNR averaged over the finite ones
     (reference computes per frame, calculate_psnr.py:6-15)."""
-    _same_shape(a, b)
-    vals = _frame_psnr(a, b, data_range)
-    finite = vals[torch.isfinite(vals)]
-    return float(finite.mean()) if finite.numel() else float("inf")
+    with span("score.psnr"):
+        _same_shape(a, b)
+        vals = _frame_psnr(a, b, data_range)
+        finite = vals[torch.isfinite(vals)]
+        return float(finite.mean()) if finite.numel() else float("inf")
 
 
 def _box(x: torch.Tensor) -> torch.Tensor:
@@ -114,8 +117,9 @@ def ssim(a, b, data_range: float = 255.0) -> float:
 
 def ssim_video(a, b, data_range: float = 255.0) -> float:
     """[T, H, W, C]: per-frame SSIM averaged."""
-    _same_shape(a, b)
-    return float(_frame_ssim(a, b, data_range).mean())
+    with span("score.ssim"):
+        _same_shape(a, b)
+        return float(_frame_ssim(a, b, data_range).mean())
 
 
 def _downsample2(x: torch.Tensor) -> torch.Tensor:

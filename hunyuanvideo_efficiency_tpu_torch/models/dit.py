@@ -44,6 +44,11 @@ single block's column and row slices work for each tier, and under int8 the
 MLP's activation fuses into fc1's W8A8 epilogue (JAX `mlp()`), while the
 single block applies its activation to the stored output (JAX
 models/dit.py:779-783).
+
+Spans (utils/profiling.py:span, recorded only under a profiler):
+`dit.adaln` at each adaLN input and gated residual of the blocks and the
+final layer, `dit.qk_rope` around each block's QK-norm + RoPE,
+`dit.attention` around each block's joint attention with its layout work.
 """
 from __future__ import annotations
 
@@ -60,6 +65,7 @@ from ..ops.attention import (attention, joint_attention, joint_key_bias,
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.quantization import linear
 from ..ops.rope import rotate_tokens
+from ..utils.profiling import span
 from .dit_config import DiTConfig
 
 ACT = {
@@ -91,6 +97,20 @@ def modulate(x, shift, scale):
 
 def apply_gate(x, gate):
     return x * gate[:, None]
+
+
+def _adaln(x, shift, scale):
+    """A block's adaLN input, modulate(layer_norm(x)), in a `dit.adaln`
+    span."""
+    with span("dit.adaln"):
+        return modulate(layer_norm(x), shift, scale)
+
+
+def _gated(x, y, gate):
+    """A block's gated residual, x + apply_gate(y, gate), in a `dit.adaln`
+    span."""
+    with span("dit.adaln"):
+        return x + apply_gate(y, gate)
 
 
 class TimestepEmbedder(nn.Module):
@@ -321,44 +341,46 @@ class DoubleBlock(nn.Module):
             vec, plain).chunk(6, -1)
         t_sh1, t_sc1, t_g1, t_sh2, t_sc2, t_g2 = self.txt_mod(
             vec, plain).chunk(6, -1)
-        img_m = modulate(layer_norm(img), i_sh1, i_sc1)
-        txt_m = modulate(layer_norm(txt), t_sh1, t_sc1)
+        img_m = _adaln(img, i_sh1, i_sc1)
+        txt_m = _adaln(txt, t_sh1, t_sc1)
 
         img_q, img_k, img_v = self._qkv("img", img_m, plain)
         txt_q, txt_k, txt_v = self._qkv("txt", txt_m, plain)
-        if cfg.qk_norm:
-            img_pre_q, img_pre_k = self.img_attn_q_norm, self.img_attn_k_norm
-            txt_q = self.txt_attn_q_norm(txt_q)
-            txt_k = self.txt_attn_k_norm(txt_k)
-        else:
-            img_pre_q = img_pre_k = None
-        if freqs_cis is not None:
-            # img rows of the joint table; its text rows are the identity
-            img_freqs = (freqs_cis[0][:img_len], freqs_cis[1][:img_len])
-            img_q = rotate_tokens(img_q, img_freqs, pre=img_pre_q)
-            img_k = rotate_tokens(img_k, img_freqs, pre=img_pre_k)
-        elif cfg.qk_norm:
-            img_q, img_k = img_pre_q(img_q), img_pre_k(img_k)
+        with span("dit.qk_rope"):
+            if cfg.qk_norm:
+                img_pre_q = self.img_attn_q_norm
+                img_pre_k = self.img_attn_k_norm
+                txt_q = self.txt_attn_q_norm(txt_q)
+                txt_k = self.txt_attn_k_norm(txt_k)
+            else:
+                img_pre_q = img_pre_k = None
+            if freqs_cis is not None:
+                # img rows of the joint table; its text rows are the
+                # identity
+                img_freqs = (freqs_cis[0][:img_len], freqs_cis[1][:img_len])
+                img_q = rotate_tokens(img_q, img_freqs, pre=img_pre_q)
+                img_k = rotate_tokens(img_k, img_freqs, pre=img_pre_k)
+            elif cfg.qk_norm:
+                img_q, img_k = img_pre_q(img_q), img_pre_k(img_k)
 
         sbound = _analytic_score_bound(
             cfg, cfg.head_dim,
             [(self.img_attn_q_norm, self.img_attn_k_norm),
              (self.txt_attn_q_norm, self.txt_attn_k_norm)])
-        img_attn, txt_attn = _joint(
-            cfg, sp, img_q, img_k, img_v, txt_q, txt_k, txt_v, txt_bias,
-            mode=attn_mode or cfg.attn_mode, sbound=sbound,
-            token_grid=token_grid, plain=plain)
+        with span("dit.attention"):
+            img_attn, txt_attn = _joint(
+                cfg, sp, img_q, img_k, img_v, txt_q, txt_k, txt_v, txt_bias,
+                mode=attn_mode or cfg.attn_mode, sbound=sbound,
+                token_grid=token_grid, plain=plain)
 
-        img = img + apply_gate(
-            linear(self.img_attn_proj, img_attn, plain=plain), i_g1)
-        img = img + apply_gate(
-            self.img_mlp(modulate(layer_norm(img), i_sh2, i_sc2),
-                         cfg.mlp_act_type, plain), i_g2)
-        txt = txt + apply_gate(
-            linear(self.txt_attn_proj, txt_attn, plain=plain), t_g1)
-        txt = txt + apply_gate(
-            self.txt_mlp(modulate(layer_norm(txt), t_sh2, t_sc2),
-                         cfg.mlp_act_type, plain), t_g2)
+        img = _gated(img, linear(self.img_attn_proj, img_attn, plain=plain),
+                     i_g1)
+        img = _gated(img, self.img_mlp(_adaln(img, i_sh2, i_sc2),
+                                       cfg.mlp_act_type, plain), i_g2)
+        txt = _gated(txt, linear(self.txt_attn_proj, txt_attn, plain=plain),
+                     t_g1)
+        txt = _gated(txt, self.txt_mlp(_adaln(txt, t_sh2, t_sc2),
+                                       cfg.mlp_act_type, plain), t_g2)
         return img, txt
 
 
@@ -389,7 +411,7 @@ class SingleBlock(nn.Module):
         b, l, h = x.shape
         h3 = 3 * h
         shift, scale, gate = self.modulation(vec, plain).chunk(3, -1)
-        x_mod = modulate(layer_norm(x), shift, scale)
+        x_mod = _adaln(x, shift, scale)
         qkv = linear(self.linear1, x_mod, out=slice(0, h3), plain=plain)
         q, k, v = (u.reshape(b, l, cfg.heads_num, cfg.head_dim)
                    for u in qkv.chunk(3, -1))
@@ -402,33 +424,37 @@ class SingleBlock(nn.Module):
                 freqs_cis is not None and freqs_cis[0].shape[0] != l):
             iq, ik, iv = (u[:, :img_len] for u in (q, k, v))
             tq, tk, tv = (u[:, img_len:] for u in (q, k, v))
-            if freqs_cis is not None:
-                iq = rotate_tokens(iq, freqs_cis, pre=pre_q)
-                ik = rotate_tokens(ik, freqs_cis, pre=pre_k)
-            elif cfg.qk_norm:
-                iq, ik = pre_q(iq), pre_k(ik)
-            if cfg.qk_norm:
-                tq, tk = pre_q(tq), pre_k(tk)
-            img_attn, txt_attn = _joint(
-                cfg, sp, iq, ik, iv, tq, tk, tv, txt_bias, mode=mode,
-                sbound=sbound, token_grid=token_grid, plain=plain)
-            attn = torch.cat([img_attn, txt_attn], dim=1)
+            with span("dit.qk_rope"):
+                if freqs_cis is not None:
+                    iq = rotate_tokens(iq, freqs_cis, pre=pre_q)
+                    ik = rotate_tokens(ik, freqs_cis, pre=pre_k)
+                elif cfg.qk_norm:
+                    iq, ik = pre_q(iq), pre_k(ik)
+                if cfg.qk_norm:
+                    tq, tk = pre_q(tq), pre_k(tk)
+            with span("dit.attention"):
+                img_attn, txt_attn = _joint(
+                    cfg, sp, iq, ik, iv, tq, tk, tv, txt_bias, mode=mode,
+                    sbound=sbound, token_grid=token_grid, plain=plain)
+                attn = torch.cat([img_attn, txt_attn], dim=1)
         else:
-            if freqs_cis is not None:
-                q = rotate_tokens(q, freqs_cis, pre=pre_q)
-                k = rotate_tokens(k, freqs_cis, pre=pre_k)
-            elif cfg.qk_norm:
-                q, k = pre_q(q), pre_k(k)
-            attn = attention(q, k, v, mode=mode,
-                             key_bias=joint_key_bias(txt_bias, img_len),
-                             bound_mode=_bound_mode(cfg), score_bound=sbound,
-                             plain=plain)
+            with span("dit.qk_rope"):
+                if freqs_cis is not None:
+                    q = rotate_tokens(q, freqs_cis, pre=pre_q)
+                    k = rotate_tokens(k, freqs_cis, pre=pre_k)
+                elif cfg.qk_norm:
+                    q, k = pre_q(q), pre_k(k)
+            with span("dit.attention"):
+                attn = attention(q, k, v, mode=mode,
+                                 key_bias=joint_key_bias(txt_bias, img_len),
+                                 bound_mode=_bound_mode(cfg),
+                                 score_bound=sbound, plain=plain)
         out = linear(self.linear2, attn, in_=slice(0, h), plain=plain)
         hid = ACT[cfg.mlp_act_type](
             linear(self.linear1, x_mod, out=slice(h3, None), plain=plain))
         out = out + linear(self.linear2, hid, in_=slice(h, None), bias=False,
                            plain=plain)
-        return x + apply_gate(out, gate)
+        return _gated(x, out, gate)
 
 
 class PatchEmbed(nn.Module):
@@ -457,7 +483,7 @@ class FinalLayer(nn.Module):
 
     def forward(self, img, vec):
         shift, scale = self.adaLN_modulation(vec).chunk(2, -1)
-        return self.linear(modulate(layer_norm(img), shift, scale))
+        return self.linear(_adaln(img, shift, scale))
 
 
 def patchify_raw(x: torch.Tensor, patch: Tuple[int, int, int]) -> torch.Tensor:

@@ -16,7 +16,9 @@ them as one rank does, so the result is the one-rank result bit for bit.
 The fork's temporal ops (pooling in the
 encoder, a downsampler stride override, nearest interpolation in the
 decoder) are read from a `TOpsConfig`, as the JAX forwards read it
-(models/vae.py:196-288).
+(models/vae.py:196-288). Spans (utils/profiling.py:span): `vae.encoder`,
+`vae.decoder` around each forward, `vae.norm_act` around each GroupNorm
+(+ SiLU), `vae.pad` around each conv's pad (ops/conv3d.py).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from ..ops.conv3d import (causal_avg_pool_t, causal_conv3d, conv3d_1x1,
                           interpolate_nearest_t, upsample_nearest_causal_3d)
 from ..ops.norms import group_norm
 from ..parallel.comm import run_tiles
+from ..utils.profiling import span
 from .vae_config import MidBlockTOps, TOpsConfig, VAEConfig
 
 
@@ -64,6 +67,12 @@ class GroupNorm(nn.Module):
         return group_norm(x, self.groups, self.weight, self.bias)
 
 
+def _norm_act(norm: GroupNorm, x):
+    """GroupNorm then SiLU, in a `vae.norm_act` span."""
+    with span("vae.norm_act"):
+        return F.silu(norm(x))
+
+
 class ResnetBlock(nn.Module):
     """GN -> SiLU -> conv -> GN -> SiLU -> conv, plus shortcut
     (reference: unet_causal_3d_blocks.py:350-417, temb=None)."""
@@ -78,8 +87,8 @@ class ResnetBlock(nn.Module):
                               if cin != cout else None)
 
     def forward(self, x):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(_norm_act(self.norm1, x))
+        h = self.conv2(_norm_act(self.norm2, h))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -101,7 +110,8 @@ class MidAttention(nn.Module):
         b, t, hh, ww, c = x.shape
         n_hw = hh * ww
         seq = x.reshape(b, t * n_hw, c)
-        h = self.group_norm(seq)
+        with span("vae.norm_act"):
+            h = self.group_norm(seq)
         q = self.to_q(h)[:, :, None]
         k = self.to_k(h)[:, :, None]
         v = self.to_v(h)[:, :, None]
@@ -197,23 +207,27 @@ class Encoder(nn.Module):
         self.conv_out = CausalConv3d(bo[-1], 2 * cfg.latent_channels, **fk)
 
     def forward(self, x, tops: Optional[TOpsConfig] = None):
-        x = self.conv_in(x)
-        for i, blk in enumerate(self.down_blocks):
-            bt = tops.down(i) if tops is not None else None
-            for j, rn in enumerate(blk.resnets):
-                if bt is not None and _flag(bt.enable_t_pool_before_block, j):
-                    x = causal_avg_pool_t(x, bt.pool_t_kernel,
-                                          bt.pool_t_stride)
-                x = rn(x)
-                if bt is not None and _flag(bt.enable_t_pool_after_block, j):
-                    x = causal_avg_pool_t(x, bt.pool_t_kernel,
-                                          bt.pool_t_stride)
-            if blk.downsamplers is not None:
-                x = blk.downsamplers[0].conv(
-                    x, stride=bt.downsample_stride if bt is not None else None)
-        x = self.mid_block(x, tops.encoder_mid_block if tops is not None
-                           else None)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        with span("vae.encoder"):
+            x = self.conv_in(x)
+            for i, blk in enumerate(self.down_blocks):
+                bt = tops.down(i) if tops is not None else None
+                for j, rn in enumerate(blk.resnets):
+                    if bt is not None and _flag(
+                            bt.enable_t_pool_before_block, j):
+                        x = causal_avg_pool_t(x, bt.pool_t_kernel,
+                                              bt.pool_t_stride)
+                    x = rn(x)
+                    if bt is not None and _flag(
+                            bt.enable_t_pool_after_block, j):
+                        x = causal_avg_pool_t(x, bt.pool_t_kernel,
+                                              bt.pool_t_stride)
+                if blk.downsamplers is not None:
+                    x = blk.downsamplers[0].conv(
+                        x, stride=bt.downsample_stride if bt is not None
+                        else None)
+            x = self.mid_block(x, tops.encoder_mid_block if tops is not None
+                               else None)
+            return self.conv_out(_norm_act(self.conv_norm_out, x))
 
 
 class Decoder(nn.Module):
@@ -232,21 +246,23 @@ class Decoder(nn.Module):
         self.conv_out = CausalConv3d(bo[0], cfg.out_channels, **fk)
 
     def forward(self, z, tops: Optional[TOpsConfig] = None):
-        x = self.mid_block(self.conv_in(z), tops.decoder_mid_block
-                           if tops is not None else None)
-        for i, blk in enumerate(self.up_blocks):
-            bt = tops.up(i) if tops is not None else None
-            for j, rn in enumerate(blk.resnets):
-                if bt is not None and _flag(bt.enable_t_interp_before_block,
-                                            j):
-                    x = interpolate_nearest_t(x, bt.interp_t_scale_factor)
-                x = rn(x)
-                if bt is not None and _flag(bt.enable_t_interp_after_block, j):
-                    x = interpolate_nearest_t(x, bt.interp_t_scale_factor)
-            if blk.upsamplers is not None:
-                x = blk.upsamplers[0].conv(
-                    upsample_nearest_causal_3d(x, blk.factor))
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        with span("vae.decoder"):
+            x = self.mid_block(self.conv_in(z), tops.decoder_mid_block
+                               if tops is not None else None)
+            for i, blk in enumerate(self.up_blocks):
+                bt = tops.up(i) if tops is not None else None
+                for j, rn in enumerate(blk.resnets):
+                    if bt is not None and _flag(
+                            bt.enable_t_interp_before_block, j):
+                        x = interpolate_nearest_t(x, bt.interp_t_scale_factor)
+                    x = rn(x)
+                    if bt is not None and _flag(
+                            bt.enable_t_interp_after_block, j):
+                        x = interpolate_nearest_t(x, bt.interp_t_scale_factor)
+                if blk.upsamplers is not None:
+                    x = blk.upsamplers[0].conv(
+                        upsample_nearest_causal_3d(x, blk.factor))
+            return self.conv_out(_norm_act(self.conv_norm_out, x))
 
 
 class DiagonalGaussian:

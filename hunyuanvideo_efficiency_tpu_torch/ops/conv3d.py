@@ -9,7 +9,8 @@ in the JAX package. Stride-1 3x3x3 convs inside the K3 gate run the CUDA
 kernel of ops/conv3d_cuda.py (K3); the rest (stride-2 downsamplers, the 16-
 and 3-channel conv_in/conv_out, 1x1x1 shortcuts) use F.conv3d, as XLA
 computed them outside any Pallas kernel. Nothing routes to the temporal-reuse
-kernel B11 (`conv3d_stride1_v2`), as in JAX: the conv probe calls it.
+kernel B11 (`conv3d_stride1_v2`), as in JAX: the conv probe calls it. The
+pad of every conv larger than 1x1x1 is a `vae.pad` span (utils/profiling.py).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from .conv3d_cuda import conv3d_stride1, conv_applicable
 
 
@@ -60,7 +62,12 @@ def causal_conv3d(x: torch.Tensor, kernel: torch.Tensor,
         raise ValueError(f"causal_conv3d impl={impl!r}: expected 'auto', "
                          f"'cuda' or '3d'")
     kt, kh, kw = kernel.shape[:3]
-    xp = replicate_pad(x, (kt - 1, 0), (kh // 2, kh // 2), (kw // 2, kw // 2))
+    if kt * kh * kw > 1:
+        with span("vae.pad"):
+            xp = replicate_pad(x, (kt - 1, 0), (kh // 2, kh // 2),
+                               (kw // 2, kw // 2))
+    else:
+        xp = x
     gated = conv_applicable(kernel.shape, stride)
     if impl == "cuda" and not gated:
         raise ValueError(f"the K3 conv gate rejects kernel "

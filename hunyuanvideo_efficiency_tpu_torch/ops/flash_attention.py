@@ -14,7 +14,8 @@ one CUDA source (`csrc/flash_attention.cu`, template flag RUNNING):
 Each wrapper runs its kernel on CUDA tensors and its plain PyTorch version
 (`flash_attention_plain`, fp32 scores, the same offset and rounding points)
 on CPU tensors; any other device raises. `LAUNCHES` on each wrapper counts
-kernel launches; under a profiler each call is a range named after it.
+kernel launches; under a profiler each call is a span named after it
+(utils/profiling.py:span).
 
 Bound on the H100: 4*B*H*Sq*Sk*D tensor-core operations (989 TFLOP/s
 bf16), far above the bytes moved at the main path's lengths, so both are
@@ -54,7 +55,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..utils.profiling import annotate
+from ..utils.profiling import span
 from . import cuda_lib
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
@@ -174,7 +175,7 @@ def flash_static(q, k, v, key_bias, c, scale: float,
     """K1: static-offset softmax attention. q/k/v [B, S, H, D], key_bias
     [B, Sk] fp32 (entries <= 0) or None, c [B, H] fp32 bounding |s|*scale.
     Kernel on CUDA tensors, plain version on CPU tensors."""
-    with annotate("flash_static"):
+    with span("flash_static"):
         if q.device.type == "cpu":
             return flash_attention_plain(q, k, v, key_bias, c, scale, False,
                                          return_state)
@@ -190,7 +191,7 @@ def flash_running(q, k, v, key_bias, scale: float,
                   return_state: bool = False):
     """K2: running-max online-softmax attention, same layout as K1.
     Kernel on CUDA tensors, plain version on CPU tensors."""
-    with annotate("flash_running"):
+    with span("flash_running"):
         if q.device.type == "cpu":
             return flash_attention_plain(q, k, v, key_bias, None, scale, True,
                                          return_state)
@@ -550,11 +551,12 @@ def flash_int8_static(q, k, v, key_bias, c, scale: float, q_group: int,
     for int8 rounding). q/k/v [B, S, H, D] -> [B, Sq, H*D] (and the state
     (m, l) with return_state). Kernel on CUDA tensors, plain version on
     CPU tensors."""
-    if q.device.type == "cpu":
-        return flash_int8_plain(q, k, v, key_bias, c, scale, False, q_group,
-                                k_group, return_state)
-    out = _launch_int8(q, k, v, key_bias, c, scale, False, q_group, k_group,
-                       return_state)
+    with span("flash_int8_static"):
+        if q.device.type == "cpu":
+            return flash_int8_plain(q, k, v, key_bias, c, scale, False,
+                                    q_group, k_group, return_state)
+        out = _launch_int8(q, k, v, key_bias, c, scale, False, q_group,
+                           k_group, return_state)
     flash_int8_static.LAUNCHES += 1
     return out
 
@@ -566,11 +568,12 @@ def flash_int8_running(q, k, v, key_bias, scale: float, q_group: int,
                        k_group: int, return_state: bool = False):
     """B8b: int8 Q.K^T with the running-max online softmax. Kernel on CUDA
     tensors, plain version on CPU tensors."""
-    if q.device.type == "cpu":
-        return flash_int8_plain(q, k, v, key_bias, None, scale, True,
-                                q_group, k_group, return_state)
-    out = _launch_int8(q, k, v, key_bias, None, scale, True, q_group,
-                       k_group, return_state)
+    with span("flash_int8_running"):
+        if q.device.type == "cpu":
+            return flash_int8_plain(q, k, v, key_bias, None, scale, True,
+                                    q_group, k_group, return_state)
+        out = _launch_int8(q, k, v, key_bias, None, scale, True, q_group,
+                           k_group, return_state)
     flash_int8_running.LAUNCHES += 1
     return out
 

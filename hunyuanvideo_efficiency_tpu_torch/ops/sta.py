@@ -7,7 +7,8 @@ window of tiles around it, plus every text key. Text queries keep full
 attention over [img | txt]. The tile plan (`tile_plan`) is host numpy,
 static per (grid, tile, window), and equal to the JAX package's.
 
-Six kernels, each a wrapper here with a `LAUNCHES` count:
+Six kernels, each a wrapper here with a `LAUNCHES` count and, under a
+profiler, a span of its name (utils/profiling.py:span):
 
 * `sta_direct` (B4, `csrc/sta_direct.cu`, QUANT=0) replaces
   `_sta_nomax_direct_kernel`: static exponent offset C, q/k/v read and out
@@ -71,6 +72,7 @@ from . import cuda_lib
 from .flash_attention import (_DTYPE_CODE, _as_rows, flash_attention,
                               int8_bound_inflation, merge_flash_states)
 from .flash_backward import tma_view_error
+from ..utils.profiling import span
 
 NEG_INF = -1e30
 PLAIN_TILE_CHUNK = 8   # query tiles per step of the plain version: at 540p
@@ -1151,8 +1153,9 @@ def sta_direct(img_q, img_k, img_v, txt_k, txt_v, txt_bias, c, grid, tile,
     img_key_bias optional [B, S_img] fp32. Returns [B, S_img, H*D]. Kernel
     on CUDA tensors (inside `sta_direct_gate`; it raises outside), plain
     version on CPU tensors."""
-    out = _direct("sta_direct", False, img_q, img_k, img_v, txt_k, txt_v,
-                  txt_bias, c, grid, tile, window, scale, img_key_bias)
+    with span("sta_direct"):
+        out = _direct("sta_direct", False, img_q, img_k, img_v, txt_k, txt_v,
+                      txt_bias, c, grid, tile, window, scale, img_key_bias)
     if img_q.device.type != "cpu":
         sta_direct.LAUNCHES += 1
     return out
@@ -1168,8 +1171,10 @@ def sta_direct_int8(img_q, img_k, img_v, txt_k, txt_v, txt_bias, c, grid,
     Q.K^T in int8 (the tile scales of `sta_tile_codes`, its pre-pass) and
     the text keys in the input type; c must bound the int8 scores
     (inflated). Kernel on CUDA tensors, plain version on CPU."""
-    out = _direct("sta_direct_int8", True, img_q, img_k, img_v, txt_k, txt_v,
-                  txt_bias, c, grid, tile, window, scale, img_key_bias)
+    with span("sta_direct_int8"):
+        out = _direct("sta_direct_int8", True, img_q, img_k, img_v, txt_k,
+                      txt_v, txt_bias, c, grid, tile, window, scale,
+                      img_key_bias)
     if img_q.device.type != "cpu":
         sta_direct_int8.LAUNCHES += 1
     return out
@@ -1264,8 +1269,9 @@ def sta_permuted_static(qp, kcat, vcat, kb, c, grid, tile, window,
     [B, S_pad, H*D] tile-major, padding rows zero. Kernel on CUDA tensors
     (inside `sta_permuted_gate`; it raises outside), plain version on
     CPU."""
-    out = _permuted("sta_permuted_static", False, qp, kcat, vcat, kb, c,
-                    grid, tile, window, scale)
+    with span("sta_permuted_static"):
+        out = _permuted("sta_permuted_static", False, qp, kcat, vcat, kb, c,
+                        grid, tile, window, scale)
     if qp.device.type != "cpu":
         sta_permuted_static.LAUNCHES += 1
     return out
@@ -1281,8 +1287,9 @@ def sta_permuted_static_int8(qp, kcat, vcat, kb, c, grid, tile, window,
     with its own scale by the pre-pass `sta_permuted_codes`; c must bound
     the int8 scores (inflated). Kernel on CUDA tensors (inside
     `sta_permuted_gate`; it raises outside), plain version on CPU."""
-    out = _permuted("sta_permuted_static_int8", False, qp, kcat, vcat, kb, c,
-                    grid, tile, window, scale, quant=True)
+    with span("sta_permuted_static_int8"):
+        out = _permuted("sta_permuted_static_int8", False, qp, kcat, vcat, kb,
+                        c, grid, tile, window, scale, quant=True)
     if qp.device.type != "cpu":
         sta_permuted_static_int8.LAUNCHES += 1
     return out
@@ -1297,8 +1304,9 @@ def sta_permuted_running(qp, kcat, vcat, kb, grid, tile, window,
     tile-major layout of `permuted_operands`. Returns [B, S_pad, H*D]
     tile-major, padding rows zero. Kernel on CUDA tensors (inside
     `sta_permuted_gate`; it raises outside), plain version on CPU."""
-    out = _permuted("sta_permuted_running", True, qp, kcat, vcat, kb, None,
-                    grid, tile, window, scale)
+    with span("sta_permuted_running"):
+        out = _permuted("sta_permuted_running", True, qp, kcat, vcat, kb, None,
+                        grid, tile, window, scale)
     if qp.device.type != "cpu":
         sta_permuted_running.LAUNCHES += 1
     return out
@@ -1318,9 +1326,18 @@ def sta_ring(q5, kp, vp, txt_k, txt_v, txt_bias, c, grid, tile, window,
     H*D]. Kernel on CUDA tensors (inside `sta_ring_gate`; it raises
     outside), `sta_ring_plain` on CPU tensors."""
     grid, tile, window = tuple(grid), tuple(tile), tuple(window)
-    if q5.device.type == "cpu":
-        return sta_ring_plain(q5, kp, vp, txt_k, txt_v, txt_bias, c, grid,
-                              tile, window, scale)
+    with span("sta_ring"):
+        if q5.device.type == "cpu":
+            return sta_ring_plain(q5, kp, vp, txt_k, txt_v, txt_bias, c,
+                                  grid, tile, window, scale)
+        out = _ring_launch(q5, kp, vp, txt_k, txt_v, txt_bias, c, grid, tile,
+                           window, scale)
+    sta_ring.LAUNCHES += 1
+    return out
+
+
+def _ring_launch(q5, kp, vp, txt_k, txt_v, txt_bias, c, grid, tile, window,
+                 scale):
     name = "sta_ring"
     _check(name, (("q5", q5), ("kp", kp), ("vp", vp), ("txt_k", txt_k),
                   ("txt_v", txt_v)), q5.dtype)
@@ -1355,7 +1372,6 @@ def sta_ring(q5, kp, vp, txt_k, txt_v, txt_bias, c, grid, tile, window,
         out.stride(0), out.stride(3), float(scale),
         cuda_lib.stream_ptr(q5.device))
     cuda_lib.check(err, name)
-    sta_ring.LAUNCHES += 1
     return out
 
 
