@@ -28,7 +28,10 @@ Phases, one line each (any failure raises and exits non-zero):
      SDPA at the headline 720x1280x129f shape (119,056 tokens) and of B4 at
      its image queries (118,800 on the 33x45x80 grid; timings, not
      checks); B8a/B8b also show their quantization pre-pass alone and K1 on
-     the same inputs;
+     the same inputs; the QK-RMSNorm + RoPE kernel (csrc/qk_rope.cu, no
+     Pallas counterpart) at the 540p single block's joint q/k pair, against
+     its plain version, with its byte bound and its share of the card's
+     memory rate;
   3b. sequence-parallel rank math (`[sp_rank_math]`): each rank's
      arithmetic of Ulysses x ring attention at full width through the
      port's per-rank functions (parallel/sp_attention.py), ranks in turn:
@@ -226,7 +229,8 @@ from hunyuanvideo_efficiency_tpu_torch.ops.int8_matmul import (
     w8a8_prepass)
 from hunyuanvideo_efficiency_tpu_torch.ops.quantization import (
     quantize_dit, quantize_llama_int8, quantize_tensor_int8)
-from hunyuanvideo_efficiency_tpu_torch.ops.rope import get_nd_rotary_pos_embed
+from hunyuanvideo_efficiency_tpu_torch.ops.rope import (
+    get_nd_rotary_pos_embed, qk_norm_rope, qk_norm_rope_plain)
 from hunyuanvideo_efficiency_tpu_torch.parallel.comm import LocalComm
 from hunyuanvideo_efficiency_tpu_torch.parallel.weight_shard import (
     WeightShards, place_dit, shard_dit)
@@ -285,7 +289,7 @@ KERNELS = (flash_static, flash_running, conv3d_stride1, sta_direct,
            sta_permuted_static, sta_permuted_running, w8a8_linear,
            flash_int8_static, flash_int8_running, sta_direct_int8,
            sta_permuted_static_int8, flash_fwd_lse, flash_bwd_dq,
-           flash_bwd_dkv, sta_ring, conv3d_stride1_v2)
+           flash_bwd_dkv, sta_ring, conv3d_stride1_v2, qk_norm_rope)
 SRC = "hunyuanvideo_efficiency_tpu_torch/csrc/"
 JAX = "hunyuanvideo_efficiency_tpu/ops/"
 
@@ -1141,6 +1145,67 @@ def check_sta_ring(dev, smi, lib_ms):
                  library_ms=lib_ms)]
 
 
+def check_qk_rope(dev, smi):
+    """The QK-RMSNorm + RoPE kernel at the 540p single block's joint pair:
+    q and k [2, 34936, 24, 128] bf16 as the column views of the fused
+    [2, 34936, 9216] qkv projection, weights near 1, the joint table (the
+    17x34x60 grid's rows, then 256 identity rows for the text). Against
+    qk_norm_rope_plain: at most one ulp of bf16 at each pair's magnitude,
+    at least 99.9% of the values bit for bit. No library call computes the
+    function (library_ms "—"). Bound: bytes, q and k read and written once
+    in bf16 and the table's fp32 rows once."""
+    g = torch.Generator(dev).manual_seed(21)
+    grid, lt, h, d = STA_GRID, 256, 24, 128
+    s = grid[0] * grid[1] * grid[2] + lt
+    x = (torch.randn(2, s, 3 * h * d, generator=g, device=dev) * 2
+         + 0.5).bfloat16()
+    q, k = (x[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d))
+            for i in range(2))
+    wq, wk = ((1 + 0.3 * torch.randn(d, generator=g, device=dev)).bfloat16()
+              for _ in range(2))
+    cos, sin = get_nd_rotary_pos_embed(DiTConfig().rope_dim_list, grid,
+                                       device=dev)
+    freqs = (torch.cat([cos, cos.new_ones(lt, d)]),
+             torch.cat([sin, sin.new_zeros(lt, d)]))
+    n0 = qk_norm_rope.LAUNCHES
+    out = qk_norm_rope(q, k, wq, wk, freqs)
+    ref = qk_norm_rope_plain(q, k, wq, wk, freqs)
+    torch.cuda.synchronize()
+    if qk_norm_rope.LAUNCHES != n0 + 1:
+        raise AssertionError("qk_norm_rope: not one launch a call")
+    abs_err, gap, differ = 0.0, 0.0, 0
+    for o, r in zip(out, ref):
+        if not (torch.isfinite(o).all() and torch.isfinite(r).all()):
+            raise AssertionError("qk_norm_rope: a value not finite")
+        abs_err = max(abs_err, errors(o, r)[0])
+        pair = r.float().abs().unflatten(-1, (-1, 2)).amax(-1, keepdim=True)
+        ulp = torch.exp2(torch.floor(torch.log2(pair.clamp_min(1e-30))) - 7)
+        apart = (o.float() - r.float()).abs().unflatten(-1, (-1, 2)) / ulp
+        gap = max(gap, torch.nan_to_num(apart, nan=float("inf")).max()
+                  .item())
+        differ += (o != r).sum().item()
+    n_values = 2 * q.numel()
+    del out, ref
+    if gap > 1.0 or differ > 1e-3 * n_values:
+        raise AssertionError(f"qk_norm_rope: {gap} ulp apart, {differ} of "
+                             f"{n_values} values differ")
+    ms = cuda_ms(lambda: qk_norm_rope(q, k, wq, wk, freqs), 20)
+    plain_ms = cuda_ms(lambda: qk_norm_rope_plain(q, k, wq, wk, freqs), 3)
+    nbytes = 2 * 2 * q.numel() * 2 + 2 * freqs[0].numel() * 4
+    bound_ms, by = bound(0, nbytes)
+    phase("kernel", name="qk_norm_rope", shape=f"2x[2,{s},{h},{d}]bf16",
+          layout="column views of [2,S,9216]", max_abs_err=abs_err,
+          max_ulp=gap, values_differing=differ, values=n_values,
+          tol="1 ulp, 99.9% equal",
+          kernel_ms=ms, plain_ms=plain_ms, library_ms="—",
+          bound_ms=bound_ms, bound_by=by, gb_s=nbytes / ms / 1e6,
+          share_of_3_35_tb_s=bound_ms / ms, card=smi)
+    return [dict(name="qk_norm_rope", route="cuda", source=SRC + "qk_rope.cu",
+                 replaces="none (XLA fused ops/norms.py + ops/rope.py)",
+                 max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=by, library_ms="—")]
+
+
 def sp_case(label, r, ranks, ref, assemble, want, single_ms, smi,
             exact=None, **info):
     """Runs `ranks` (one callable a rank, each its local arithmetic
@@ -1363,7 +1428,7 @@ def tier_dit(dev, smi, comm):
     ref = forward()
     torch.cuda.synchronize()
     expect("memory tier replicated DiT", read_counts(),
-           dict(flash_static=60, flash_running=0))
+           dict(flash_static=60, flash_running=0, qk_norm_rope=80))
     rep_ms = cuda_ms(forward, 2)
     t0 = time.time()
     shard_dit(model, comm)
@@ -1377,7 +1442,7 @@ def tier_dit(dev, smi, comm):
     launches = read_counts()
     gathers = WeightShards.GATHERS - n0
     expect("memory tier sharded DiT", launches,
-           dict(flash_static=60, flash_running=0))
+           dict(flash_static=60, flash_running=0, qk_norm_rope=80))
     if not torch.equal(out, ref):
         raise AssertionError(f"memory tier DiT: sharded forward differs "
                              f"from the replicated one by "
@@ -1720,6 +1785,7 @@ def serve_path(sampler, smi):
             launches = read_counts()
             expect(f"serve request {i}", launches, dict(
                 flash_static=60 * SERVE_STEPS, flash_running=0,
+                qk_norm_rope=80 * SERVE_STEPS,
                 conv3d_stride1=decode_k3_launches((FRAMES, HEIGHT, WIDTH))))
             for name, n in launches.items():
                 total[name] = total.get(name, 0) + n
@@ -1809,6 +1875,9 @@ def main_path(smi):
             or launches["flash_running"] != 0:
         raise AssertionError(f"attention launches {launches}, expected "
                              f"{60 * STEPS} of K1 and none of K2")
+    # QK-norm + RoPE: a double block's image and text pairs, a single
+    # block's joint pair
+    expect("main path", launches, dict(qk_norm_rope=80 * STEPS))
     return sampler, launches
 
 
@@ -1848,7 +1917,8 @@ def running_max_path(sampler, smi):
           gen_s=out["gen_time"], launches=json.dumps(launches), card=smi)
     check_video(out["samples"])
     expect("running-max path's decode", launches,
-           dict(conv3d_stride1=decode_k3_launches((FRAMES, HEIGHT, WIDTH))))
+           dict(conv3d_stride1=decode_k3_launches((FRAMES, HEIGHT, WIDTH)),
+                qk_norm_rope=0))
     if launches["flash_running"] != 4 * K2_STEPS \
             or launches["flash_static"] != 0:
         raise AssertionError(f"attention launches {launches}, expected "
@@ -1873,7 +1943,8 @@ def sta_main_path(smi):
           launches=json.dumps(launches), card=smi)
     want = dict(sta_direct=58 * STA_STEPS,
                 flash_static=(2 + 2 * 58) * STA_STEPS, flash_running=0,
-                sta_permuted_static=0, sta_permuted_running=0)
+                sta_permuted_static=0, sta_permuted_running=0,
+                qk_norm_rope=120 * STA_STEPS)   # image, text pairs apart
     expect("STA main path", launches, want)
     return sampler, launches, r["out"]["samples"]
 
@@ -1901,7 +1972,8 @@ def sta_ring_path(sampler, direct_video, smi):
           video_mean_abs_diff_vs_sta_direct=diff.item(),
           launches=json.dumps(r["launches"]),
           per_step=json.dumps(r["per_step"]), card=smi)
-    per_step = dict(sta_ring=58, sta_direct=0, flash_static=2 + 2 * 58)
+    per_step = dict(sta_ring=58, sta_direct=0, flash_static=2 + 2 * 58,
+                    qk_norm_rope=120)
     for step in r["per_step"]:
         expect("STA ring path step", step, per_step)
     expect("STA ring path", r["launches"],
@@ -1929,7 +2001,7 @@ def sta_running_path(sampler, model, smi):
     check_video(out["samples"], (STA_FRAMES, STA_HEIGHT, STA_WIDTH))
     expect("STA running path's decode", launches, dict(
         conv3d_stride1=decode_k3_launches((STA_FRAMES, STA_HEIGHT,
-                                           STA_WIDTH))))
+                                           STA_WIDTH)), qk_norm_rope=0))
     n = 4 * STA_RUNNING_STEPS
     if launches["sta_permuted_running"] != n \
             or launches["flash_running"] != n or launches["sta_direct"] != 0:
@@ -2015,7 +2087,7 @@ def int8_running_path(sampler, model, smi):
     n = 4 * INT8_RUNNING_STEPS
     expect("int8 running path", r["launches"], dict(
         flash_int8_running=n, flash_int8_static=0, flash_running=0,
-        flash_static=0, w8a8_linear=0))
+        flash_static=0, w8a8_linear=0, qk_norm_rope=0))
     return r["launches"]
 
 
@@ -2049,10 +2121,11 @@ def int8_main_path(smi):
     for step in r["per_step"]:
         expect("int8 main path step", step, dict(
             w8a8_linear=calls, flash_int8_static=60, flash_int8_running=0,
-            flash_static=0, flash_running=0))
+            flash_static=0, flash_running=0, qk_norm_rope=80))
     expect("int8 main path", r["launches"], dict(
         w8a8_linear=text_calls + calls * INT8_STEPS,
-        flash_int8_static=60 * INT8_STEPS, flash_static=0))
+        flash_int8_static=60 * INT8_STEPS, flash_static=0,
+        qk_norm_rope=80 * INT8_STEPS))
     return r["launches"]
 
 
@@ -2071,7 +2144,8 @@ def fp8_int4_path(smi):
           dit_gb=weight_bytes(sampler.transformer) / 2**30,
           launches=json.dumps(r["launches"]), card=smi)
     expect("fp8 + int4 path", r["launches"], dict(
-        flash_static=60 * FP8_STEPS, w8a8_linear=0, flash_int8_static=0))
+        flash_static=60 * FP8_STEPS, w8a8_linear=0, flash_int8_static=0,
+        qk_norm_rope=80 * FP8_STEPS))
 
 
 def sta_int8_path(smi):
@@ -2095,7 +2169,7 @@ def sta_int8_path(smi):
     expect("STA int8 path", r["launches"], dict(
         sta_direct_int8=58 * n, flash_static=(2 + 2 * 58) * n,
         w8a8_linear=calls * n, sta_direct=0, flash_running=0,
-        sta_permuted_static_int8=0))
+        sta_permuted_static_int8=0, qk_norm_rope=120 * n))
     return r["launches"]
 
 
@@ -2404,8 +2478,12 @@ def train_path(dev, smi):
           step_seconds=json.dumps(secs),
           max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30,
           per_step=json.dumps(per_step), card=smi)
+    # QK-norm + RoPE in the forward without grad and again in the
+    # backward's recomputation (remat): the kernel both times
+    pairs = 2 * len(model.double_blocks) + len(model.single_blocks)
     want = dict(flash_static=n_blocks, flash_fwd_lse=n_blocks,
-                flash_bwd_dq=n_blocks, flash_bwd_dkv=n_blocks)
+                flash_bwd_dq=n_blocks, flash_bwd_dkv=n_blocks,
+                qk_norm_rope=2 * pairs)
     for got in per_step:
         if got != want:
             raise AssertionError(f"train step launches {got}, expected "
@@ -2994,6 +3072,7 @@ def main():
     sta_rows = check_sta(dev, smi)
     rows += sta_rows + check_sta_int8(dev, smi, sta_rows[0]["library_ms"])
     rows += check_sta_ring(dev, smi, sta_rows[0]["library_ms"])
+    rows += check_qk_rope(dev, smi)
     torch.cuda.empty_cache()
     path_launches = {"sp_rank_math": sp_rank_math(dev, smi)}
     torch.cuda.empty_cache()

@@ -11,7 +11,11 @@ packing; QK-RMSNorm + interleaved 3-axis RoPE; the single-stream block's
 fused linear1 is split into its qkv columns and MLP columns, and linear2
 into the attention rows (with the bias) and MLP rows, as in the JAX block.
 With QK-norm the scores are bounded by `_analytic_score_bound`, and
-attention runs the static-offset flash kernel (K1).
+attention runs the static-offset flash kernel (K1). QK-RMSNorm + RoPE of
+each q/k pair is one launch of ops/rope.py:qk_norm_rope (`_qk_rope`):
+per forward a double block's image and text pairs, and a single block's
+joint [img | txt] pair (its table's text rows the identity), or its image
+and text pairs apart on the split path.
 
 Under attn_mode="sta" (and "sta_int8") the image queries run sliding-tile
 attention over the (T', H', W') patch grid (ops/sta.py): the RoPE table
@@ -64,7 +68,7 @@ from ..ops.attention import (attention, joint_attention, joint_key_bias,
                              sdpa_attention, text_key_bias)
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.quantization import linear
-from ..ops.rope import rotate_tokens
+from ..ops.rope import qk_norm_rope, rotate_tokens
 from ..utils.profiling import span
 from .dit_config import DiTConfig
 
@@ -182,6 +186,25 @@ class LayerNorm(nn.Module):
 
 def _qk_norm_layer(cfg: DiTConfig, d: int, **fk) -> nn.Module:
     return RMSNorm(d, **fk) if cfg.qk_norm_type == "rms" else LayerNorm(d, **fk)
+
+
+def _qk_rope(cfg: DiTConfig, q_norm: nn.Module, k_norm: nn.Module, q, k,
+             freqs, plain: bool):
+    """QK-norm + RoPE of one q/k pair; tokens past the table's rows (all of
+    them with freqs None) only normalized. QK-RMSNorm goes through
+    ops/rope.py:qk_norm_rope: one kernel launch on CUDA tensors (which
+    raises for those it does not take), its plain version on CPU tensors or
+    with plain=True."""
+    if not cfg.qk_norm:
+        return (q, k) if freqs is None else (rotate_tokens(q, freqs),
+                                             rotate_tokens(k, freqs))
+    if cfg.qk_norm_type != "rms":
+        if freqs is None:
+            return q_norm(q), k_norm(k)
+        return (rotate_tokens(q, freqs, pre=q_norm),
+                rotate_tokens(k, freqs, pre=k_norm))
+    return qk_norm_rope(q, k, q_norm.weight, k_norm.weight, freqs,
+                        q_norm.eps, plain=plain)
 
 
 # --------------------------------------------------------------------------
@@ -347,21 +370,16 @@ class DoubleBlock(nn.Module):
         img_q, img_k, img_v = self._qkv("img", img_m, plain)
         txt_q, txt_k, txt_v = self._qkv("txt", txt_m, plain)
         with span("dit.qk_rope"):
-            if cfg.qk_norm:
-                img_pre_q = self.img_attn_q_norm
-                img_pre_k = self.img_attn_k_norm
-                txt_q = self.txt_attn_q_norm(txt_q)
-                txt_k = self.txt_attn_k_norm(txt_k)
-            else:
-                img_pre_q = img_pre_k = None
-            if freqs_cis is not None:
-                # img rows of the joint table; its text rows are the
-                # identity
-                img_freqs = (freqs_cis[0][:img_len], freqs_cis[1][:img_len])
-                img_q = rotate_tokens(img_q, img_freqs, pre=img_pre_q)
-                img_k = rotate_tokens(img_k, img_freqs, pre=img_pre_k)
-            elif cfg.qk_norm:
-                img_q, img_k = img_pre_q(img_q), img_pre_k(img_k)
+            # img rows of the joint table (its text rows are the identity);
+            # the text pair is only normalized
+            img_freqs = None if freqs_cis is None else (
+                freqs_cis[0][:img_len], freqs_cis[1][:img_len])
+            img_q, img_k = _qk_rope(cfg, self.img_attn_q_norm,
+                                    self.img_attn_k_norm, img_q, img_k,
+                                    img_freqs, plain)
+            txt_q, txt_k = _qk_rope(cfg, self.txt_attn_q_norm,
+                                    self.txt_attn_k_norm, txt_q, txt_k, None,
+                                    plain)
 
         sbound = _analytic_score_bound(
             cfg, cfg.head_dim,
@@ -415,8 +433,6 @@ class SingleBlock(nn.Module):
         qkv = linear(self.linear1, x_mod, out=slice(0, h3), plain=plain)
         q, k, v = (u.reshape(b, l, cfg.heads_num, cfg.head_dim)
                    for u in qkv.chunk(3, -1))
-        pre_q = self.q_norm if cfg.qk_norm else None
-        pre_k = self.k_norm if cfg.qk_norm else None
         sbound = _analytic_score_bound(cfg, cfg.head_dim,
                                        [(self.q_norm, self.k_norm)])
         img_len = l - txt_len
@@ -425,13 +441,10 @@ class SingleBlock(nn.Module):
             iq, ik, iv = (u[:, :img_len] for u in (q, k, v))
             tq, tk, tv = (u[:, img_len:] for u in (q, k, v))
             with span("dit.qk_rope"):
-                if freqs_cis is not None:
-                    iq = rotate_tokens(iq, freqs_cis, pre=pre_q)
-                    ik = rotate_tokens(ik, freqs_cis, pre=pre_k)
-                elif cfg.qk_norm:
-                    iq, ik = pre_q(iq), pre_k(ik)
-                if cfg.qk_norm:
-                    tq, tk = pre_q(tq), pre_k(tk)
+                iq, ik = _qk_rope(cfg, self.q_norm, self.k_norm, iq, ik,
+                                  freqs_cis, plain)
+                tq, tk = _qk_rope(cfg, self.q_norm, self.k_norm, tq, tk,
+                                  None, plain)
             with span("dit.attention"):
                 img_attn, txt_attn = _joint(
                     cfg, sp, iq, ik, iv, tq, tk, tv, txt_bias, mode=mode,
@@ -439,11 +452,9 @@ class SingleBlock(nn.Module):
                 attn = torch.cat([img_attn, txt_attn], dim=1)
         else:
             with span("dit.qk_rope"):
-                if freqs_cis is not None:
-                    q = rotate_tokens(q, freqs_cis, pre=pre_q)
-                    k = rotate_tokens(k, freqs_cis, pre=pre_k)
-                elif cfg.qk_norm:
-                    q, k = pre_q(q), pre_k(k)
+                # the joint table: its text rows are the identity
+                q, k = _qk_rope(cfg, self.q_norm, self.k_norm, q, k,
+                                freqs_cis, plain)
             with span("dit.attention"):
                 attn = attention(q, k, v, mode=mode,
                                  key_bias=joint_key_bias(txt_bias, img_len),

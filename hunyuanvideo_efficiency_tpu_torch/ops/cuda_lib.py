@@ -71,6 +71,11 @@ SIGNATURES = {
             _I, [_I, _I, _P, _LL, _P, _LL, _P, _P, _I] + [_P] * 4
             + [_I] * 8 + [_P]),
     },
+    "qk_rope": {
+        "hv_qk_norm_rope": (
+            _I, [_I, _I, _P, _P] + [_LL] * 6 + [_P] * 4 + [_I, _P, _P]
+            + [_I] * 3 + [_F, _P]),
+    },
     "flash_backward": {
         "hv_flash_bwd_dq": (
             _I, [_I] * 2 + [_P] * 8 + [_I] * 4 + [_LL] * 6 + [_F, _P]),

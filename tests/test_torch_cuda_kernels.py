@@ -1373,3 +1373,163 @@ def test_flash_vjp_on_the_card(dev, dtype):
         scale_ = want.grad.abs().max().item()
         torch.testing.assert_close(got.grad.float(), want.grad,
                                    atol=3 * TOL * scale_, rtol=3 * TOL)
+
+
+# (batch, tokens, heads, head_dim, table rows or None for freqs=None, q/k
+# as column views of a fused [B, S, 3*H*D] projection, a norm weight)
+QK_ROPE_CASES = [
+    (2, 1000, 3, 128, 1000, True, True),
+    (2, 1000, 3, 64, 1000, True, True),
+    (2, 77, 5, 128, 77, False, True),        # ragged S, contiguous q/k
+    (1, 333, 4, 128, 200, True, True),       # 133 norm-only rows
+    (2, 300, 3, 64, 0, True, True),          # a 0-row table
+    (2, 300, 3, 128, None, False, True),     # freqs=None
+    (2, 300, 3, 64, 300, True, False),       # weight=None
+    (2, 34936, 24, 128, 34936, True, True),  # the 540p single block
+]
+
+
+def _qk_rope_inputs(dev, dtype, b, s, h, d, rows, fused, weighted, seed=21):
+    """q, k (column views of one projection, or contiguous), weights near
+    1 and the DiT's tables: rows of the 3-axis table over a grid of 8x8
+    frames, then identity rows up to S (the joint table's text rows)."""
+    from hunyuanvideo_efficiency_tpu_torch.ops.rope import (
+        get_nd_rotary_pos_embed)
+
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn(b, s, 3 * h * d, generator=g, device=dev) * 2 + 0.5
+    x = x.to(dtype)
+    q, k = (x[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d))
+            for i in range(2))
+    if not fused:
+        q, k = q.contiguous(), k.contiguous()
+    w = [(1 + 0.3 * torch.randn(d, generator=g, device=dev)).to(dtype)
+         if weighted else None for _ in range(2)]
+    freqs = None
+    if rows is not None:
+        dims = (16, 56, 56) if d == 128 else (8, 28, 28)
+        img = min(rows, 34680)
+        sizes = (17, 34, 60) if img == 34680 else (-(-img // 64), 8, 8)
+        cos, sin = get_nd_rotary_pos_embed(dims, sizes, device=dev)
+        cos, sin = cos[:img], sin[:img]
+        if rows > img:   # identity rows (cos 1, sin 0)
+            cos = torch.cat([cos, cos.new_ones(rows - img, d)])
+            sin = torch.cat([sin, sin.new_zeros(rows - img, d)])
+        freqs = (cos, sin)
+    return q, k, w, freqs
+
+
+def _ulp_gap(out, ref):
+    """|out - ref| over one ulp of the output type at the magnitude of
+    each interleaved pair of ref (the rotation mixes a pair)."""
+    mant = 7 if ref.dtype == torch.bfloat16 else 10
+    tiny = torch.finfo(ref.dtype).tiny
+    pair = ref.float().abs().unflatten(-1, (-1, 2)).amax(-1, keepdim=True)
+    ulp = torch.exp2(torch.floor(torch.log2(pair.clamp_min(tiny))) - mant)
+    gap = (out.float() - ref.float()).abs().unflatten(-1, (-1, 2)) / ulp
+    return gap.flatten(-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,s,h,d,rows,fused,weighted", QK_ROPE_CASES)
+def test_qk_norm_rope_kernel_matches_plain(dev, dtype, b, s, h, d, rows,
+                                           fused, weighted):
+    """The QK-RMSNorm + RoPE kernel against qk_norm_rope_plain: within one
+    ulp of the output type, at least 99.9% of the values bit for bit (the
+    fp32 sum of squares runs in another order), one launch a call,
+    contiguous outputs of the input's type."""
+    from hunyuanvideo_efficiency_tpu_torch.ops.rope import (
+        qk_norm_rope, qk_norm_rope_plain)
+
+    q, k, w, freqs = _qk_rope_inputs(dev, dtype, b, s, h, d, rows, fused,
+                                     weighted)
+    assert q.is_contiguous() != fused
+    n0 = qk_norm_rope.LAUNCHES
+    out = qk_norm_rope(q, k, *w, freqs)
+    torch.cuda.synchronize()
+    assert qk_norm_rope.LAUNCHES == n0 + 1
+    ref = qk_norm_rope_plain(q, k, *w, freqs)
+    for o, r in zip(out, ref):
+        assert o.shape == (b, s, h, d) and o.dtype == dtype
+        assert o.is_contiguous() and torch.isfinite(o).all()
+        gap = _ulp_gap(o, r)
+        assert gap.max().item() <= 1.0, gap.max().item()
+        same = (o == r).float().mean().item()
+        assert same >= 0.999, same
+    if rows is not None and 0 < rows < s:   # norm-only rows
+        from hunyuanvideo_efficiency_tpu_torch.ops.norms import rms_norm
+
+        tail = rms_norm(q[:, rows:], w[0])
+        assert (_ulp_gap(out[0][:, rows:], tail).max() <= 1.0)
+
+
+@pytest.mark.parametrize("dtype,d,wdtype", [
+    (torch.float32, 128, None), (torch.bfloat16, 32, None),
+    (torch.bfloat16, 128, torch.float32)])
+def test_qk_norm_rope_outside_the_gate_raises(dev, dtype, d, wdtype):
+    """fp32 values, head_dim 32 or a weight of another type: the wrapper
+    raises on the card (no launch); plain=True runs the plain version."""
+    from hunyuanvideo_efficiency_tpu_torch.ops.rope import (
+        qk_norm_rope, qk_norm_rope_plain)
+
+    q, k = (torch.randn(2, 50, 3, d, device=dev).to(dtype) for _ in range(2))
+    w = torch.ones(d, device=dev, dtype=wdtype) if wdtype else None
+    n0 = qk_norm_rope.LAUNCHES
+    with pytest.raises(ValueError, match="does not take"):
+        qk_norm_rope(q, k, w, w, None)
+    assert qk_norm_rope.LAUNCHES == n0
+    out = qk_norm_rope(q, k, w, w, None, plain=True)
+    for o, r in zip(out, qk_norm_rope_plain(q, k, w, w, None)):
+        assert torch.equal(o, r)
+
+
+@pytest.mark.parametrize("mode,launches", [("flash", 2 * 2 + 2),
+                                           ("sta", 2 * 2 + 2 * 2)])
+def test_dit_forward_with_the_qk_rope_kernel(dev, mode, launches):
+    """A 2+2-block DiT at head_dim 128 on the card, bf16, random QK-norm
+    weights: the forward against plain=True (the plain QK-norm + RoPE, and
+    under STA the plain STA image queries). Launches a forward: dense, one
+    for the double block's image pair, one for its text pair, one for the
+    single block's joint [img | txt] pair; STA splits the single block's
+    pair too."""
+    import dataclasses
+
+    from hunyuanvideo_efficiency_tpu_torch.models import dit as dit_mod
+    from hunyuanvideo_efficiency_tpu_torch.models.dit_config import DiTConfig
+    from hunyuanvideo_efficiency_tpu_torch.ops.rope import (
+        get_nd_rotary_pos_embed, qk_norm_rope)
+    from hunyuanvideo_efficiency_tpu_torch.utils.seeded import (
+        randomize_modulation)
+
+    cfg = dataclasses.replace(
+        DiTConfig(), hidden_size=256, heads_num=2, mm_double_blocks_depth=2,
+        mm_single_blocks_depth=2, text_states_dim=64, text_states_dim_2=32,
+        attn_mode=mode)
+    g = torch.Generator(dev).manual_seed(23)
+    model = dit_mod.build_dit(cfg, dev, torch.bfloat16, g)
+    randomize_modulation(model, 24)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, dit_mod.RMSNorm):
+                mod.weight.copy_(1 + 0.3 * torch.randn(
+                    mod.weight.shape, generator=g, device=dev))
+    grid = (8, 16, 16)
+    x = torch.randn(2, 16, grid[0], 2 * grid[1], 2 * grid[2], generator=g,
+                    device=dev)
+    t = torch.tensor([900.0, 900.0], device=dev)
+    txt = torch.randn(2, 64, 64, generator=g, device=dev)
+    mask = torch.ones(2, 64, dtype=torch.long, device=dev)
+    mask[:, 20:] = 0
+    txt2 = torch.randn(2, 32, generator=g, device=dev)
+    cos, sin = get_nd_rotary_pos_embed(cfg.rope_dim_list, grid,
+                                       theta=cfg.rope_theta, device=dev)
+    with torch.no_grad():
+        n0 = qk_norm_rope.LAUNCHES
+        out = model(x, t, txt, mask, txt2, cos, sin).float()
+        torch.cuda.synchronize()
+        assert qk_norm_rope.LAUNCHES == n0 + launches
+        ref = model(x, t, txt, mask, txt2, cos, sin, plain=True).float()
+        assert qk_norm_rope.LAUNCHES == n0 + launches
+    assert torch.isfinite(out).all()
+    rel = ((out - ref).norm() / ref.norm()).item()
+    assert rel < (1e-2 if mode == "flash" else 5e-2), rel

@@ -209,6 +209,21 @@ def test_off_cpu_tensors_never_fall_back():
     assert counts == [fn.LAUNCHES for fn in kernels]
 
 
+@pytest.mark.parametrize("grad", [False, True])
+def test_qk_norm_rope_off_cpu_never_falls_back(grad):
+    """The QK-RMSNorm + RoPE wrapper on meta tensors raises and counts no
+    launch, also under grad (its autograd.Function)."""
+    from hunyuanvideo_efficiency_tpu_torch.ops.rope import qk_norm_rope
+
+    q = torch.empty((1, 64, 2, 128), dtype=torch.bfloat16, device="meta",
+                    requires_grad=grad)
+    w = torch.empty(128, dtype=torch.bfloat16, device="meta")
+    n0 = qk_norm_rope.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        qk_norm_rope(q, q, w, w, None)
+    assert qk_norm_rope.LAUNCHES == n0
+
+
 def test_missing_library_without_nvcc_raises(monkeypatch, tmp_path):
     """No built library and no CUDA toolkit: loading a kernel raises."""
     from torch.utils import cpp_extension

@@ -179,3 +179,95 @@ def test_constants_match_jax():
     assert tconst.PROMPT_TEMPLATE == jconst.PROMPT_TEMPLATE
     assert tconst.NEGATIVE_PROMPT == jconst.NEGATIVE_PROMPT
     assert set(tconst.PRECISION_TO_TYPE) <= set(jconst.PRECISION_TO_TYPE)
+
+
+def _qk_rope_case(seed, b=2, s=24, h=3, d=32, dtype=torch.float32):
+    """q, k as column views of one fused [B, S, 3*H*D] projection, norm
+    weights near 1 and the (2, 3, 4)-grid tables (24 rows)."""
+    x = torch.from_numpy(_rand(seed, b, s, 3 * h * d) * 2 + 0.5).to(dtype)
+    q, k = (x[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d))
+            for i in range(2))
+    w = [torch.from_numpy(1 + 0.3 * _rand(seed + 1 + i, d)).to(dtype)
+         for i in range(2)]
+    freqs = trope.get_nd_rotary_pos_embed((8, 12, 12), (2, 3, 4),
+                                          theta=256.0, device="cpu")
+    return q, k, w, freqs
+
+
+@pytest.mark.parametrize("rows,weighted", [(24, True), (24, False),
+                                           (10, True), (0, True),
+                                           (None, True)])
+def test_qk_norm_rope_plain_is_the_composition(rows, weighted):
+    """qk_norm_rope (its plain version on CPU tensors) equals rms_norm then
+    rotate_tokens bit for bit in bf16; tokens past the table's rows (all
+    of them with a 0-row table or freqs=None) equal rms_norm alone."""
+    q, k, w, freqs = _qk_rope_case(5, dtype=torch.bfloat16)
+    w = w if weighted else [None, None]
+    freqs = None if rows is None else (freqs[0][:rows], freqs[1][:rows])
+    n = rows or 0
+    out = trope.qk_norm_rope(q, k, *w, freqs)
+    for x, wx, o in zip((q, k), w, out):
+        assert o.dtype == torch.bfloat16 and o.shape == x.shape
+        normed = tnorms.rms_norm(x, wx)
+        if n:
+            head = trope.rotate_tokens(
+                x[:, :n], freqs, pre=lambda t: tnorms.rms_norm(t, wx))
+            assert torch.equal(o[:, :n], head)
+        assert torch.equal(o[:, n:], normed[:, n:])
+
+
+def test_qk_norm_rope_matches_jax():
+    """QK-RMSNorm + RoPE against JAX's norms.rms_norm and
+    rope.apply_rotary_emb on the same inputs, fp32."""
+    q, k, w, _ = _qk_rope_case(7)
+    jc, js = jrope.get_nd_rotary_pos_embed((8, 12, 12), (2, 3, 4),
+                                           theta=256.0)
+    tc, ts = trope.get_nd_rotary_pos_embed((8, 12, 12), (2, 3, 4),
+                                           theta=256.0, device="cpu")
+    ref = jrope.apply_rotary_emb(
+        jnorms.rms_norm(jnp.asarray(q.numpy()), jnp.asarray(w[0].numpy())),
+        jnorms.rms_norm(jnp.asarray(k.numpy()), jnp.asarray(w[1].numpy())),
+        (jc, js))
+    out = trope.qk_norm_rope(q, k, *w, (tc, ts))
+    for o, r in zip(out, ref):
+        _close(o, r)
+
+
+@pytest.mark.parametrize("wants", [(True, False, False, False),
+                                   (False, True, False, True),
+                                   (True, True, True, True)],
+                         ids=["q", "k_and_its_weight", "all"])
+def test_qk_norm_rope_gradients(wants):
+    """Under grad qk_norm_rope goes through its autograd.Function (the
+    kernel's entry; the backward recomputes the plain version): the
+    gradients of each input asked for equal autograd through the plain
+    composition, with 10 of the 24 tokens past the table."""
+    q, k, w, freqs = _qk_rope_case(9)
+    freqs = (freqs[0][:14], freqs[1][:14])
+    grads = []
+    for fn in (trope.qk_norm_rope, trope.qk_norm_rope_plain):
+        ins = [t.detach().clone().requires_grad_(f)
+               for t, f in zip((q, k, *w), wants)]
+        oq, ok = fn(*ins, freqs)
+        if fn is trope.qk_norm_rope:
+            assert type(oq.grad_fn).__name__ == "_QKNormRopeBackward"
+        loss = (oq * torch.linspace(-1, 1, oq.shape[-1])).sum() \
+            + (ok * ok).sum()
+        grads.append(torch.autograd.grad(
+            loss, [t for t, f in zip(ins, wants) if f]))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,d,wdtype,why", [
+    (torch.bfloat16, 128, None, None), (torch.float16, 64, None, None),
+    (torch.float32, 128, None, "dtype"), (torch.bfloat16, 32, None,
+                                          "head_dim"),
+    (torch.bfloat16, 128, torch.float32, "weight dtype")])
+def test_qk_norm_rope_gate(dtype, d, wdtype, why):
+    """The kernel's reach: bf16/fp16, head_dim 64/128, a weight of the
+    values' type; the wrapper raises on CUDA tensors outside it."""
+    x = torch.zeros(1, 2, 3, d, dtype=dtype)
+    w = torch.ones(d, dtype=wdtype) if wdtype else None
+    got = trope._refusal(x, w)
+    assert (got is None) if why is None else got.startswith(why)
