@@ -19,7 +19,8 @@ ranks and a tiled decode spreads its tiles over them (JAX
 inference.py:187-200); a weight-sharded DiT (`--shard-dit-weights`) gathers
 its chunks inside its forward. Spans (utils/profiling.py:span):
 `text_encode` around `encode_prompt`, `step` around each `denoise_step`,
-`decode` around the VAE decode.
+`decode` around the VAE decode. `denoise_step.LAUNCHES` counts the DiT's
+batch rows of every step (2 under CFG, 1 without).
 """
 from __future__ import annotations
 
@@ -70,11 +71,14 @@ def denoise_step(transformer: HYVideoDiT, latents: torch.Tensor,
     mixed."""
     latent_in = torch.cat([latents] * 2) if do_cfg else latents
     n = latent_in.shape[0]
+    denoise_step.LAUNCHES += n
     dev = latents.device
     t_expand = torch.full((n,), t, dtype=torch.float32, device=dev)
+    # without a scale a guidance-distilled DiT gets None and raises in its
+    # forward, as the published model does (reference: :976-985)
     guidance = None
-    if transformer.cfg.guidance_embed:
-        guidance = torch.full((n,), (embedded_guidance_scale or 0.0) * 1000.0,
+    if transformer.cfg.guidance_embed and embedded_guidance_scale is not None:
+        guidance = torch.full((n,), embedded_guidance_scale * 1000.0,
                               dtype=torch.float32, device=dev)
     inputs = (latent_in, t_expand, prompt_embeds, prompt_mask,
               prompt_embeds_2, freqs_cos, freqs_sin, guidance)
@@ -93,6 +97,11 @@ def denoise_step(transformer: HYVideoDiT, latents: torch.Tensor,
         if guidance_rescale > 0.0:
             v = rescale_noise_cfg(v, v_text, guidance_rescale, mean)
     return euler_step(latents, v, sigma, sigma_next)
+
+
+# counts the DiT's batch rows, not calls: 2 a CFG step, 1 a step without
+# CFG (the guidance-distilled mode), the local rows under sp
+denoise_step.LAUNCHES = 0
 
 
 @dataclass

@@ -50,9 +50,11 @@ single block applies its activation to the stored output (JAX
 models/dit.py:779-783).
 
 Spans (utils/profiling.py:span, recorded only under a profiler):
-`dit.adaln` at each adaLN input and gated residual of the blocks and the
-final layer, `dit.qk_rope` around each block's QK-norm + RoPE,
-`dit.attention` around each block's joint attention with its layout work.
+`dit.embed` around a forward's conditioning and token embedders
+(time_in, vector_in, guidance_in, img_in and txt_in), `dit.adaln` at each
+adaLN input and gated residual of the blocks and the final layer,
+`dit.qk_rope` around each block's QK-norm + RoPE, `dit.attention` around
+each block's joint attention with its layout work.
 """
 from __future__ import annotations
 
@@ -579,20 +581,21 @@ class HYVideoDiT(nn.Module):
         cfg = self.cfg
         dtype = self.img_in.proj.weight.dtype
 
-        vec = self.time_in(t) + self.vector_in(text_states_2.to(dtype))
-        if cfg.guidance_embed:
-            if guidance is None:
-                raise ValueError("guidance required for guidance-distilled "
-                                 "model")
-            vec = vec + self.guidance_in(guidance)
-        img = self.img_in(x_tokens)
+        if cfg.guidance_embed and guidance is None:
+            raise ValueError("guidance required for guidance-distilled "
+                             "model")
+        with span("dit.embed"):
+            vec = self.time_in(t) + self.vector_in(text_states_2.to(dtype))
+            if cfg.guidance_embed:
+                vec = vec + self.guidance_in(guidance)
+            img = self.img_in(x_tokens)
+            text_states = text_states.to(dtype)
+            if cfg.text_projection == "linear":
+                txt = self.txt_in(text_states)
+            else:
+                txt = self.txt_in(text_states, t, text_mask
+                                  if cfg.use_attention_mask else None)
         img_len = img.shape[1]
-        text_states = text_states.to(dtype)
-        if cfg.text_projection == "linear":
-            txt = self.txt_in(text_states)
-        else:
-            txt = self.txt_in(text_states, t,
-                              text_mask if cfg.use_attention_mask else None)
         txt_len = txt.shape[1]
         txt_bias = text_key_bias(text_mask) if text_mask is not None else None
 

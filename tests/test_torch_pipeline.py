@@ -29,7 +29,7 @@ from hunyuanvideo_efficiency_tpu.ops.rope import (
     get_nd_rotary_pos_embed as jax_rope)
 from hunyuanvideo_efficiency_tpu_torch.config import InferenceArgs, parse_args
 from hunyuanvideo_efficiency_tpu_torch.diffusion.pipeline import (
-    HunyuanVideoPipeline)
+    HunyuanVideoPipeline, denoise_step)
 from hunyuanvideo_efficiency_tpu_torch.diffusion.scheduler import (
     FlowMatchDiscreteScheduler)
 from hunyuanvideo_efficiency_tpu_torch.inference import (HunyuanVideoSampler,
@@ -254,3 +254,21 @@ def test_from_pretrained_random_and_pt(monkeypatch, tmp_path, pipelines):
         for (ka, va), (kb, vb) in zip(a.state_dict().items(),
                                       b.state_dict().items()):
             assert ka == kb and torch.equal(va, vb)
+
+
+def test_distilled_dit_without_embedded_guidance_raises():
+    """A guidance-distilled DiT given no embedded_guidance_scale raises, as
+    the published model does, instead of running on guidance 0."""
+    dit = HYVideoDiT(DiTConfig(**DIT, guidance_embed=True)).eval()
+    cos, sin, _ = get_rotary_pos_embed(dit.cfg, "884-16c-hy", F, H, W,
+                                       device="cpu")
+    g = torch.Generator().manual_seed(0)
+    latents = torch.randn(1, 16, 2, H // 8, W // 8, generator=g)
+    pe = torch.randn(1, 6, DIT["text_states_dim"], generator=g)
+    pe2 = torch.randn(1, DIT["text_states_dim_2"], generator=g)
+    mask = torch.ones(1, 6, dtype=torch.int64)
+    args = (dit, latents, 1.0, 0.5, 1000.0, pe, mask, pe2, cos, sin, False,
+            1.0)
+    with pytest.raises(ValueError, match="guidance"):
+        denoise_step(*args, None, 0.0)
+    assert denoise_step(*args, 6.0, 0.0).shape == latents.shape

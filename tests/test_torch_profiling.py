@@ -2,8 +2,8 @@
 no profiler recording; under torch.profiler the log's names, parents, host
 times and self times, `span_at`, and the log's bound; the span sites of a
 tiny DiT forward (dense and the STA split path) and of a tiny VAE round
-trip, counted as the benchmark's readers count them; a `--profile-dir`
-trace holding a span's range."""
+trip, counted as the benchmark's readers count them; the DiT rows a
+denoise step counts; a `--profile-dir` trace holding a span's range."""
 import json
 import time
 
@@ -11,6 +11,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from hunyuanvideo_efficiency_tpu_torch.diffusion import pipeline
 from hunyuanvideo_efficiency_tpu_torch.models.dit import build_dit
 from hunyuanvideo_efficiency_tpu_torch.models.dit_config import DiTConfig
 from hunyuanvideo_efficiency_tpu_torch.models.vae import build_vae
@@ -147,6 +148,7 @@ def test_dit_forward_spans(mode):
             got = model(*args)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     c = counts(spans(*ALL))
+    assert c["dit.embed"] == 1
     assert c["dit.adaln"] == 2 * 8 + 2 * 2 + 1
     assert c["dit.qk_rope"] == c["dit.attention"] == 4
     wrappers = {k: v for k, v in c.items() if not k.startswith("dit.")}
@@ -163,6 +165,23 @@ def test_dit_forward_spans(mode):
             assert r.parent is None
     attn = spans(*ALL, name="dit.attention")
     assert all(0.0 <= r.self_device_ms <= r.device_ms for r in attn)
+
+
+@pytest.mark.parametrize("do_cfg", [False, True], ids=["distilled", "cfg"])
+def test_denoise_step_counts_dit_rows(do_cfg):
+    """denoise_step.LAUNCHES adds the DiT's batch rows: 1 a guidance-
+    distilled step, 2 a CFG step; either is one forward, one dit.embed."""
+    model = tiny_dit(guidance_embed=True)
+    x, t, txt, mask, txt2, cos, sin = dit_args(model)
+    if do_cfg:
+        txt, mask, txt2 = (torch.cat([a, a]) for a in (txt, mask, txt2))
+    before = pipeline.denoise_step.LAUNCHES
+    with recording():
+        pipeline.denoise_step(model, x, 1.0, 0.9, 999.0, txt, mask, txt2,
+                              cos, sin, do_cfg, 6.0 if do_cfg else 1.0, 6.0,
+                              0.0)
+    assert pipeline.denoise_step.LAUNCHES - before == (2 if do_cfg else 1)
+    assert counts(spans(*ALL))["dit.embed"] == 1
 
 
 def test_vae_round_trip_spans():
