@@ -8,6 +8,7 @@ plus fp32 sums in another order: 1e-2 absolute.
 """
 import pytest
 import torch
+import thread_budget  # noqa: F401  (this worker's share of the cores)
 
 from hunyuanvideo_efficiency_tpu_torch.ops.conv3d_cuda import (
     conv3d_stride1, conv3d_stride1_plain, conv3d_stride1_v2)

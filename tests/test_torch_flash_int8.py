@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import thread_budget  # noqa: F401  (this worker's share of the cores)
 
 from hunyuanvideo_efficiency_tpu.ops.flash_attention import (
     flash_attention_int8 as jax_flash_int8)

@@ -19,6 +19,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import thread_budget  # noqa: F401  (this worker's share of the cores)
 
 from hunyuanvideo_efficiency_tpu.data import mp42tensor as jmp4
 from hunyuanvideo_efficiency_tpu.data.video_bit_rate import (

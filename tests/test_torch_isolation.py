@@ -8,6 +8,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import thread_budget  # noqa: F401  (this worker's share of the cores)
 
 from hunyuanvideo_efficiency_tpu_torch.ops import cuda_lib
 from hunyuanvideo_efficiency_tpu_torch.ops.conv3d_cuda import (

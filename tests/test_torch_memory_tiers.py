@@ -26,6 +26,7 @@ import types
 import numpy as np
 import pytest
 import torch
+import thread_budget  # noqa: F401  (this worker's share of the cores)
 
 from hunyuanvideo_efficiency_tpu_torch.models import dit as dit_mod
 from hunyuanvideo_efficiency_tpu_torch.models.dit_config import DiTConfig

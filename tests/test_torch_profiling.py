@@ -9,6 +9,7 @@ import time
 
 import pytest
 import torch
+import thread_budget  # noqa: F401  (this worker's share of the cores)
 from torch.profiler import ProfilerActivity, profile
 
 from hunyuanvideo_efficiency_tpu_torch.diffusion import pipeline

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import thread_budget  # noqa: F401  (this worker's share of the cores)
 
 from hunyuanvideo_efficiency_tpu.models.text import encoder as jax_encoder
 from hunyuanvideo_efficiency_tpu.models.text.llama import (

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import thread_budget  # noqa: F401  (this worker's share of the cores)
 
 from hunyuanvideo_efficiency_tpu.models.dit import init_dit_params
 from hunyuanvideo_efficiency_tpu.models.dit_config import DiTConfig as JCfg

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import thread_budget  # noqa: F401  (this worker's share of the cores)
 
 from hunyuanvideo_efficiency_tpu import prompt_rewrite as jax_rewrite
 from hunyuanvideo_efficiency_tpu.diffusion.scheduler import (

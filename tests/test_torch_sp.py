@@ -89,6 +89,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import thread_budget  # noqa: F401  (this worker's share of the cores)
 
 from hunyuanvideo_efficiency_tpu.diffusion.pipeline import denoise_latents
 from hunyuanvideo_efficiency_tpu.diffusion.scheduler import (

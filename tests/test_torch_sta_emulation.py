@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import thread_budget  # noqa: F401  (this worker's share of the cores)
 
 from hunyuanvideo_efficiency_tpu.ops import sta as jsta
 from hunyuanvideo_efficiency_tpu_torch.ops import sta

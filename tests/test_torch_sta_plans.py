@@ -9,6 +9,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import thread_budget  # noqa: F401  (this worker's share of the cores)
 
 from hunyuanvideo_efficiency_tpu_torch.ops import sta
 from hunyuanvideo_efficiency_tpu_torch.ops.attention import (attention,

@@ -19,6 +19,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import thread_budget  # noqa: F401  (this worker's share of the cores)
 
 from hunyuanvideo_efficiency_tpu.models.dit import init_dit_params
 from hunyuanvideo_efficiency_tpu.models.dit_config import DiTConfig as JCfg
